@@ -1,0 +1,650 @@
+"""Turbo path, speed mode (port of `gseg_tpu/models/turbo.py`).
+
+Same partition and the same canonical min-vertex-id labels as the
+reference's speed mode (`weight_buckets=0`) with the dist-free peel rounds
+(the reference's `GSEG_PEEL_SIZES=count` configuration):
+
+  STAGE G — gossip rounds over the pixel grid: component min edge by a
+  lexmin fixpoint (`kernels.gossip.compmin_gossip`), merged labels by a
+  min-label flood over same-label + passing-hook adjacency with Int(C)
+  riding as a max (`label_flood`), exact sizes by a counting scatter in the
+  two peel rounds and by grouping the compact old-root list afterwards.
+  Rounds run until at most V/128 components remain.
+
+  HANDOFF — live boundary edges are extracted into a compact pool
+  (`kernels.extract.boundary_extract`) and deduplicated to the min edge per
+  component pair.
+
+  STAGE 2 — compact Boruvka rounds on the edge pool (sorts, compaction,
+  pointer doubling), then the min-size rounds.
+
+  FINAL — each component's final root is placed on its root pixel and
+  value-flooded over the stage-G components (`value_flood`).
+
+Every `lax.while_loop` of the reference is a host loop that reads a device
+value each iteration, and every `lax.cond` a host `if`. Capacities are the
+reference's at its default handoff gate (V/128); overflows raise FLAG_* bits
+and are never silent.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import SegmentationConfig
+from ..ops import filters
+from ..ops import grid_graph as gg
+from ..ops.kernels import extract as kx
+from ..ops.kernels import gossip as kg
+
+INT32_MAX = gg.INT32_MAX
+
+FLAG_GOSSIP_UNCONVERGED = 1   # a sweep fixpoint hit its sweep cap
+FLAG_PAIR_OVERFLOW = 2        # extracted pair count exceeded pair_cap
+FLAG_COMP_OVERFLOW = 4        # live component heads exceeded comp_cap
+FLAG_RECOMPACT_OVERFLOW = 8   # deduped pairs exceeded the recompact cap
+FLAG_ITERS_EXHAUSTED = 16     # stage-2 exited its round budget unconverged
+
+_RLIST_FLOOR = 16384  # min sliced root-list capacity (tests shrink it)
+_CAP_FLOOR = 16384    # min pool/recompact capacity (tests shrink it)
+_EX_SMALL = True      # handoff: dedup only the live head of the pool
+_S2_SMALL = True      # stage 2: run the early rounds on a sliced pool
+
+
+class GossipState(NamedTuple):
+    L: torch.Tensor       # (H, W) int32 canonical labels (min vertex id)
+    S: torch.Tensor       # (H, W) int32 component size at the root pixel
+    ID: torch.Tensor      # (H, W) float32 Int(C), replicated
+    merged: bool
+    it: int
+    flags: torch.Tensor   # () int32 FLAG_* bits accumulated so far
+
+
+class CompactState(NamedTuple):
+    esrc: torch.Tensor    # (E,) int32 current comp label of endpoint a
+    edst: torch.Tensor    # (E,) int32
+    ew: torch.Tensor      # (E,) float32 (+inf dead)
+    eeid: torch.Tensor    # (E,) int32 canonical edge id (global tie-break)
+    SZf: torch.Tensor     # (V,) int32 sizes at root slots
+    IDf: torch.Tensor     # (V,) float32 Int at root slots
+    fin: torch.Tensor     # (C,) int32 current root of each initial root
+    merged: bool
+    it: int
+    phase: int            # 0 = felz rounds, 1 = min-size rounds
+    flags: torch.Tensor   # () int32 FLAG_* bits accumulated so far
+
+
+# ---------------------------------------------------------------------------
+# helpers for the reference's sort/scatter idioms
+# ---------------------------------------------------------------------------
+
+
+def _raise_flag(flags, cond, bit):
+    """flags | bit where cond (a Python bool or a 0-d device bool)."""
+    if isinstance(cond, bool):
+        return flags | bit if cond else flags
+    return flags | cond.to(torch.int32) * bit
+
+
+def _key64(a, b):
+    """int64 sort key ordering like the pair (a, b), for non-negative int32
+    or float32 a, b (non-negative floats order like their bits)."""
+    def bits(x):
+        return (x.view(torch.int32) if x.dtype == torch.float32
+                else x).to(torch.int64)
+    return (bits(a) << 32) | bits(b)
+
+
+def _lexsort(*keys):
+    """Permutation sorting by keys[0], then keys[1], ...: stable sorts
+    chained from the last key to the first (`lax.sort(num_keys=k)`)."""
+    perm = torch.sort(keys[-1], stable=True).indices
+    for k in reversed(keys[:-1]):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return perm
+
+
+def _gather(x, idx):
+    """x[idx] with out-of-range indices clamped, as XLA gathers clamp (only
+    masked-out lanes ever carry such indices)."""
+    return x[idx.to(torch.int64).clamp(0, x.numel() - 1)]
+
+
+def _scatter(base, idx, vals, reduce=None):
+    """base.at[idx].<reduce>(vals, mode="drop") with idx == len(base) as the
+    dropped slot. reduce: None (set), "sum", "amin" or "amax"."""
+    ext = torch.cat([base, base.new_zeros(1)])
+    idx = idx.to(torch.int64)
+    if reduce is None:
+        ext.scatter_(0, idx, vals)
+    else:
+        ext.scatter_reduce_(0, idx, vals, reduce)
+    return ext[:-1]
+
+
+def _run_heads(x):
+    head = torch.ones_like(x, dtype=torch.bool)
+    head[1:] = x[1:] != x[:-1]
+    return head
+
+
+def _shifts8(x, fill):
+    return [gg.shift_plane(x, dy, dx, fill) for dy, dx in gg.DIRS8]
+
+
+# ---------------------------------------------------------------------------
+# Stage G: gossip rounds
+# ---------------------------------------------------------------------------
+
+
+def _vertex_min_outgoing(L, w8, eid8):
+    nbrL = torch.stack(_shifts8(L, -1))
+    w = torch.where(nbrL != L[None], w8, torch.inf)
+    vminw = w.amin(0)
+    veid = torch.where(w == vminw[None], eid8, INT32_MAX).amin(0)
+    veid = torch.where(torch.isfinite(vminw), veid, INT32_MAX)
+    return vminw, veid, nbrL
+
+
+def _build_rlist(L, cap: int):
+    """Sorted list of root-pixel flat ids (INT32_MAX dead slots), overflow."""
+    v = L.numel()
+    flat = torch.arange(v, dtype=torch.int32, device=L.device)
+    key = torch.where(L.reshape(-1) == flat, flat, INT32_MAX)
+    srt = torch.sort(key).values
+    if cap >= v:
+        pad = torch.full((cap - v,), INT32_MAX, dtype=torch.int32,
+                         device=L.device)
+        return torch.cat([srt, pad]), False
+    return srt[:cap], srt[cap] != INT32_MAX
+
+
+def _sum_by_label(lab, val, h, w):
+    """Sum `val` grouped by `lab` (root-pixel flat ids; INT32_MAX = dead) ->
+    ((H, W) plane with each group's total at its root pixel / 0 elsewhere,
+    sorted label list with INT32_MAX at non-head slots)."""
+    v = h * w
+    s_lab, order = torch.sort(lab, stable=True)
+    head = _run_heads(s_lab)
+    gid = torch.cumsum(head, 0) - 1
+    total = torch.zeros_like(val).index_add_(0, gid, val[order])
+    live_head = head & (s_lab != INT32_MAX)
+    S = _scatter(torch.zeros(v, dtype=torch.int32, device=lab.device),
+                 torch.where(live_head, s_lab, v), total[gid])
+    roots = torch.where(live_head, s_lab, INT32_MAX)
+    return S.reshape(h, w), roots
+
+
+def _rlist_sizes(rlist, Lnew, S_old):
+    """Exact new-component sizes from the old-root list: each new component
+    is a disjoint union of old ones, so its size is the old roots' S summed
+    by their new label. Returns (S plane, new rlist)."""
+    h, w = Lnew.shape
+    alive = rlist != INT32_MAX
+    safe = torch.where(alive, rlist, 0).to(torch.int64)
+    Lr = torch.where(alive, Lnew.reshape(-1)[safe], INT32_MAX)
+    Sr = torch.where(alive, S_old.reshape(-1)[safe], 0)
+    return _sum_by_label(Lr, Sr, h, w)
+
+
+def _component_sizes(L):
+    """Exact per-component pixel counts (peel rounds): one counting scatter
+    keyed by label. Returns ((H, W) size at root pixel / 0 elsewhere,
+    overflow=False)."""
+    h, w = L.shape
+    v = h * w
+    S = torch.bincount(L.reshape(-1).to(torch.int64), minlength=v)
+    S = S.to(torch.int32).reshape(h, w)
+    vid = torch.arange(v, dtype=torch.int32, device=L.device).reshape(h, w)
+    return torch.where(L == vid, S, 0), False
+
+
+def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
+            sizes="count", idle_compmin=False):
+    """One gossip Boruvka round (felz predicate, dist-free flood).
+
+    sizes="count": exact sizes by a counting scatter (peel rounds).
+    sizes="rlist": sizes by grouping the compact old-root list `rlist`;
+    returns (state, new rlist).
+    idle_compmin: True on round 1 (all-singleton labels: the compmin
+    fixpoint is the identity)."""
+    L, S, ID = state.L, state.S, state.ID
+
+    vminw, veid, nbrL = _vertex_min_outgoing(L, w8, eid8)
+    cw, ce, SZ, unconv = kg.compmin_gossip(L, vminw, veid, S, max_sweeps,
+                                           idle=idle_compmin)
+
+    # Multiply-form predicate (w - Int) * |C| <= k, as separate float32 ops.
+    kf = torch.tensor(k, dtype=torch.float32, device=L.device)
+    SZf = SZ.to(torch.float32)
+    my_ok = (cw - ID) * SZf <= kf
+    ID8 = torch.stack(_shifts8(ID, 0.0))
+    SZ8 = torch.stack(_shifts8(SZf, 0.0))
+    owner8 = (nbrL != L[None]) & (w8 == cw[None]) & (eid8 == ce[None])
+    pass8 = owner8 & my_ok[None] & ((cw[None] - ID8) * SZ8 <= kf)
+
+    new_mark4 = [pass8[dc] | gg.shift_plane(pass8[dc + 4], dy, dx, False)
+                 for dc, (dy, dx) in enumerate(gg.DIRS4)]
+    merged = bool(torch.stack(new_mark4).any())
+
+    allow = []
+    for d in range(8):
+        if d < 4:
+            am = new_mark4[d]
+        else:
+            dy, dx = gg.DIRS4[d - 4]
+            am = gg.shift_plane(new_mark4[d - 4], -dy, -dx, False)
+        allow.append((nbrL[d] == L) | am)
+    allow8 = torch.stack(allow)
+
+    hook8 = allow8 & (nbrL != L[None])
+    used_w8 = torch.where(hook8, torch.where(torch.isfinite(w8), w8, 0.0), 0.0)
+    id_init = torch.maximum(ID, used_w8.amax(0))
+
+    Lnew, IDnew, lab_unconv = kg.label_flood(
+        kg.pack_allow_bits(allow), L, id_init, max_sweeps)
+    if sizes == "rlist":
+        Snew, rlist_new = _rlist_sizes(rlist, Lnew, S)
+    else:
+        Snew, _ = _component_sizes(Lnew)
+    flags = _raise_flag(state.flags, unconv or lab_unconv,
+                        FLAG_GOSSIP_UNCONVERGED)
+    out = GossipState(L=Lnew, S=Snew, ID=IDnew, merged=merged,
+                      it=state.it + 1, flags=flags)
+    return (out, rlist_new) if sizes == "rlist" else out
+
+
+def _rlist_loop(gcond, gbody, gst, rlist, vid, cap: int):
+    """Root-list rounds: at full list capacity while more than `cap` roots
+    live, then on the list sorted and sliced to `cap`. Slicing is lossless
+    once every live root fits, and the component count only decreases, so
+    this runs exactly the rounds a single loop would."""
+    if cap < rlist.numel():
+        while gcond(gst) and int((gst.L == vid).sum()) > cap:
+            gst, rlist = gbody(gst, rlist)
+        # dead slots sit interleaved in the list: sort them to the tail.
+        rlist = torch.sort(rlist).values[:cap]
+    while gcond(gst):
+        gst, rlist = gbody(gst, rlist)
+    return gst
+
+
+def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
+             weights_override=None):
+    """Smoothing + implicit graph + gossip rounds; returns (state, weights).
+
+    weights_override: optional (4, H, W) float32 planes that replace the
+    smoothing + edge-weight computation (parity-testing hook: feeding both
+    packages the same weights isolates the partition logic from float drift
+    in the filter chain)."""
+    h, w = image.shape[0], image.shape[1]
+    v = h * w
+    dev = image.device
+    max_sweeps = 4 * (h + w)
+
+    if weights_override is not None:
+        if not isinstance(weights_override, torch.Tensor):
+            weights_override = torch.tensor(np.asarray(weights_override))
+        weights = weights_override.to(dev, torch.float32).contiguous()
+    else:
+        smoothed = filters.gaussian_smooth(image, cfg.sigma)
+        weights, _ = gg.edge_weight_planes(smoothed, cfg.connectivity,
+                                           cfg.quantize_weight_bits)
+    w8, eid8 = gg.incident_views(weights)
+    vid = torch.arange(v, dtype=torch.int32, device=dev).reshape(h, w)
+
+    gst = GossipState(
+        L=vid, S=torch.ones((h, w), dtype=torch.int32, device=dev),
+        ID=torch.zeros((h, w), dtype=torch.float32, device=dev),
+        merged=True, it=0,
+        flags=torch.zeros((), dtype=torch.int32, device=dev))
+
+    # two peel rounds with counting-scatter sizes.
+    while gst.merged and gst.it < 2:
+        gst = _ground(gst, w8, eid8, cfg.k, max_sweeps, sizes="count",
+                      idle_compmin=gst.it == 0)
+    rlist, rovf = _build_rlist(gst.L, max(v // 4, _CAP_FLOOR))
+    gst = gst._replace(flags=_raise_flag(gst.flags, rovf, FLAG_COMP_OVERFLOW))
+
+    gate_c = v // 128
+
+    def gcond(s):
+        return s.merged and (s.it < gossip_rounds
+                             or int((s.L == vid).sum()) > gate_c)
+
+    def gbody(s, rl):
+        return _ground(s, w8, eid8, cfg.k, max_sweeps, rlist=rl,
+                       sizes="rlist")
+
+    gst = _rlist_loop(gcond, gbody, gst, rlist, vid,
+                      max(v // 32, _RLIST_FLOOR))
+    return gst, weights
+
+
+# ---------------------------------------------------------------------------
+# Handoff and stage 2: compact rounds
+# ---------------------------------------------------------------------------
+
+
+def _select_compact(mask, keys, cap):
+    """Move masked entries to the front (stable) and slice to `cap`.
+    Returns (out_mask (cap,), [outs], overflow)."""
+    order = torch.sort((~mask).to(torch.uint8), stable=True).indices
+    outs = [x[order][:cap] for x in keys]
+    return mask[order][:cap], outs, mask.sum() > cap
+
+
+def _pair_dedup(esrc, edst, ew, eid, cap):
+    """Keep only the min (w, eid) edge per directed (src, dst) pair; arrays
+    of size cap."""
+    live = (esrc != edst) & torch.isfinite(ew)
+    k1 = torch.where(live, esrc, INT32_MAX)
+    k2 = torch.where(live, edst, INT32_MAX)
+    perm = _lexsort(_key64(k1, k2), _key64(ew, eid))
+    s1, s2, sw, se = k1[perm], k2[perm], ew[perm], eid[perm]
+    head = torch.ones_like(live)
+    head[1:] = (s1[1:] != s1[:-1]) | (s2[1:] != s2[:-1])
+    head &= s1 != INT32_MAX
+    m, (o1, o2, ow, oe), ovf = _select_compact(head, [s1, s2, sw, se], cap)
+    o1 = torch.where(m, o1, 0)
+    o2 = torch.where(m, o2, 0)
+    ow = torch.where(m, ow, torch.inf)
+    return o1, o2, ow, oe, ovf
+
+
+def _extract_stage(gst: GossipState, weights):
+    """Gossip -> compact handoff: the boundary_extract pool, then a flat
+    sort-dedup of its live head. Returns (st, rm, r0)."""
+    h, w = gst.L.shape
+    v = h * w
+    pair_cap = max(v // 24, _CAP_FLOOR)
+    cap_live = max(v // 2, 1 << 16)
+    lo, hi, ew4, eid4, cnt, extract_ovf = kx.boundary_extract(
+        gst.L, weights, cap_live)
+
+    # live-count small path: entries sit in slots [0, cnt), so when they
+    # fit a quarter of the pool only that slice is sorted. The count is
+    # exact here, so this branch may differ from the reference's (whose
+    # count is an upper bound); results do not.
+    small_cap = max(cap_live // 4, pair_cap)
+    n = cap_live
+    if _EX_SMALL and small_cap < cap_live and int(cnt) <= small_cap:
+        n = small_cap
+    lo, hi, ew4, eid4 = lo[:n], hi[:n], ew4[:n], eid4[:n]
+    perm = _lexsort(_key64(lo, hi), _key64(ew4, eid4))
+    s_lo, s_hi, s_w, s_e = lo[perm], hi[perm], ew4[perm], eid4[perm]
+    head = torch.ones_like(s_lo, dtype=torch.bool)
+    head[1:] = (s_lo[1:] != s_lo[:-1]) | (s_hi[1:] != s_hi[:-1])
+    head &= s_lo != INT32_MAX
+    pm, (plo, phi, pw, pe), pair_ovf = _select_compact(
+        head, [s_lo, s_hi, s_w, s_e], pair_cap)
+    return _pools_to_state(pm, plo, phi, pw, pe, pair_ovf | extract_ovf, v,
+                           gst.S.reshape(-1), gst.ID.reshape(-1), gst.flags)
+
+
+def _pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v, SZf, IDf, base_flags):
+    """Deduped pair pool -> two-orientation edge pool + stage-2 entry state,
+    plus the initial-root list (rm, r0) for the final map."""
+    plo = torch.where(pm, plo, 0)
+    phi = torch.where(pm, phi, 0)
+    pw = torch.where(pm, pw, torch.inf)
+    esrc = torch.cat([plo, phi])
+    edst = torch.cat([phi, plo])
+    ew = torch.cat([pw, pw])
+    eeid = torch.cat([pe, pe])
+
+    # every component with a live edge; the others never merge in stage 2.
+    comp_cap = max(v // 96, _CAP_FLOOR)
+    srt_src = torch.sort(torch.where(torch.isfinite(ew), esrc,
+                                     INT32_MAX)).values
+    rhead = _run_heads(srt_src) & (srt_src != INT32_MAX)
+    rm, (r0_arr,), root_ovf = _select_compact(rhead, [srt_src], comp_cap)
+    r0 = torch.where(rm, r0_arr, v)  # v = dropped slot in scatters
+
+    flags0 = _raise_flag(_raise_flag(base_flags, pair_ovf, FLAG_PAIR_OVERFLOW),
+                         root_ovf, FLAG_COMP_OVERFLOW)
+    st = CompactState(esrc=esrc, edst=edst, ew=ew, eeid=eeid, SZf=SZf,
+                      IDf=IDf, fin=torch.where(rm, r0_arr, 0), merged=True,
+                      it=0, phase=0, flags=flags0)
+    return st, rm, r0
+
+
+def _s2_round(st: CompactState, v, comp_cap, k, min_size,
+              is_felz: bool) -> CompactState:
+    """One compact round (canonical min-member relabel). is_felz: the
+    predicate-gated felz round vs a min-size round."""
+    esrc, edst, ew = st.esrc, st.edst, st.ew
+    dev = esrc.device
+    live = (esrc != edst) & torch.isfinite(ew)
+    k1 = torch.where(live, esrc, INT32_MAX)
+    kw = torch.where(live, ew, torch.inf)
+    perm = _lexsort(_key64(k1, kw), st.eeid)
+    s_src, s_w, s_dst = k1[perm], kw[perm], edst[perm]
+    head = _run_heads(s_src) & (s_src != INT32_MAX)
+    hm, (hsrc, hw, hdst), head_ovf = _select_compact(
+        head, [s_src, s_w, s_dst], comp_cap)
+
+    if is_felz:
+        kf = torch.tensor(k, dtype=torch.float32, device=dev)
+        lhs_s = (hw - _gather(st.IDf, hsrc)) * _gather(st.SZf, hsrc).float()
+        lhs_d = (hw - _gather(st.IDf, hdst)) * _gather(st.SZf, hdst).float()
+        ok = (lhs_s <= kf) & (lhs_d <= kf)
+    else:
+        ok = _gather(st.SZf, hsrc) < min_size
+    hook = hm & ok
+
+    succ = torch.where(hook, hdst, hsrc)
+    hsrc_safe = torch.where(hm, hsrc, v)
+    iota = torch.arange(v, dtype=torch.int32, device=dev)
+    S = _scatter(iota, hsrc_safe, succ)
+    s2 = _gather(S, succ)
+    mutual = (s2 == hsrc) & (succ != hsrc)
+    succ = torch.where(mutual & (hsrc < succ), hsrc, succ)
+
+    # Hook chains resolve by pointer doubling in compact index space. A
+    # fixed step count equal to the reference's cap: once converged,
+    # further steps leave the pointers unchanged, so the result is the same
+    # without a device->host read per step.
+    cap = hsrc.numel()
+    cidx = torch.arange(cap, dtype=torch.int32, device=dev)
+    hidx = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
+                               device=dev), hsrc_safe, cidx)
+    csucc_raw = _gather(hidx, torch.where(hm, succ, 0))
+    croot = torch.where(hm & (succ != hsrc) & (csucc_raw != INT32_MAX),
+                        csucc_raw, cidx).to(torch.int64)
+    for _ in range(max(int(cap).bit_length() + 1, 4)):
+        croot = croot[croot]
+    nr = hsrc[croot]
+
+    # relabel each cluster to its min member root.
+    canon = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
+                                device=dev),
+                     torch.where(hm, nr, v),
+                     torch.where(hm, hsrc, INT32_MAX), "amin")
+    nr_canon = torch.where(hm, _gather(canon, nr), hsrc)
+    changed = hm & (nr_canon != hsrc)
+
+    M = _scatter(iota, hsrc_safe, nr_canon)
+    tgt = torch.where(changed, nr_canon, v)
+    SZf = _scatter(st.SZf, tgt,
+                   torch.where(changed, _gather(st.SZf, hsrc), 0), "sum")
+    IDf = _scatter(st.IDf, tgt,
+                   torch.where(changed, _gather(st.IDf, hsrc), 0.0), "amax")
+    # used hook edges contribute their weight to the new root's Int.
+    used = hm & (succ != hsrc)
+    IDf = _scatter(IDf, torch.where(used, nr_canon, v),
+                   torch.where(used, hw, 0.0), "amax")
+
+    return CompactState(
+        esrc=M[esrc.to(torch.int64)], edst=M[edst.to(torch.int64)],
+        ew=st.ew, eeid=st.eeid, SZf=SZf, IDf=IDf,
+        fin=M[st.fin.to(torch.int64)],
+        merged=bool(changed.any()), it=st.it + 1, phase=st.phase,
+        flags=_raise_flag(st.flags, head_ovf, FLAG_COMP_OVERFLOW))
+
+
+def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
+              with_minsize: bool, flag_exhaustion: bool = True):
+    """Felz rounds to convergence, then (optionally) min-size rounds; the
+    phase flips 0 -> 1 when a felz round merges nothing.
+    flag_exhaustion=False for deliberately round-capped warm-up phases."""
+    st = st._replace(merged=True, it=0)
+    while st.merged and st.it < max_iters:
+        is_felz = st.phase == 0
+        st = _s2_round(st, v, comp_cap, k, min_size, is_felz)
+        if with_minsize and is_felz and not st.merged:
+            st = st._replace(phase=1, merged=True)
+    if flag_exhaustion and st.merged:
+        # the round budget ended the loop early.
+        st = st._replace(flags=st.flags | FLAG_ITERS_EXHAUSTED)
+    return st
+
+
+def _recompact_edges(st: CompactState, cap):
+    """Dedup + shrink the edge buffers to a smaller capacity."""
+    o1, o2, ow, oe, ovf = _pair_dedup(st.esrc, st.edst, st.ew, st.eeid, cap)
+    return st._replace(esrc=o1, edst=o2, ew=ow, eeid=oe), ovf
+
+
+def _prune_dead(st: CompactState, v, k, min_size):
+    """Kill edges that can never take part in another merge (lossless).
+
+    A component is frozen when (min outgoing w - Int) * |C| > k: no felz
+    round can merge it again. An edge is dead when both endpoints are
+    frozen and neither is small (min-size rounds only hook from small
+    components, and the small[edst] term keeps every min-size hook target
+    a head). Returns st with dead edges' weights set to +inf."""
+    live = (st.esrc != st.edst) & torch.isfinite(st.ew)
+    key = torch.where(live, st.esrc, INT32_MAX)
+    kw = torch.where(live, st.ew, torch.inf)
+    perm = torch.sort(_key64(key, kw), stable=True).indices
+    s_src, s_w = key[perm], kw[perm]
+    head = _run_heads(s_src) & (s_src != INT32_MAX)
+    minw = _scatter(torch.full((v,), torch.inf, dtype=torch.float32,
+                               device=key.device),
+                    torch.where(head, s_src, v), s_w, "amin")
+    kf = torch.tensor(k, dtype=torch.float32, device=key.device)
+    frozen = (minw - st.IDf) * torch.clamp(st.SZf.to(torch.float32),
+                                           min=1.0) > kf
+    small = st.SZf < min_size
+    src, dst = st.esrc.to(torch.int64), st.edst.to(torch.int64)
+    keep = ~(frozen[src] & frozen[dst]) | small[src] | small[dst]
+    return st._replace(ew=torch.where(live & ~keep, torch.inf, st.ew))
+
+
+def _slice_pool(st: CompactState, pair_cap: int, cs: int) -> CompactState:
+    """Slice the two-orientation pool to `cs` pairs per half (each half is
+    front-compacted, so this keeps every live pair when live <= cs)."""
+    def take(x):
+        return torch.cat([x[:cs], x[pair_cap:pair_cap + cs]])
+
+    return st._replace(esrc=take(st.esrc), edst=take(st.edst),
+                       ew=take(st.ew), eeid=take(st.eeid))
+
+
+def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig):
+    """All stage-2 compact rounds: warm-up round, recompact, two rounds,
+    prune, recompact, then the main phase with the min-size rounds."""
+    comp_cap = v if v <= 1 << 20 else max(v // 96, _CAP_FLOOR)
+    rec1_cap = max(v // 64, _CAP_FLOOR)
+
+    def early(s: CompactState) -> CompactState:
+        s = _s2_phase(s, v, comp_cap, cfg.k, cfg.min_size, 1,
+                      with_minsize=False, flag_exhaustion=False)
+        s, rec_ovf = _recompact_edges(s, rec1_cap)
+        s = s._replace(flags=_raise_flag(s.flags, rec_ovf,
+                                         FLAG_RECOMPACT_OVERFLOW))
+        s = _s2_phase(s, v, comp_cap, cfg.k, cfg.min_size, 2,
+                      with_minsize=False, flag_exhaustion=False)
+        s = _prune_dead(s, v, cfg.k, cfg.min_size)
+        s, rec2_ovf = _recompact_edges(s, max(v // 128, _CAP_FLOOR // 2))
+        return s._replace(flags=_raise_flag(s.flags, rec2_ovf,
+                                            FLAG_RECOMPACT_OVERFLOW))
+
+    # live-count small path: when every live pair fits a much smaller
+    # slice, run the same early rounds on the sliced pool (dead slots past
+    # the slice carry no information).
+    pair_cap = st.esrc.numel() // 2
+    cs = max(v // 64, -(-rec1_cap // 2))
+    if (_S2_SMALL and cs < pair_cap
+            and int(torch.isfinite(st.ew[:pair_cap]).sum()) <= cs):
+        st = early(_slice_pool(st, pair_cap, cs))
+    else:
+        st = early(st)
+    return _s2_phase(st, v, max(v // 1024, 4096), cfg.k, cfg.min_size,
+                     2 * cfg.max_iters + 1, with_minsize=cfg.min_size > 1)
+
+
+def _final_map(gst: GossipState, st: CompactState, rm, r0, max_sweeps):
+    """Stage-G labels through the stage-2 root map -> final (H, W) labels:
+    each root pixel holds its final label (its own id when stage 2 never
+    saw it), and a value flood spreads it over the stage-G component.
+    Returns (labels, unconverged)."""
+    h, w = gst.L.shape
+    v = h * w
+    vid2d = torch.arange(v, dtype=torch.int32,
+                         device=gst.L.device).reshape(h, w)
+    seed = torch.where(gst.L == vid2d, gst.L, INT32_MAX).reshape(-1)
+    seed = _scatter(seed, r0, st.fin)  # r0 holds v (dropped) where ~rm
+    return kg.value_flood(gst.L, seed.reshape(h, w), max_sweeps)
+
+
+def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
+                       gossip_rounds: int = 2, weights_override=None):
+    """(H, W, 3) tensor -> (labels, flags): (H, W) int32 canonical
+    (min-vertex-id) labels on the image's device, plus an int FLAG_* mask —
+    nonzero means a capacity or sweep-budget violation, and the labels
+    must not be trusted (`segment_turbo` checks it).
+
+    weights_override: see _stage_g (parity-testing hook)."""
+    if cfg.weight_buckets > 0:
+        raise NotImplementedError(
+            "turbo quality mode (weight_buckets > 0) is not ported yet "
+            "(ROADMAP.md, queue 1, item 7)")
+    h, w = image.shape[0], image.shape[1]
+    v = h * w
+    gst, weights = _stage_g(image, cfg, gossip_rounds, weights_override)
+    st, rm, r0 = _extract_stage(gst, weights)
+    st = _s2_stage(st, v, cfg)
+    labels, fm_unconv = _final_map(gst, st, rm, r0, 4 * (h + w))
+    flags = _raise_flag(st.flags, fm_unconv, FLAG_GOSSIP_UNCONVERGED)
+    return labels, int(flags)
+
+
+segment_turbo_flagged = segment_turbo_impl
+
+
+def describe_flags(flags: int) -> str:
+    names = {
+        FLAG_GOSSIP_UNCONVERGED: "gossip sweep cap exhausted",
+        FLAG_PAIR_OVERFLOW: "pair-extraction capacity overflow",
+        FLAG_COMP_OVERFLOW: "component-head capacity overflow",
+        FLAG_RECOMPACT_OVERFLOW: "edge-recompaction capacity overflow",
+        FLAG_ITERS_EXHAUSTED: "stage-2 round budget exhausted",
+    }
+    hits = [msg for bit, msg in names.items() if flags & bit]
+    return "; ".join(hits) if hits else "ok"
+
+
+def segment_turbo(image: torch.Tensor, cfg: SegmentationConfig,
+                  gossip_rounds: int = 2) -> torch.Tensor:
+    """Checked turbo entry: (H, W, 3) -> (H, W) int32 labels.
+
+    On a nonzero flag mask the result is not a valid segmentation: per
+    cfg.on_overflow this raises RuntimeError ("raise"), returns anyway
+    ("ignore"), or would route to the atomic path ("fallback", which
+    raises NotImplementedError until that path is ported)."""
+    labels, flags = segment_turbo_flagged(image, cfg, gossip_rounds)
+    if flags == 0 or cfg.on_overflow == "ignore":
+        return labels
+    msg = f"turbo capacity/budget violation: {describe_flags(flags)}"
+    if cfg.on_overflow == "fallback":
+        raise NotImplementedError(
+            msg + " — the atomic fallback path is not ported yet "
+            "(ROADMAP.md, queue 1, item 9)")
+    raise RuntimeError(
+        msg + " — use a larger-capacity config (the atomic fallback is "
+        "not ported yet)")
