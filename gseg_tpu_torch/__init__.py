@@ -9,7 +9,8 @@ the step fixpoints and the boundary extraction.
 
 Public API:
     segment(image, sigma=.8, k=300, min_size=100, algorithm="turbo",
-            device=None) -> (H, W) int32 label tensor
+            device=None) -> (H, W) int32 label tensor, on cuda:0 unless
+            device="cpu" is given
     SegmentationConfig
 """
 
@@ -25,19 +26,28 @@ __all__ = ["ALGORITHMS", "SegmentationConfig", "segment"]
 
 def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="turbo",
             config: SegmentationConfig | None = None, device=None):
-    """Segment an (H, W, 3) image; returns (H, W) int32 canonical labels
-    (min member pixel id) on `device` (default: the image tensor's device,
-    or the CPU for a NumPy image)."""
+    """Segment an (H, W, 3) image (NumPy array or tensor); returns (H, W)
+    int32 canonical labels (min member pixel id) on `device`.
+
+    device: default cuda:0, whatever device the image is on; without a
+    CUDA device this raises RuntimeError. Pass device="cpu" to run on the
+    CPU (the kernels' plain PyTorch versions)."""
+    from .models import turbo
+
     cfg = config or SegmentationConfig(
         sigma=sigma, k=k, min_size=min_size, algorithm=algorithm)
     if cfg.algorithm != "turbo":
         raise NotImplementedError(
             f"algorithm {cfg.algorithm!r} is not ported yet (ROADMAP.md, "
             "queue 1, items 9-10)")
-    if isinstance(image, torch.Tensor):
-        image = image.to(device) if device is not None else image
-    else:
-        image = torch.as_tensor(np.asarray(image), device=device)
-    from .models.turbo import segment_turbo
-
-    return segment_turbo(image, cfg)
+    turbo.check_ported(cfg)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "gseg_tpu_torch.segment runs on the GPU by default and no "
+                "CUDA device is available; pass device=\"cpu\" to run on "
+                "the CPU")
+        device = torch.device("cuda", 0)
+    if not isinstance(image, torch.Tensor):
+        image = torch.as_tensor(np.asarray(image))
+    return turbo.segment_turbo(image.to(device), cfg)

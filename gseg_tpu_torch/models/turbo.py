@@ -1,15 +1,20 @@
 """Turbo path, speed mode (port of `gseg_tpu/models/turbo.py`).
 
 Same partition and the same canonical min-vertex-id labels as the
-reference's speed mode (`weight_buckets=0`) with the dist-free peel rounds
-(the reference's `GSEG_PEEL_SIZES=count` configuration):
+reference's speed mode (`weight_buckets=0`) in its default configuration
+(`GSEG_PEEL_SIZES` unset, i.e. "subsum" peel rounds):
 
   STAGE G — gossip rounds over the pixel grid: component min edge by a
   lexmin fixpoint (`kernels.gossip.compmin_gossip`), merged labels by a
   min-label flood over same-label + passing-hook adjacency with Int(C)
-  riding as a max (`label_flood`), exact sizes by a counting scatter in the
-  two peel rounds and by grouping the compact old-root list afterwards.
-  Rounds run until at most V/128 components remain.
+  riding as a max. In the two peel rounds the BFS distance from the new
+  root rides the flood too (`label_gossip`), and exact sizes come from a
+  convergecast over the parent tree it defines (`subtree_sums`); later
+  rounds run the dist-free flood (`label_flood`) and size components by
+  grouping the compact old-root list. Rounds run until at most V/128
+  components remain. `_PEEL_SIZES = "count"` selects the reference's
+  `GSEG_PEEL_SIZES=count` peel instead (dist-free flood, counting
+  scatter), which gives the same labels.
 
   HANDOFF — live boundary edges are extracted into a compact pool
   (`kernels.extract.boundary_extract`) and deduplicated to the min edge per
@@ -41,6 +46,7 @@ from ..ops.kernels import extract as kx
 from ..ops.kernels import gossip as kg
 
 INT32_MAX = gg.INT32_MAX
+BIGDIST = kg.BIGDIST
 
 FLAG_GOSSIP_UNCONVERGED = 1   # a sweep fixpoint hit its sweep cap
 FLAG_PAIR_OVERFLOW = 2        # extracted pair count exceeded pair_cap
@@ -51,12 +57,15 @@ FLAG_ITERS_EXHAUSTED = 16     # stage-2 exited its round budget unconverged
 _RLIST_FLOOR = 16384  # min sliced root-list capacity (tests shrink it)
 _CAP_FLOOR = 16384    # min pool/recompact capacity (tests shrink it)
 _EX_SMALL = True      # handoff: dedup only the live head of the pool
+_PEEL_SIZES = "subsum"  # peel-round sizes: "subsum" (default) or "count"
 _S2_SMALL = True      # stage 2: run the early rounds on a sliced pool
 
 
 class GossipState(NamedTuple):
     L: torch.Tensor       # (H, W) int32 canonical labels (min vertex id)
     S: torch.Tensor       # (H, W) int32 component size at the root pixel
+    # (only root pixels are read: after a subsum round the other pixels
+    # hold their subtree sizes, whose max per component is the root's.)
     ID: torch.Tensor      # (H, W) float32 Int(C), replicated
     merged: bool
     it: int
@@ -202,13 +211,37 @@ def _component_sizes(L):
     return torch.where(L == vid, S, 0), False
 
 
-def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
-            sizes="count", idle_compmin=False):
-    """One gossip Boruvka round (felz predicate, dist-free flood).
+def _parent_dirs(L, dist):
+    """Each pixel's parent in the BFS tree: the first DIRS8 direction whose
+    same-label neighbour is one level closer (8 = root / unreached)."""
+    nL = _shifts8(L, -1)
+    nd = _shifts8(dist, BIGDIST)
+    pdir = torch.full_like(L, 8)
+    for d in range(7, -1, -1):
+        ok = (nL[d] == L) & (nd[d] == dist - 1) & (dist > 0) \
+            & (dist < BIGDIST)
+        pdir = pdir.masked_fill(ok, d)
+    return pdir
 
-    sizes="count": exact sizes by a counting scatter (peel rounds).
-    sizes="rlist": sizes by grouping the compact old-root list `rlist`;
-    returns (state, new rlist).
+
+def _subtree_sizes(L, dist, max_sweeps):
+    """Exact component size at the canonical root pixel, from the converged
+    BFS levels: subtree sums over the parent tree give |C| at the root.
+    Returns (sizes, unconverged)."""
+    return kg.subtree_sums(_parent_dirs(L, dist), torch.ones_like(L),
+                           max_sweeps)
+
+
+def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
+            sizes="subsum", idle_compmin=False):
+    """One gossip Boruvka round (felz predicate).
+
+    sizes="subsum": the label flood carries the BFS dist from the new
+    roots, and subtree sums over its parent tree give exact sizes (the
+    reference's default peel rounds).
+    sizes="count": dist-free flood, exact sizes by a counting scatter.
+    sizes="rlist": dist-free flood, sizes by grouping the compact old-root
+    list `rlist`; returns (state, new rlist).
     idle_compmin: True on round 1 (all-singleton labels: the compmin
     fixpoint is the identity)."""
     L, S, ID = state.L, state.S, state.ID
@@ -244,13 +277,26 @@ def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
     used_w8 = torch.where(hook8, torch.where(torch.isfinite(w8), w8, 0.0), 0.0)
     id_init = torch.maximum(ID, used_w8.amax(0))
 
-    Lnew, IDnew, lab_unconv = kg.label_flood(
-        kg.pack_allow_bits(allow), L, id_init, max_sweeps)
+    bits = kg.pack_allow_bits(allow)
+    size_unconv = False
+    if sizes == "subsum":
+        # dist seeded 0 at the old roots: the new cluster root (an old root
+        # that keeps its label) keeps 0, absorbed roots take over on
+        # adoption.
+        vid = torch.arange(L.numel(), dtype=torch.int32,
+                           device=L.device).reshape(L.shape)
+        dist0 = torch.full_like(L, BIGDIST).masked_fill(L == vid, 0)
+        Lnew, IDnew, dist, lab_unconv = kg.label_gossip(
+            bits, L, id_init, dist0, max_sweeps)
+        Snew, size_unconv = _subtree_sizes(Lnew, dist, max_sweeps)
+    else:
+        Lnew, IDnew, lab_unconv = kg.label_flood(bits, L, id_init,
+                                                 max_sweeps)
     if sizes == "rlist":
         Snew, rlist_new = _rlist_sizes(rlist, Lnew, S)
-    else:
+    elif sizes == "count":
         Snew, _ = _component_sizes(Lnew)
-    flags = _raise_flag(state.flags, unconv or lab_unconv,
+    flags = _raise_flag(state.flags, unconv or lab_unconv or size_unconv,
                         FLAG_GOSSIP_UNCONVERGED)
     out = GossipState(L=Lnew, S=Snew, ID=IDnew, merged=merged,
                       it=state.it + 1, flags=flags)
@@ -302,9 +348,9 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
         merged=True, it=0,
         flags=torch.zeros((), dtype=torch.int32, device=dev))
 
-    # two peel rounds with counting-scatter sizes.
+    # two peel rounds.
     while gst.merged and gst.it < 2:
-        gst = _ground(gst, w8, eid8, cfg.k, max_sweeps, sizes="count",
+        gst = _ground(gst, w8, eid8, cfg.k, max_sweeps, sizes=_PEEL_SIZES,
                       idle_compmin=gst.it == 0)
     rlist, rovf = _build_rlist(gst.L, max(v // 4, _CAP_FLOOR))
     gst = gst._replace(flags=_raise_flag(gst.flags, rovf, FLAG_COMP_OVERFLOW))
@@ -592,6 +638,15 @@ def _final_map(gst: GossipState, st: CompactState, rm, r0, max_sweeps):
     return kg.value_flood(gst.L, seed.reshape(h, w), max_sweeps)
 
 
+def check_ported(cfg: SegmentationConfig) -> None:
+    """Raise NotImplementedError for a turbo configuration the port does
+    not run yet."""
+    if cfg.weight_buckets > 0:
+        raise NotImplementedError(
+            "turbo quality mode (weight_buckets > 0) is not ported yet "
+            "(ROADMAP.md, queue 1, item 7)")
+
+
 def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
                        gossip_rounds: int = 2, weights_override=None):
     """(H, W, 3) tensor -> (labels, flags): (H, W) int32 canonical
@@ -600,10 +655,7 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
     must not be trusted (`segment_turbo` checks it).
 
     weights_override: see _stage_g (parity-testing hook)."""
-    if cfg.weight_buckets > 0:
-        raise NotImplementedError(
-            "turbo quality mode (weight_buckets > 0) is not ported yet "
-            "(ROADMAP.md, queue 1, item 7)")
+    check_ported(cfg)
     h, w = image.shape[0], image.shape[1]
     v = h * w
     gst, weights = _stage_g(image, cfg, gossip_rounds, weights_override)

@@ -14,12 +14,14 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import gseg_tpu_torch  # noqa: E402
 from gseg_tpu_torch.config import SegmentationConfig  # noqa: E402
 from gseg_tpu_torch.models import turbo  # noqa: E402
 from gseg_tpu_torch.ops import filters  # noqa: E402
 from gseg_tpu_torch.ops import grid_graph as gg  # noqa: E402
 from gseg_tpu_torch.ops.kernels import extract as kx  # noqa: E402
 from gseg_tpu_torch.ops.kernels import gossip as kg  # noqa: E402
+from gseg_tpu_torch.ops.kernels import pad as kp  # noqa: E402
 from gseg_tpu_torch.utils.synthetic import blobs_image  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +77,115 @@ def test_fixpoint_kernels_equal_plain(dev, shape, ncomp):
     n1 = (kg.compmin_gossip.launches, kg.label_flood.launches,
           kg.value_flood.launches)
     assert all(b > a for a, b in zip(n0, n1))
+
+
+def _dist_and_pdir(L, seed):
+    """BFS levels from sparse random seeds over same-label adjacency, and
+    the parent directions of that forest (a consistent, acyclic pdir)."""
+    h, w = L.shape
+    rng = np.random.default_rng(seed)
+    dist0 = torch.from_numpy(np.where(rng.random((h, w)) < 0.05, 0,
+                                      kg.BIGDIST).astype(np.int32))
+    same = kg.pack_allow_bits([gg.shift_plane(L, dy, dx, -1) == L
+                               for dy, dx in gg.DIRS8])
+    _, _, dist, unconv = kg.label_gossip_plain(
+        same, L, torch.zeros(L.shape, device=L.device),
+        dist0.to(L.device), 4 * (h + w))
+    assert unconv is False
+    return dist0.to(L.device), turbo._parent_dirs(L, dist)
+
+
+def _new_fixpoints_equal_plain(f, dist0, pdir, ms):
+    """label_gossip and subtree_sums, kernel vs plain; returns True."""
+    args = (f["allow"], f["be"], f["bw"], dist0, ms)
+    got, ref = kg.label_gossip(*args), kg.label_gossip_plain(*args)
+    assert _equal(got[:3], ref[:3]) and got[3] is ref[3] is False
+    s0 = torch.ones_like(pdir)
+    got = kg.subtree_sums(pdir, s0, ms)
+    ref = kg.subtree_sums_plain(pdir, s0, ms)
+    assert torch.equal(got[0], ref[0]) and got[1] is ref[1] is False
+    return True
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("ncomp", [1, 3, 50])
+def test_labeldist_and_subsum_kernels_equal_plain(dev, shape, ncomp):
+    h, w = shape
+    f = _fields(h, w, dev, seed=h * 100 + w + ncomp, ncomp=ncomp)
+    dist0, pdir = _dist_and_pdir(f["L"], seed=h + w)
+    n0 = (kg.label_gossip.launches, kg.subtree_sums.launches)
+    assert _new_fixpoints_equal_plain(f, dist0, pdir, 4 * (h + w))
+    n1 = (kg.label_gossip.launches, kg.subtree_sums.launches)
+    assert all(b > a for a, b in zip(n0, n1))
+
+
+def test_subsum_kernel_deep_tree(dev):
+    """One component 300 rows tall rooted at pixel 0: a 299-level parent
+    tree across ten tiles."""
+    h, w = 300, 40
+    L = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    vid = torch.arange(h * w, dtype=torch.int32, device=dev).reshape(h, w)
+    dist0 = torch.full_like(L, kg.BIGDIST).masked_fill(L == vid, 0)
+    _, _, dist, _ = kg.label_gossip(
+        kg.pack_allow_bits([gg.shift_plane(L, dy, dx, -1) == L
+                            for dy, dx in gg.DIRS8]),
+        L, torch.zeros((h, w), device=dev), dist0, 4 * (h + w))
+    assert int(dist.max()) == h - 1
+    sizes, unconv = turbo._subtree_sizes(L, dist, 4 * (h + w))
+    assert unconv is False and int(sizes[0, 0]) == h * w
+    ref, _ = kg.subtree_sums_plain(turbo._parent_dirs(L, dist),
+                                   torch.ones_like(L), 4 * (h + w))
+    assert torch.equal(sizes, ref)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_pad_kernels_equal_plain(dev, shape):
+    h, w = shape
+    t, hp, wp = 8, -(-h // 32) * 32, -(-w // 128) * 128
+    f = _fields(h, w, dev, seed=h + 7 * w, ncomp=5)
+    fields = [(f["L"], -1), (f["bw"], float("inf")),
+              (f["be"], kg.INT32_MAX), (f["allow"], 0)]
+    n0 = (kp.fast_pad_fields.launches, kp.fast_unpad_fields.launches)
+    for k in (1, 4):
+        got = kp.fast_pad_fields(fields[:k], t, hp, wp)
+        assert _equal(got, kp.fast_pad_fields_plain(fields[:k], t, hp, wp))
+        back = kp.fast_unpad_fields(got, t, h, w)
+        assert _equal(back, kp.fast_unpad_fields_plain(got, t, h, w))
+        assert _equal(back, [x for x, _ in fields[:k]])
+    n1 = (kp.fast_pad_fields.launches, kp.fast_unpad_fields.launches)
+    assert n1 == (n0[0] + 2, n0[1] + 2)
+
+
+@pytest.mark.parametrize("shape", [(37, 2600), (160, 3840)])
+def test_padded_route_equals_plain(dev, shape):
+    """At w >= PAD_MIN_WIDTH every fixpoint runs on padded planes: one pad
+    and one unpad launch per call, results equal to the plain versions."""
+    h, w = shape
+    assert w >= kg.PAD_MIN_WIDTH
+    f = _fields(h, w, dev, seed=h + w, ncomp=40)
+    ms = 4 * (h + w)
+    dist0, pdir = _dist_and_pdir(f["L"], seed=w)
+    n0 = (kp.fast_pad_fields.launches, kp.fast_unpad_fields.launches)
+    got = kg.compmin_gossip(f["L"], f["bw"], f["be"], f["sz"], ms)
+    ref = kg.compmin_gossip_plain(f["L"], f["bw"], f["be"], f["sz"], ms)
+    assert _equal(got[:3], ref[:3]) and got[3] is ref[3] is False
+    got = kg.label_flood(f["allow"], f["be"], f["bw"], ms)
+    ref = kg.label_flood_plain(f["allow"], f["be"], f["bw"], ms)
+    assert _equal(got[:2], ref[:2]) and got[2] is ref[2] is False
+    got = kg.value_flood(f["L"], f["be"], ms)
+    ref = kg.value_flood_plain(f["L"], f["be"], ms)
+    assert torch.equal(got[0], ref[0]) and got[1] is ref[1] is False
+    assert _new_fixpoints_equal_plain(f, dist0, pdir, ms)
+    n1 = (kp.fast_pad_fields.launches, kp.fast_unpad_fields.launches)
+    assert n1 == (n0[0] + 5, n0[1] + 5)
+
+
+def test_segment_runs_on_the_card_by_default(dev):
+    img = blobs_image(24, 32, 5, 6.0, 0)
+    labels = gseg_tpu_torch.segment(img, k=100.0, min_size=8)
+    assert labels.device == torch.device("cuda", 0)
+    cpu = gseg_tpu_torch.segment(img, k=100.0, min_size=8, device="cpu")
+    assert torch.equal(labels.cpu(), cpu)
 
 
 def test_fixpoint_kernel_pass_cap_flags_unconverged(dev):

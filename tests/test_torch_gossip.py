@@ -19,8 +19,11 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 import gseg_tpu.ops.grid_graph as jgg  # noqa: E402
+from gseg_tpu.models import turbo as ref_turbo  # noqa: E402
 from gseg_tpu.ops.pallas import gossip as pg  # noqa: E402
+from gseg_tpu_torch.models import turbo  # noqa: E402
 from gseg_tpu_torch.ops.kernels import gossip as kg  # noqa: E402
+from gseg_tpu_torch.ops.kernels import pad as kp  # noqa: E402
 
 # the shapes of tests/test_pallas_gossip.py: not multiples of 8/128.
 SHAPES = [(23, 70), (37, 150), (64, 128)]
@@ -66,13 +69,16 @@ def _assert_equal(ref, got):
         assert np.array_equal(np.asarray(r), g.numpy())
 
 
+def _launches():
+    return [fn.launches for fn in (*kg._WRAPPERS.values(),
+                                   kp.fast_pad_fields, kp.fast_unpad_fields)]
+
+
 @pytest.fixture(autouse=True)
 def _no_kernel_launches_on_cpu():
-    before = (kg.compmin_gossip.launches, kg.label_flood.launches,
-              kg.value_flood.launches)
+    before = _launches()
     yield
-    assert (kg.compmin_gossip.launches, kg.label_flood.launches,
-            kg.value_flood.launches) == before == (0, 0, 0)
+    assert _launches() == before == [0] * len(before)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -186,6 +192,16 @@ def test_unconverged_is_flagged():
     assert unconv is False and int(got.max()) == 0
 
 
+def test_wrappers_check_types_on_every_device():
+    """The kernel's dtype contract is checked before the CPU routing, so a
+    caller handing an int64 dist fails here as it would on the card."""
+    z = torch.zeros((4, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="labeldist"):
+        kg.label_gossip(z, z, z.float(), z.long(), 32)
+    with pytest.raises(ValueError, match="subsum"):
+        kg.subtree_sums(z, z.float(), 32)
+
+
 def test_wrapper_refuses_non_cpu_non_cuda_tensors():
     """No quiet move: a tensor that is neither on the CPU nor on a CUDA
     device is refused rather than copied."""
@@ -195,3 +211,151 @@ def test_wrapper_refuses_non_cpu_non_cuda_tensors():
                                       device="meta"), 32)
     with pytest.raises(ValueError):
         kg.value_flood(torch.zeros((4, 4), dtype=torch.int32), L, 32)
+
+
+def _dist_seeds(rng, h, w):
+    """Sparse BFS seeds (0) among unreached pixels (BIGDIST)."""
+    return np.where(rng.random((h, w)) < 0.05, 0, kg.BIGDIST).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_label_gossip_matches_pallas(shape):
+    h, w = shape
+    f = _fields(h, w, seed=11 * h + w, ncomp=6)
+    allow = _allow8(f["L"], f["mark4"])
+    dist0 = _dist_seeds(np.random.default_rng(h + w), h, w)
+    ms = 4 * (h + w)
+    with pltpu.force_tpu_interpret_mode():
+        ref = pg.label_gossip(pg.pack_allow_bits(allow), jnp.asarray(f["L"]),
+                              jnp.asarray(f["idf"]), jnp.asarray(dist0), ms)
+    bits = kg.pack_allow_bits([_t(np.asarray(a)) for a in allow])
+    got = kg.label_gossip(bits, _t(f["L"]), _t(f["idf"]), _t(dist0), ms)
+    _assert_equal(ref[:3], got[:3])
+    assert bool(ref[3]) is False and got[3] is False
+
+
+def test_multistrip_label_gossip_matches_pallas(monkeypatch):
+    """Thin, tall components whose labels decrease with depth, with the
+    reference forced to 8-row strips: the dist must ride the same
+    multi-strip fixpoint as the labels."""
+    monkeypatch.setenv("GSEG_SKIP_ROWS", "8")
+    h, w = 48, 40
+    comp = (np.arange(w)[None, :] // 3) * 2 + (np.arange(h)[:, None] >= 30)
+    L = np.broadcast_to(comp, (h, w)).astype(np.int32)
+    rng = np.random.default_rng(8)
+    idf = rng.uniform(0, 5, (h, w)).astype(np.float32)
+    Lc0 = ((h - np.arange(h))[:, None] * 1000
+           + np.arange(w)[None, :]).astype(np.int32)
+    dist0 = _dist_seeds(rng, h, w)
+    ms = 4 * (h + w)
+    allow = _allow8(L, np.zeros((4, h, w), bool))
+    with pltpu.force_tpu_interpret_mode():
+        ref = pg.label_gossip(pg.pack_allow_bits(allow), jnp.asarray(Lc0),
+                              jnp.asarray(idf), jnp.asarray(dist0), ms)
+    bits = kg.pack_allow_bits([_t(np.asarray(a)) for a in allow])
+    got = kg.label_gossip(bits, _t(Lc0), _t(idf), _t(dist0), ms)
+    _assert_equal(ref[:3], got[:3])
+    assert bool(ref[3]) is False and got[3] is False
+
+
+def _bfs_pdir(L):
+    """Canonical labels, BFS levels from each root over same-label
+    adjacency (the riding-dist flood with no adoption), and the parent
+    directions `_subtree_sizes` derives from them."""
+    h, w = L.shape
+    vid = np.arange(h * w, dtype=np.int32).reshape(h, w)
+    Lj = jnp.asarray(L)
+    allow = [jgg.shift_plane(Lj, dy, dx, -1) == Lj for dy, dx in jgg.DIRS8]
+    dist0 = np.where(L == vid, 0, kg.BIGDIST).astype(np.int32)
+    _, _, dist, unconv = kg.label_gossip_plain(
+        kg.pack_allow_bits([_t(np.asarray(a)) for a in allow]), _t(L),
+        torch.zeros((h, w)), _t(dist0), 4 * (h + w))
+    assert unconv is False
+    nL = [jgg.shift_plane(Lj, dy, dx, -1) for dy, dx in jgg.DIRS8]
+    dj = jnp.asarray(dist.numpy())
+    nd = [jgg.shift_plane(dj, dy, dx, kg.BIGDIST) for dy, dx in jgg.DIRS8]
+    pdir = jnp.full((h, w), 8, jnp.int32)
+    for d in range(7, -1, -1):
+        ok = (nL[d] == Lj) & (nd[d] == dj - 1) & (dj > 0) \
+            & (dj < kg.BIGDIST)
+        pdir = jnp.where(ok, jnp.int32(d), pdir)
+    return dist.numpy(), np.asarray(pdir)
+
+
+def _canonical(L):
+    """Relabel the 8-connected same-value regions of L to their min flat
+    id (components, not just classes)."""
+    h, w = L.shape
+    lab = np.arange(h * w, dtype=np.int32).reshape(h, w)
+    while True:
+        prev = lab.copy()
+        for dy, dx in jgg.DIRS8:
+            same = np.asarray(jgg.shift_plane(jnp.asarray(L), dy, dx, -1)) \
+                == L
+            nb = np.asarray(jgg.shift_plane(jnp.asarray(lab), dy, dx, 0))
+            lab = np.where(same, np.minimum(lab, nb), lab)
+        if np.array_equal(lab, prev):
+            return lab
+
+
+# random partitions at the gossip shapes, plus one component 130 rows tall
+# rooted at pixel 0: a parent tree 129 levels (over four 32-pixel tiles)
+# deep.
+SUBSUM_CASES = [(23, 70, 4), (37, 150, 4), (130, 20, 1)]
+
+
+@pytest.mark.parametrize("case", SUBSUM_CASES)
+def test_subtree_sums_match_pallas(case, monkeypatch):
+    h, w, ncomp = case
+    rng = np.random.default_rng(h * 13 + w)
+    L = _canonical(rng.integers(0, ncomp, (h, w)).astype(np.int32))
+    dist, pdir = _bfs_pdir(L)
+    ms = 4 * (h + w)
+    s0 = np.ones((h, w), np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        ref_s, ref_unconv = pg.subtree_sums(jnp.asarray(pdir),
+                                            jnp.asarray(s0), ms)
+    got_s, got_unconv = kg.subtree_sums(_t(pdir), _t(s0), ms)
+    _assert_equal((ref_s,), (got_s,))
+    assert bool(ref_unconv) is False and got_unconv is False
+    # the port's _subtree_sizes (its own parent directions) vs the
+    # reference's, Pallas path forced on.
+    monkeypatch.setattr(ref_turbo, "_use_pallas", lambda: True)
+    with pltpu.force_tpu_interpret_mode():
+        ref_sz, ref_unconv = ref_turbo._subtree_sizes(
+            jnp.asarray(L), jnp.asarray(dist), ms)
+    got_sz, got_unconv = turbo._subtree_sizes(_t(L), _t(dist), ms)
+    _assert_equal((ref_sz,), (got_sz,))
+    assert bool(ref_unconv) is False and got_unconv is False
+    for root in np.unique(L):
+        assert got_sz.reshape(-1)[root] == int((L == root).sum())
+    if ncomp == 1:
+        assert int(dist.max()) == h - 1 > 3 * 32
+
+
+# (h, w, t, hp, wp): the first two meet the Pallas DMA path's tiling
+# (t % 8, h % 8, w == wp); the others take the reference's XLA pad.
+PAD_CASES = [(24, 128, 8, 32, 128), (16, 256, 16, 40, 256),
+             (23, 70, 8, 32, 128), (5, 3, 8, 32, 128)]
+
+
+@pytest.mark.parametrize("case", PAD_CASES)
+def test_pad_unpad_match_pallas(case):
+    h, w, t, hp, wp = case
+    rng = np.random.default_rng(h * w)
+    fields = [(rng.integers(-9, 9, (h, w)).astype(np.int32), -1),
+              (rng.uniform(0, 1, (h, w)).astype(np.float32), float("inf")),
+              (rng.integers(0, 99, (h, w)).astype(np.int32), kg.INT32_MAX),
+              (rng.uniform(0, 1, (h, w)).astype(np.float32), 0.0)]
+    with pltpu.force_tpu_interpret_mode():
+        ref = pg._fast_pad_fields([(jnp.asarray(x), f) for x, f in fields],
+                                  t, hp, wp)
+        ref_back = pg._fast_unpad_fields(ref, t, h, w)
+    got = kp.fast_pad_fields([(_t(x), f) for x, f in fields], t, hp, wp)
+    for r, g in zip(ref, got):
+        assert g.shape == (hp + 2 * t, wp) and g.dtype == _t(r).dtype
+    _assert_equal(ref, got)
+    back = kp.fast_unpad_fields(got, t, h, w)
+    _assert_equal(ref_back, back)
+    _assert_equal([x for x, _ in fields], back)

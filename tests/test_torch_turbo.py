@@ -215,6 +215,19 @@ def test_segment_api():
             cfg, weight_buckets=8))
 
 
+def test_segment_defaults_to_the_gpu(monkeypatch):
+    """Without device="cpu" the entry point runs on cuda:0, NumPy image or
+    tensor; with no CUDA device it raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = blobs_image(24, 32, 5, 6.0, 0)
+    for image in (img, torch.from_numpy(img)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            gseg_tpu_torch.segment(image, k=100.0, min_size=8)
+    labels = gseg_tpu_torch.segment(torch.from_numpy(img), k=100.0,
+                                    min_size=8, device="cpu")
+    assert labels.device.type == "cpu"
+
+
 def test_root_list_and_size_helpers_match_reference():
     """_build_rlist, _component_sizes and _rlist_sizes equal the
     reference's on a random canonical partition and a coarsening of it."""

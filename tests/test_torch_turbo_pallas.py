@@ -2,11 +2,12 @@
 byte.
 
 The reference runs `segment_turbo_impl` with its Pallas kernels forced on
-and in Mosaic's TPU interpret mode, with the dist-free peel rounds
-(`GSEG_PEEL_SIZES=count`), which is the configuration the port implements;
-the port runs on the CPU with its plain PyTorch versions. Labels must be
-byte-equal and the FLAG bits equal. Each reference run takes ~10-25 s
-here, so the cases are few.
+and in Mosaic's TPU interpret mode, in its default configuration
+(`GSEG_PEEL_SIZES` unset: the subsum peel) and with the dist-free peel
+(`GSEG_PEEL_SIZES=count`, `turbo._PEEL_SIZES = "count"` on the port's
+side); the port runs on the CPU with its plain PyTorch versions. Labels
+must be byte-equal and the FLAG bits equal. Each reference run takes
+~10-25 s here, so the cases are few.
 """
 
 import dataclasses
@@ -27,13 +28,30 @@ from gseg_tpu_torch.models import turbo  # noqa: E402
 from gseg_tpu_torch.utils.synthetic import blobs_image  # noqa: E402
 
 
-@pytest.mark.parametrize("case", [
+CASES = [
     dict(shape=(24, 40), blobs=5, seed=7, k=100.0, min_size=8, rounds=2),
     dict(shape=(24, 40), blobs=5, seed=7, k=100.0, min_size=8, rounds=4),
     dict(shape=(33, 17), blobs=5, seed=1, k=300.0, min_size=20, rounds=2),
-])
+]
+
+
+@pytest.mark.parametrize("case", CASES)
 def test_labels_and_flags_match_pallas_path(monkeypatch, case):
+    """The dist-free (count) peel on both sides."""
     monkeypatch.setenv("GSEG_PEEL_SIZES", "count")
+    monkeypatch.setattr(turbo, "_PEEL_SIZES", "count")
+    _check_against_reference(monkeypatch, case)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_default_subsum_peel_matches_pallas_path(monkeypatch, case):
+    """Both packages in their default configuration: the subsum peel."""
+    monkeypatch.delenv("GSEG_PEEL_SIZES", raising=False)
+    assert turbo._PEEL_SIZES == ref_turbo._peel_sizes() == "subsum"
+    _check_against_reference(monkeypatch, case)
+
+
+def _check_against_reference(monkeypatch, case):
     monkeypatch.setattr(ref_turbo, "_use_pallas", lambda: True)
     cfg = SegmentationConfig(k=case["k"], min_size=case["min_size"])
     img = blobs_image(*case["shape"], case["blobs"], 6.0, case["seed"])
