@@ -8,24 +8,36 @@ arguments). It
      source, all started together; sm_90a);
   3. holds every kernel against its plain PyTorch version on the same CUDA
      tensors: random fields at odd multi-tile shapes and at wide shapes
-     (w >= 2560: the padded fixpoint route), then the fields captured from
-     the main paths; fixpoints and pads must be bit-equal, the extraction
-     pool equal as a sorted multiset;
+     (w >= 2560: the padded fixpoint route), both closure orientations,
+     the closure-route fixpoints (`closures=True`, with `WARM_PASSES` 0)
+     and run extraction at the identity labeling (which overflows); a
+     1081x1919 serpentine component whose geodesic diameter (1,000-8,000
+     px) outruns the 64 warm step passes, so the closure route runs at the
+     default `WARM_PASSES`; then the fields captured from the main paths.
+     Fixpoints, closures and pads must be bit-equal, the extraction pools
+     equal as sorted multisets;
   4. runs `segment_turbo_flagged` (sigma 0.8, k 300, min_size 100,
-     max_iters 32, gossip_rounds 2) on three main paths, each with the
+     max_iters 32, gossip_rounds 2) on six main paths, each with the
      launch counts set to 0 just before it and read just after:
        - 1080p, the default configuration (subsum peel rounds):
          blobs_image(1080, 1920, 31, 8.0, 0);
        - 1080p, the count peel (`turbo._PEEL_SIZES = "count"`);
        - 4K, the default configuration: blobs_image(2160, 3840, 126, 8.0, 0);
+       - 1080p quality mode (weight_buckets 16), default `WARM_PASSES`;
+       - 1080p quality mode with `kg.WARM_PASSES = 0`: every hybrid
+         fixpoint on the closure route from its first pass;
+       - 1080p, the runs peel (`turbo._PEEL_SIZES = "runs"`);
      and requires flags == 0, the canonical partition of the committed
-     oracle (bench_out/oracle_bench_{1080x1920,2160x3840}_wb0.npy), a launch
-     of every kernel of that path (pad and unpad only at 4K, where they
-     must run, and never at 1080p);
+     oracle (bench_out/oracle_bench_{1080x1920,2160x3840}_wb0.npy,
+     bench_out/oracle_bench_1080x1920_wb16.npy), a launch of every kernel
+     that path must run (pad and unpad only at 4K, the closures in both
+     orientations on the closure path, run extraction on the runs path),
+     and none of a kernel the path must not run;
   5. times each path (median of CUDA-event reps after a warm-up), its
-     stages, its peak memory, and each kernel beside its plain version and,
-     where one exists, a PyTorch call computing the same function; then the
-     1080p subsum and count peels in 10 alternating pairs.
+     stages, its peak memory, and each kernel beside its plain version,
+     its bytes bound and, where one exists, a PyTorch call computing the
+     same function; then the 1080p subsum and count peels in 4
+     alternating pairs.
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -35,13 +47,17 @@ There is no CPU path.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
-from pathlib import Path
+from pathlib import Path as FsPath
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,95 +70,163 @@ from gseg_tpu_torch.ops.kernels import _build
 from gseg_tpu_torch.ops.kernels import extract as kx
 from gseg_tpu_torch.ops.kernels import gossip as kg
 from gseg_tpu_torch.ops.kernels import pad as kp
+from gseg_tpu_torch.ops.kernels import runs as kr
 from gseg_tpu_torch.utils.labels import canonical_min_labels_np
 from gseg_tpu_torch.utils.synthetic import blobs_image
 
-ROOT = Path(__file__).resolve().parent
+ROOT = FsPath(__file__).resolve().parent
 CFG = SegmentationConfig(sigma=0.8, k=300.0, min_size=100, max_iters=32,
                          algorithm="turbo")
 GOSSIP_ROUNDS = 2
-# path name -> (h, w, blobs, peel sizes, oracle)
+
+
+class Path(NamedTuple):
+    h: int
+    w: int
+    blobs: int
+    sizes: str                # peel sizes (speed mode)
+    oracle: str
+    weight_buckets: int = 0
+    warm_passes: int | None = None  # kg.WARM_PASSES for the path (None: 64)
+
+
+_WB0 = "bench_out/oracle_bench_1080x1920_wb0.npy"
+_WB16 = "bench_out/oracle_bench_1080x1920_wb16.npy"
 PATHS = {
-    "1080p_subsum": (1080, 1920, 31, "subsum",
-                     "bench_out/oracle_bench_1080x1920_wb0.npy"),
-    "1080p_count": (1080, 1920, 31, "count",
-                    "bench_out/oracle_bench_1080x1920_wb0.npy"),
-    "4k_subsum": (2160, 3840, 126, "subsum",
-                  "bench_out/oracle_bench_2160x3840_wb0.npy"),
+    "1080p_subsum": Path(1080, 1920, 31, "subsum", _WB0),
+    "1080p_count": Path(1080, 1920, 31, "count", _WB0),
+    "4k_subsum": Path(2160, 3840, 126, "subsum",
+                      "bench_out/oracle_bench_2160x3840_wb0.npy"),
+    "1080p_wb16": Path(1080, 1920, 31, "subsum", _WB16, 16),
+    "1080p_wb16_closures": Path(1080, 1920, 31, "subsum", _WB16, 16, 0),
+    "1080p_runs": Path(1080, 1920, 31, "runs", _WB0),
 }
+QUALITY = {"1080p_wb16", "1080p_wb16_closures"}
+# random-field shapes: odd multi-tile, 1080p-sized, and wide (w >= 2560).
+RANDOM_SHAPES = ((37, 150), (1081, 1919), (37, 2600), (160, 3840))
+SERPENTINE = (1081, 1919)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 _GOSSIP = "gseg_tpu/ops/pallas/gossip.py:386 (_strip_call_skip, "
+_CLOSURE = "gseg_tpu/ops/pallas/gossip.py:265 (_strip_call, call :359, via "\
+    "_hybrid_fixpoint :927: "
 
-# name -> (module, wrapper name, plain version, CUDA source, TPU kernel it
-# replaces, paths that must launch it, bytes per pixel of one read of every
-# input plane and one write of every output plane, operations per pixel)
+
+class Kernel(NamedTuple):
+    mod: object               # module holding the wrapper
+    attr: str                 # wrapper name
+    plain: object             # plain PyTorch version
+    source: str               # CUDA source
+    replaces: str             # TPU kernel it replaces
+    must: set                 # paths that must launch it
+    may: set                  # paths that may launch it
+    bytes_px: int | None      # bytes per pixel of one read of every input
+    #                           and one write of every output, per launch
+    ops_px: int               # operations per pixel per launch
+    symbols: tuple            # regexes of its device kernels' names
+
+
+ALL = set(PATHS)
+SPEED_SUBSUM = {"1080p_subsum", "4k_subsum"}
 KERNELS = {
-    "gossip_compmin": (
+    "gossip_compmin": Kernel(
         kg, "compmin_gossip", kg.compmin_gossip_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_compmin_step :997)",
-        set(PATHS), 28, 40),
-    "gossip_labeldist": (
+        ALL, set(), 28, 40, (r"\bfixpoint_pass<.*\bCompminOp>",)),
+    "gossip_labeldist": Kernel(
         kg, "label_gossip", kg.label_gossip_plain,
         "gseg_tpu_torch/csrc/gossip.cu",
         _GOSSIP + "_label_step :1057, via label_gossip :1228)",
-        {"1080p_subsum", "4k_subsum"}, 28, 48),
-    "gossip_labelnd": (
+        SPEED_SUBSUM, set(), 28, 48, (r"\bfixpoint_pass<.*\bLabelDistOp>",)),
+    "gossip_labelnd": Kernel(
         kg, "label_flood", kg.label_flood_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_labelnd_step :1086)",
-        set(PATHS), 20, 24),
-    "gossip_value": (
+        ALL, set(), 20, 24, (r"\bfixpoint_pass<.*\bLabelndOp>",)),
+    "gossip_value": Kernel(
         kg, "value_flood", kg.value_flood_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_value_step :1120)",
-        set(PATHS), 12, 16),
-    "gossip_subsum": (
+        ALL, set(), 12, 16, (r"\bfixpoint_pass<.*\bValueOp>",)),
+    "gossip_subsum": Kernel(
         kg, "subtree_sums", kg.subtree_sums_plain,
         "gseg_tpu_torch/csrc/gossip.cu",
         _GOSSIP + "_subsum_step :1157, via subtree_sums :1320)",
-        {"1080p_subsum", "4k_subsum"}, 12, 16),
-    "pad_fields": (
+        SPEED_SUBSUM, set(), 12, 16, (r"\bfixpoint_pass<.*\bSubsumOp>",)),
+    "pad_fields": Kernel(
         kp, "fast_pad_fields", kp.fast_pad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:703 (_fast_pad_fields, call :781)",
-        {"4k_subsum"}, None, 0),
-    "unpad_fields": (
+        {"4k_subsum"}, set(), None, 0, (r"\bpad_fields\b",)),
+    "unpad_fields": Kernel(
         kp, "fast_unpad_fields", kp.fast_unpad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:799 (_fast_unpad_fields, call :826)",
-        {"4k_subsum"}, None, 0),
-    "boundary_extract": (
+        {"4k_subsum"}, set(), None, 0, (r"\bunpad_fields\b",)),
+    "boundary_extract": Kernel(
         kx, "boundary_extract", kx.boundary_extract_plain,
         "gseg_tpu_torch/csrc/extract.cu",
         "gseg_tpu/ops/pallas/extract.py:344 (_extract_kernel, via "
         "boundary_extract :515)",
-        set(PATHS), 20, 16),
+        ALL, set(), 20, 16, (r"\bboundary_extract_kernel\b",)),
+    # a closure "call" below is one rows launch and one columns launch.
+    "closure_compmin": Kernel(
+        kg, "compmin_closure", kg.compmin_closure_plain,
+        "gseg_tpu_torch/csrc/closure.cu",
+        _CLOSURE + "_compmin_closure :1031, combine :1020)",
+        {"1080p_wb16_closures"}, {"1080p_wb16"}, 2 * 28, 2 * 20,
+        (r"\bclosure_(rows|cols)<.*\bCompminOp>",)),
+    "closure_labelnd": Kernel(
+        kg, "labelnd_closure", kg.labelnd_closure_plain,
+        "gseg_tpu_torch/csrc/closure.cu",
+        _CLOSURE + "_labelnd_closure :1115, combine :1106)",
+        {"1080p_wb16_closures"}, {"1080p_wb16"}, 2 * 20, 2 * 12,
+        (r"\bclosure_(rows|cols)<.*\bLabelndOp>",)),
+    "closure_value": Kernel(
+        kg, "value_closure", kg.value_closure_plain,
+        "gseg_tpu_torch/csrc/closure.cu",
+        _CLOSURE + "_value_closure :1141, combine :1135)",
+        {"1080p_wb16_closures"}, {"1080p_wb16"}, 2 * 12, 2 * 8,
+        (r"\bclosure_(rows|cols)<.*\bValueOp>",)),
+    "run_extract": Kernel(
+        kr, "run_extract", kr.run_extract_plain,
+        "gseg_tpu_torch/csrc/runs.cu",
+        "gseg_tpu/ops/pallas/extract.py:191 (_runs_kernel, via run_extract "
+        ":293, call :315)",
+        {"1080p_runs"}, set(), None, 4, (r"\brun_extract_kernel\b",)),
 }
 PADS = ("pad_fields", "unpad_fields")
-# name -> the kernel's symbol as the profiler shows it (demangled)
-SYMBOLS = {
-    "gossip_compmin": "fixpoint_pass<(anonymous namespace)::CompminOp>",
-    "gossip_labeldist": "fixpoint_pass<(anonymous namespace)::LabelDistOp>",
-    "gossip_labelnd": "fixpoint_pass<(anonymous namespace)::LabelndOp>",
-    "gossip_value": "fixpoint_pass<(anonymous namespace)::ValueOp>",
-    "gossip_subsum": "fixpoint_pass<(anonymous namespace)::SubsumOp>",
-    "pad_fields": "::pad_fields(",
-    "unpad_fields": "::unpad_fields(",
-    "boundary_extract": "boundary_extract_kernel",
-}
+CLOSURES = ("closure_compmin", "closure_labelnd", "closure_value")
+# closure kernel -> the fixpoint whose fields it is checked and timed at
+CLOSURE_OF = {"closure_compmin": "gossip_compmin",
+              "closure_labelnd": "gossip_labelnd",
+              "closure_value": "gossip_value"}
 
 
 def _wrapper(name):
-    mod, attr = KERNELS[name][:2]
-    return getattr(mod, attr)
+    k = KERNELS[name]
+    return getattr(k.mod, k.attr)
+
+
+def _cfg(path):
+    return dataclasses.replace(CFG,
+                               weight_buckets=PATHS[path].weight_buckets)
 
 
 def _counts():
     return {name: _wrapper(name).launches for name in KERNELS}
 
 
+def _axis_counts():
+    """Closure launches by orientation: name -> [rows, columns]."""
+    return {n: [_wrapper(n).axis_launches[1], _wrapper(n).axis_launches[0]]
+            for n in CLOSURES}
+
+
 def _reset_counts():
     for name in KERNELS:
         _wrapper(name).launches = 0
+    for name in CLOSURES:
+        _wrapper(name).axis_launches[:] = [0, 0]
+    kg.HYBRID_LOG.clear()
 
 
 def _cuda_ms(fn, reps):
@@ -161,18 +245,35 @@ def _cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def _device_ms(fn, name):
-    """Device time (ms) of the kernel's own launches in one call, from
-    torch.profiler; None when the trace holds no device time for it."""
+def _device_ms(fn, name, calls=3, side=None):
+    """Device time (ms) per call of the kernel's own launches, from
+    torch.profiler over `calls` calls (side "rows" or "cols": a closure's
+    launches of that orientation only). Raises, listing the device kernels
+    the trace holds, when no key matches the kernel's symbols in two
+    profiled windows."""
+    pats = [re.compile(p.replace("(rows|cols)", side) if side else p)
+            for p in KERNELS[name].symbols]
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0)
-             for e in prof.key_averages() if SYMBOLS[name] in e.key)
-    return us / 1e3 if us else None
+    seen = set()
+    for _ in range(2):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0)
+            if t:
+                seen.add(e.key)
+            if any(p.search(e.key) for p in pats):
+                us += t
+        if us:
+            return us / 1e3 / calls
+    raise AssertionError(
+        f"{name}: no device time in the profiler trace for "
+        f"{KERNELS[name].symbols}; device kernels it holds: {sorted(seen)}")
 
 
 def _max_abs_err(a, b):
@@ -205,15 +306,47 @@ def _pool_multiset(res):
     return [torch.from_numpy(keys[np.lexsort(keys.T[::-1])])]
 
 
-def _compare(name, args):
+def _runs_multiset(res, cap):
+    """The run pool as a sorted multiset of (label, length), its exact count
+    and overflow flag; on overflow only the count of filled slots (which
+    pairs land below the capacity depends on launch order)."""
+    lab, cnt, count, ovf = res
+    head = torch.tensor([float(count), float(bool(ovf))], dtype=torch.float64)
+    if bool(ovf):
+        filled = float((lab != kr.INT32_MAX).sum())
+        return [head, torch.tensor([filled], dtype=torch.float64)]
+    n = int(count)
+    keys = torch.stack([lab[:n].double(), cnt[:n].double()], 1).cpu().numpy()
+    dead = bool((lab[n:] == kr.INT32_MAX).all() and (cnt[n:] == 0).all())
+    return [head, torch.from_numpy(keys[np.lexsort(keys.T[::-1])]),
+            torch.tensor([float(dead)], dtype=torch.float64)]
+
+
+def _compare(name, args, kwargs=None):
     """Run the kernel wrapper and the plain version on the same CUDA
-    tensors; returns the max abs error (0.0: equal)."""
-    kernel_out = _wrapper(name)(*args)
-    plain_out = KERNELS[name][2](*args)
+    tensors (closures: both orientations); returns the max abs error (0.0:
+    equal)."""
+    kwargs = kwargs or {}
+    plain = KERNELS[name].plain
+    if name in CLOSURES:
+        err = 0.0
+        for axis in (1, 0):
+            kout, pout = _wrapper(name)(*args, axis), plain(*args, axis)
+            torch.cuda.synchronize()
+            if kout[-1] != pout[-1]:
+                raise AssertionError(f"{name} axis {axis}: changed flags "
+                                     f"differ ({kout[-1]} vs {pout[-1]})")
+            err = max(err, _max_abs_err(kout[:-1], pout[:-1]))
+        return err
+    kernel_out = _wrapper(name)(*args, **kwargs)
+    plain_out = plain(*args)
     torch.cuda.synchronize()
     if name == "boundary_extract":
         return _max_abs_err(_pool_multiset(kernel_out),
                             _pool_multiset(plain_out))
+    if name == "run_extract":
+        return _max_abs_err(_runs_multiset(kernel_out, args[1]),
+                            _runs_multiset(plain_out, args[1]))
     if name in PADS:
         return _max_abs_err(kernel_out, plain_out)
     if kernel_out[-1] or plain_out[-1]:
@@ -221,9 +354,26 @@ def _compare(name, args):
     return _max_abs_err(kernel_out[:-1], plain_out[:-1])
 
 
+def _kernel_fn(name, args, kwargs=None):
+    """One call of the kernel wrapper (closures: a rows and a columns
+    launch)."""
+    fn, kwargs = _wrapper(name), kwargs or {}
+    if name in CLOSURES:
+        return lambda: (fn(*args, 1), fn(*args, 0))
+    return lambda: fn(*args, **kwargs)
+
+
+def _plain_fn(name, args):
+    fn = KERNELS[name].plain
+    if name in CLOSURES:
+        return lambda: (fn(*args, 1), fn(*args, 0))
+    return lambda: fn(*args)
+
+
 def _library_call(name, args):
     """One PyTorch call per field computing the same function as the
-    kernel, where one exists (timed as a yardstick only)."""
+    kernel, where one exists (timed as a yardstick only). For run_extract:
+    the counting `bincount` of the sizes step it feeds."""
     if name == "pad_fields":
         fields, t, hp, wp = args
 
@@ -240,6 +390,10 @@ def _library_call(name, args):
             for x in fields:
                 x[t:t + h, :w].clone()
         return run
+    if name == "run_extract":
+        L = args[0]
+        return lambda: torch.bincount(L.reshape(-1).long(),
+                                      minlength=L.numel())
     return None
 
 
@@ -247,7 +401,7 @@ def _bound(name, args):
     """Least time in ms for the card to do one call's work: one read of
     every input and one write of every output at the HBM rate, or the
     operations at the float32 rate, whichever is larger."""
-    per_px, ops_px = KERNELS[name][6:8]
+    k = KERNELS[name]
     if name == "pad_fields":
         fields, t, hp, wp = args
         nbytes = sum(4 * (x.numel() + (hp + 2 * t) * wp) for x, _ in fields)
@@ -256,13 +410,17 @@ def _bound(name, args):
         fields, t, h, w = args
         nbytes = 2 * 4 * h * w * len(fields)
         npx = 0
+    elif name == "run_extract":
+        L, cap = args
+        npx = L.numel()
+        nbytes = 4 * npx + 8 * min(int(kr.run_extract_plain(L, cap)[2]), cap)
     else:
         npx = args[0].numel()
-        nbytes = per_px * npx
+        nbytes = k.bytes_px * npx
         if name == "boundary_extract":
-            nbytes += 16 * int(kx.boundary_extract(*args)[4])
+            nbytes += 16 * int(kx.boundary_extract_plain(*args)[4])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_px * npx / FP32_OPS_PER_S * 1e3
+    t_ops = k.ops_px * npx / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -274,13 +432,18 @@ def _same_label_pdir(L, seed):
     seeds = torch.rand((h, w), generator=g, device=L.device) < 0.05
     dist0 = torch.full((h, w), kg.BIGDIST, dtype=torch.int32,
                        device=L.device).masked_fill(seeds, 0)
-    same = kg.pack_allow_bits([gg.shift_plane(L, dy, dx, -1) == L
-                               for dy, dx in gg.DIRS8])
     _, _, dist, unconv = kg.label_gossip_plain(
-        same, L, torch.zeros((h, w), device=L.device), dist0, 4 * (h + w))
+        _same_bits(L), L, torch.zeros((h, w), device=L.device), dist0,
+        4 * (h + w))
     if unconv:
         raise AssertionError("BFS for the subsum check did not converge")
     return dist0, turbo._parent_dirs(L, dist)
+
+
+def _same_bits(L):
+    """Packed allow bits of same-label adjacency."""
+    return kg.pack_allow_bits([gg.shift_plane(L, dy, dx, -1) == L
+                               for dy, dx in gg.DIRS8])
 
 
 def _random_args(h, w, dev, seed):
@@ -311,7 +474,89 @@ def _random_args(h, w, dev, seed):
         "unpad_fields": (kp.fast_pad_fields_plain(pad_in, 8, hp, wp), 8, h,
                          w),
         "boundary_extract": (L, t(weights), 4 * h * w),
+        "closure_compmin": (L, bw, be, sz),
+        "closure_labelnd": (allow, be, bw),
+        "closure_value": (L, be),
+        "run_extract": (L, h * w),
     }
+
+
+def _serpentine(h, w, lanes=3, thick=3, margin=100):
+    """Label 1 on a serpentine of `lanes` horizontal lanes joined at
+    alternating ends, label 0 elsewhere."""
+    L = np.zeros((h, w), np.int32)
+    ys = np.linspace(margin, h - margin - thick, lanes).astype(int)
+    x0, x1 = margin, w - margin - thick
+    for i, y in enumerate(ys):
+        L[y:y + thick, x0:x1 + thick] = 1
+        if i + 1 < lanes:
+            x = x1 if i % 2 == 0 else x0
+            L[y:ys[i + 1] + thick, x:x + thick] = 1
+    return L
+
+
+def _eccentricity(L, label):
+    """BFS depth over 8-adjacency from the component's first pixel (an end
+    of the serpentine, so this is its geodesic diameter)."""
+    h, w = L.shape
+    ys, xs = np.nonzero(L == label)
+    start = (int(ys[0]), int(xs[0]))
+    dist = {start: 0}
+    queue = collections.deque([start])
+    while queue:
+        y, x = queue.popleft()
+        for dy, dx in gg.DIRS8:
+            n = (y + dy, x + dx)
+            if 0 <= n[0] < h and 0 <= n[1] < w and L[n] == label \
+                    and n not in dist:
+                dist[n] = dist[(y, x)] + 1
+                queue.append(n)
+    return max(dist.values())
+
+
+def _serpentine_check(dev, card):
+    """Closure-route fixpoints at the default WARM_PASSES on a 1081x1919
+    serpentine: each must equal its plain fixpoint and launch its closure
+    kernel in both orientations. Returns name -> max abs error."""
+    h, w = SERPENTINE
+    Ln = _serpentine(h, w)
+    diam = _eccentricity(Ln, 1)
+    if not 1000 < diam < 8000 or not 8 * kg.WARM_PASSES < diam:
+        raise AssertionError(f"serpentine geodesic diameter {diam} px")
+    rng = np.random.default_rng(17)
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    L = t(Ln)
+    cases = {
+        "gossip_compmin": (L, t(rng.uniform(0, 1, (h, w)).astype(np.float32)),
+                           t(rng.integers(0, 1 << 30, (h, w)).astype(np.int32)),
+                           t(rng.integers(1, 9, (h, w)).astype(np.int32))),
+        "gossip_labelnd": (_same_bits(L),
+                           t(rng.integers(0, 1 << 30, (h, w)).astype(np.int32)),
+                           t(rng.uniform(0, 5, (h, w)).astype(np.float32))),
+        "gossip_value": (L, t(rng.integers(0, 1 << 30, (h, w)).astype(np.int32))),
+    }
+    errs = {}
+    for name, args in cases.items():
+        closure = next(c for c, f in CLOSURE_OF.items() if f == name)
+        before = list(_wrapper(closure).axis_launches)
+        kg.HYBRID_LOG.clear()
+        t0 = time.perf_counter()
+        errs[name] = _compare(name, (*args, 4 * (h + w)), {"closures": True})
+        after = _wrapper(closure).axis_launches
+        if not (after[0] > before[0] and after[1] > before[1]):
+            raise AssertionError(f"serpentine {name}: closure launches "
+                                 f"{before} -> {after} (columns, rows)")
+        errs[closure] = _compare(closure, args)
+        print(f"check {name} closures=True serpentine {h}x{w} (geodesic "
+              f"diameter {diam} px): equal to plain; hybrid "
+              f"(variant, step passes, pairs) {list(kg.HYBRID_LOG)}, closure "
+              f"launches rows {after[1] - before[1]} columns "
+              f"{after[0] - before[0]}; check took "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return errs
 
 
 def _clone(a):
@@ -322,59 +567,66 @@ def _clone(a):
     return a
 
 
-def _capture_main_path_fields(image):
+def _capture_main_path_fields(image, cfg):
     """Run the main path once, recording each wrapper's first real call
-    (compmin's first non-idle one). Returns name -> argument tuple."""
+    (compmin's first non-idle one). Returns name -> (args, kwargs)."""
     captured = {}
-    originals = {name: _wrapper(name) for name in KERNELS}
+    names = [n for n in KERNELS if n not in CLOSURES]
+    originals = {name: _wrapper(name) for name in names}
 
     def recorder(name):
         fn = originals[name]
 
         def rec(*args, **kwargs):
             if name not in captured and not kwargs.get("idle", False):
-                captured[name] = _clone(args)
+                captured[name] = (_clone(args),
+                                  {k: v for k, v in kwargs.items()
+                                   if k != "idle"})
             return fn(*args, **kwargs)
         return rec
 
-    for name in KERNELS:
-        setattr(KERNELS[name][0], KERNELS[name][1], recorder(name))
+    for name in names:
+        setattr(KERNELS[name].mod, KERNELS[name].attr, recorder(name))
     try:
-        turbo.segment_turbo_flagged(image, CFG, GOSSIP_ROUNDS)
+        turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)
     finally:
         for name, fn in originals.items():
-            setattr(KERNELS[name][0], KERNELS[name][1], fn)
+            setattr(KERNELS[name].mod, KERNELS[name].attr, fn)
     return captured
 
 
-def _stage_split(image, reps):
+def _stage_split(image, cfg, reps):
     """Median ms of each main-path stage, run in sequence as
     segment_turbo_impl runs them."""
     h, w = image.shape[:2]
     v = h * w
+    quality = cfg.weight_buckets > 0
     out = {}
 
     def weights():
-        sm = filters.gaussian_smooth(image, CFG.sigma)
-        return gg.edge_weight_planes(sm, CFG.connectivity,
-                                     CFG.quantize_weight_bits)[0]
+        sm = filters.gaussian_smooth(image, cfg.sigma)
+        return gg.edge_weight_planes(sm, cfg.connectivity,
+                                     cfg.quantize_weight_bits)[0]
 
     wts = weights()
-    gst, _ = turbo._stage_g(image, CFG, GOSSIP_ROUNDS, wts)
-    st, rm, r0 = turbo._extract_stage(gst, wts)
-    st2 = turbo._s2_stage(st, v, CFG)
+    gst, _, thr = turbo._stage_g(image, cfg, GOSSIP_ROUNDS, wts)
+    st, rm, r0 = turbo._extract_stage(gst, wts, cfg)
+    st2 = turbo._s2_stage(st, v, cfg, thr)
     out["weights"] = _cuda_ms(weights, reps)
     out["stage_g"] = _cuda_ms(
-        lambda: turbo._stage_g(image, CFG, GOSSIP_ROUNDS, wts), reps)
-    out["handoff"] = _cuda_ms(lambda: turbo._extract_stage(gst, wts), reps)
-    out["stage_2"] = _cuda_ms(lambda: turbo._s2_stage(st, v, CFG), reps)
+        lambda: turbo._stage_g(image, cfg, GOSSIP_ROUNDS, wts), reps)
+    out["handoff"] = _cuda_ms(lambda: turbo._extract_stage(gst, wts, cfg),
+                              reps)
+    out["stage_2"] = _cuda_ms(lambda: turbo._s2_stage(st, v, cfg, thr), reps)
     out["final_map"] = _cuda_ms(
-        lambda: turbo._final_map(gst, st2, rm, r0, 4 * (h + w)), reps)
+        lambda: turbo._final_map(gst, st2, rm, r0, 4 * (h + w),
+                                 closures=quality), reps)
     out["rounds_stage_g"] = gst.it
+    out["rounds_stage_2"] = st2.it
     return out
 
 
-def _check_oracle(labels, image, oracle_path):
+def _check_oracle(labels, image, oracle_path, cfg):
     got = canonical_min_labels_np(labels.cpu().numpy())
     oracle = np.load(ROOT / oracle_path)
     ndiff = int((got != oracle).sum())
@@ -384,9 +636,9 @@ def _check_oracle(labels, image, oracle_path):
     if ndiff:
         # tell a filter-drift near-tie apart from a kernel fault
         cpu_w, _ = gg.edge_weight_planes(
-            filters.gaussian_smooth(image.cpu(), CFG.sigma),
-            CFG.connectivity, CFG.quantize_weight_bits)
-        lab2, fl2 = turbo.segment_turbo_flagged(image, CFG, GOSSIP_ROUNDS,
+            filters.gaussian_smooth(image.cpu(), cfg.sigma),
+            cfg.connectivity, cfg.quantize_weight_bits)
+        lab2, fl2 = turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS,
                                                 weights_override=cpu_w)
         nd2 = int((canonical_min_labels_np(lab2.cpu().numpy())
                    != oracle).sum())
@@ -397,40 +649,59 @@ def _check_oracle(labels, image, oracle_path):
 
 def _run_path(path, image, card):
     """The counted main-path run of one path, its checks and its times.
-    Returns (launch counts, main-path ms, stage split, peak MiB)."""
-    h, w, _, sizes, oracle = PATHS[path]
-    turbo._PEEL_SIZES = sizes
+    Returns a record of launches, main-path ms, stage split, peak MiB and,
+    on the quality paths, the closure launches and hybrid fixpoints."""
+    P = PATHS[path]
+    cfg = _cfg(path)
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    labels, flags = turbo.segment_turbo_flagged(image, CFG, GOSSIP_ROUNDS)
+    labels, flags = turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)
     torch.cuda.synchronize()
-    launches = _counts()
+    launches, axis = _counts(), _axis_counts()
+    hybrid = list(kg.HYBRID_LOG)
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"main path {path}: flags {flags} ({turbo.describe_flags(flags)}),"
           f" launches {launches}, peak memory {peak:.1f} MiB", flush=True)
+    rec = {"launches": launches, "peak_mib": peak}
+    if path in QUALITY:
+        rec["closure_launches_rows_cols"] = axis
+        rec["hybrid_variant_steps_pairs"] = hybrid
+        print(f"  closure launches (rows, columns) {axis}; "
+              f"{len(hybrid)} hybrid fixpoints, "
+              f"{sum(p > 0 for _, _, p in hybrid)} with a phase 2, "
+              f"(variant, step passes, phase-2 pairs) each: {hybrid}",
+              flush=True)
     if flags != 0:
         raise AssertionError(f"{path}: main path raised flags {flags}")
-    idle = [n for n in KERNELS if path in KERNELS[n][5] and launches[n] == 0]
+    idle = [n for n in KERNELS if path in KERNELS[n].must
+            and launches[n] == 0]
     if idle:
         raise AssertionError(f"{path}: main path never launched {idle}")
-    stray = [n for n in KERNELS if path not in KERNELS[n][5] and launches[n]]
+    stray = [n for n in KERNELS if path not in KERNELS[n].must
+             and path not in KERNELS[n].may and launches[n]]
     if stray:
         raise AssertionError(f"{path}: main path launched {stray}, which "
                              "it must not run")
-    _check_oracle(labels, image, oracle)
-    reps = 9 if h * w < 4_000_000 else 5
-    total_ms = _cuda_ms(
-        lambda: turbo.segment_turbo_flagged(image, CFG, GOSSIP_ROUNDS), reps)
-    print(f"  main path {path}: median {total_ms:.3f} ms of {reps} reps = "
-          f"{h * w / 1e6 / (total_ms / 1e3):.2f} MPix/s ({card})", flush=True)
-    split = _stage_split(image, 3)
+    one_way = [n for n in CLOSURES if path in KERNELS[n].must
+               and min(axis[n]) == 0]
+    if one_way:
+        raise AssertionError(f"{path}: {one_way} did not launch in both "
+                             "orientations")
+    _check_oracle(labels, image, P.oracle, cfg)
+    reps = 9 if P.h * P.w < 4_000_000 and path not in QUALITY else 5
+    rec["main_ms"] = _cuda_ms(
+        lambda: turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS), reps)
+    print(f"  main path {path}: median {rec['main_ms']:.3f} ms of {reps} "
+          f"reps = {P.h * P.w / 1e6 / (rec['main_ms'] / 1e3):.2f} MPix/s "
+          f"({card})", flush=True)
+    rec["stages_ms"] = split = _stage_split(image, cfg, 3)
     print("  stage split (median ms of 3): " + ", ".join(
         f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in split.items()) + f" ({card})", flush=True)
-    return launches, total_ms, split, peak
+    return rec
 
 
-def _peel_ab(image, card, pairs=10):
+def _peel_ab(image, card, pairs=4):
     """Main-path ms of the subsum and the count peel on one image, one run
     each per pair, the order alternating between pairs (ABBA...)."""
     times = {"subsum": [], "count": []}
@@ -447,41 +718,44 @@ def _peel_ab(image, card, pairs=10):
             times[sizes].append(start.elapsed_time(end))
     turbo._PEEL_SIZES = "subsum"
     wins = sum(a < b for a, b in zip(times["subsum"], times["count"]))
-    out = {k: {"median": statistics.median(v),
-               "quartiles": statistics.quantiles(v, n=4)[::2], "ms": v}
+    out = {k: {"median": statistics.median(v), "ms": v}
            for k, v in times.items()}
     print(f"peel A/B 1080p, {pairs} alternating pairs: subsum median "
-          f"{out['subsum']['median']:.3f} ms (quartiles "
-          f"{out['subsum']['quartiles']}), count median "
-          f"{out['count']['median']:.3f} ms (quartiles "
-          f"{out['count']['quartiles']}); subsum faster in {wins} of {pairs} "
-          f"pairs ({card})", flush=True)
+          f"{out['subsum']['median']:.3f} ms {times['subsum']}, count median "
+          f"{out['count']['median']:.3f} ms {times['count']}; subsum faster "
+          f"in {wins} of {pairs} pairs ({card})", flush=True)
     return out
 
 
 def _time_kernels(fields, label, card, plain_reps):
-    """Check and time each captured kernel call: kernel ms (median of 5),
-    plain ms, library ms where one exists, bound ms and passes per call."""
+    """Check and time each kernel call: kernel ms (median of 5), plain ms,
+    library ms where one exists, bound ms, device ms and launches per
+    call."""
     out = {}
-    for name, args in fields.items():
-        err = _compare(name, args)
+    for name, (args, kwargs) in fields.items():
+        err = _compare(name, args, kwargs)
         before = _wrapper(name).launches
-        _wrapper(name)(*args)
+        _kernel_fn(name, args, kwargs)()
         passes = _wrapper(name).launches - before
         rec = {"max_abs_err": err, "passes": passes,
-               "ms": _cuda_ms(lambda: _wrapper(name)(*args), 5),
-               "plain_ms": _cuda_ms(lambda: KERNELS[name][2](*args),
-                                    plain_reps)}
+               "ms": _cuda_ms(_kernel_fn(name, args, kwargs), 5),
+               "plain_ms": _cuda_ms(_plain_fn(name, args), plain_reps)}
         lib = _library_call(name, args)
         rec["library_ms"] = _cuda_ms(lib, 5) if lib else None
         rec["bound_ms"], rec["bound_by"] = _bound(name, args)
-        rec["device_ms"] = _device_ms(lambda: _wrapper(name)(*args), name)
+        rec["device_ms"] = _device_ms(_kernel_fn(name, args, kwargs), name)
+        split = ""
+        if name in CLOSURES:
+            fn = _wrapper(name)
+            for axis, side in ((1, "rows"), (0, "cols")):
+                rec[f"device_ms_{side}"] = _device_ms(
+                    lambda a=axis: fn(*args, a), name, side=side)
+            split = (f": rows {rec['device_ms_rows']:.3f}, columns "
+                     f"{rec['device_ms_cols']:.3f}")
         out[name] = rec
-        device = ("not measured" if rec["device_ms"] is None
-                  else f"{rec['device_ms']:.3f} ms")
         print(f"check {name} {label} main-path fields: equal to plain; "
               f"kernel {rec['ms']:.3f} ms ({passes} launches; on the device"
-              f" {device}), plain "
+              f" {rec['device_ms']:.3f} ms{split}), plain "
               f"{rec['plain_ms']:.3f} ms, library "
               + (f"{rec['library_ms']:.3f} ms" if lib else "none")
               + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) "
@@ -491,13 +765,42 @@ def _time_kernels(fields, label, card, plain_reps):
 
 def _build_all():
     """One nvcc per source, all started together."""
-    srcs = ("gossip", "extract", "pad")
+    srcs = ("gossip", "closure", "extract", "runs", "pad")
     with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
         futs = {s: pool.submit(_build.load, s, True) for s in srcs}
         for s, fut in futs.items():
             fut.result()
             print(f"build {s}.cu: {_build.build_seconds[s]:.2f} s",
                   flush=True)
+
+
+def _random_checks(dev):
+    """Every kernel against its plain version on random fields; the
+    closure-route fixpoints from their first pass; run extraction at the
+    identity labeling (every pixel a run: the pool overflows). Returns
+    name -> max abs error."""
+    errs = {name: 0.0 for name in KERNELS}
+    warm = kg.WARM_PASSES
+    for h, w in RANDOM_SHAPES:
+        args = _random_args(h, w, dev, seed=h * 7 + w)
+        for name, a in args.items():
+            errs[name] = max(errs[name], _compare(name, a))
+            print(f"check {name} {h}x{w}: equal to plain", flush=True)
+        kg.WARM_PASSES = 0
+        try:
+            for name in CLOSURE_OF.values():
+                errs[name] = max(errs[name], _compare(name, args[name],
+                                                      {"closures": True}))
+                print(f"check {name} closures=True WARM_PASSES=0 {h}x{w}: "
+                      "equal to plain", flush=True)
+        finally:
+            kg.WARM_PASSES = warm
+        vid = torch.arange(h * w, dtype=torch.int32, device=dev).reshape(h, w)
+        errs["run_extract"] = max(errs["run_extract"],
+                                  _compare("run_extract", (vid, h * w // 2)))
+        print(f"check run_extract identity labeling {h}x{w} (overflow): "
+              "equal to plain", flush=True)
+    return errs
 
 
 def main() -> None:
@@ -516,62 +819,87 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
     _build_all()
 
-    errs = {name: 0.0 for name in KERNELS}
-    for h, w in ((37, 150), (1081, 1919), (37, 2600), (160, 3840)):
-        for name, args in _random_args(h, w, dev, seed=h * 7 + w).items():
-            errs[name] = max(errs[name], _compare(name, args))
-            print(f"check {name} {h}x{w}: equal to plain", flush=True)
+    errs = _random_checks(dev)
+    for name, err in _serpentine_check(dev, card).items():
+        errs[name] = max(errs[name], err)
+    print(f"random and serpentine checks done at "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     images, timed, runs = {}, {}, {}
-    for path, (h, w, blobs, sizes, _) in PATHS.items():
-        if (h, w) not in images:
-            images[h, w] = torch.from_numpy(
-                blobs_image(h, w, blobs, 8.0, 0)).to(dev)
-        image = images[h, w]
-        turbo._PEEL_SIZES = sizes
-        # every kernel at the fields this path gives it; timed on the
-        # default-configuration paths.
-        fields = _capture_main_path_fields(image)
-        missing = {n for n in KERNELS if path in KERNELS[n][5]} - set(fields)
-        if missing:
-            raise AssertionError(f"{path} never called {sorted(missing)}")
-        if sizes == "count":
-            for name, args in fields.items():
-                errs[name] = max(errs[name], _compare(name, args))
-                print(f"check {name} {path} main-path fields: equal to "
-                      "plain", flush=True)
-        else:
-            timed[path] = _time_kernels(fields, path, card,
-                                        plain_reps=3 if h < 2000 else 1)
+    warm = kg.WARM_PASSES
+    for path, P in PATHS.items():
+        if (P.h, P.w) not in images:
+            images[P.h, P.w] = torch.from_numpy(
+                blobs_image(P.h, P.w, P.blobs, 8.0, 0)).to(dev)
+        image = images[P.h, P.w]
+        turbo._PEEL_SIZES = P.sizes
+        kg.WARM_PASSES = warm if P.warm_passes is None else P.warm_passes
+        try:
+            # every kernel at the fields this path gives it; each kernel
+            # is timed on one path.
+            fields = _capture_main_path_fields(image, _cfg(path))
+            missing = {n for n in KERNELS if path in KERNELS[n].must
+                       and n not in CLOSURES} - set(fields)
+            if missing:
+                raise AssertionError(f"{path} never called {sorted(missing)}")
+            if path in ("1080p_subsum", "4k_subsum"):
+                to_time = dict(fields)
+            elif path == "1080p_wb16_closures":
+                to_time = {c: (fields[f][0][:-1], {})
+                           for c, f in CLOSURE_OF.items()}
+            elif path == "1080p_runs":
+                to_time = {"run_extract": fields["run_extract"]}
+            else:
+                to_time = {}
+            for name, (args, kwargs) in fields.items():
+                if name in to_time:
+                    continue
+                errs[name] = max(errs[name], _compare(name, args, kwargs))
+                print(f"check {name} {path} main-path fields "
+                      f"{kwargs or ''}: equal to plain", flush=True)
+            timed[path] = _time_kernels(
+                to_time, path, card,
+                plain_reps=3 if path in ("1080p_subsum",) else 1)
             for name, rec in timed[path].items():
                 errs[name] = max(errs[name], rec["max_abs_err"])
-        runs[path] = _run_path(path, image, card)
-    turbo._PEEL_SIZES = "subsum"
-    ab = _peel_ab(images[1080, 1920], card)
+            runs[path] = _run_path(path, image, card)
+        finally:
+            kg.WARM_PASSES = warm
+            turbo._PEEL_SIZES = "subsum"
+        print(f"path {path} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    P = PATHS["1080p_subsum"]
+    ab = _peel_ab(images[P.h, P.w], card)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
                                    for m in sys.modules):
         raise AssertionError("the port imported jax or gseg_tpu")
+    timed_on = ({n: "4k_subsum" for n in PADS}
+                | {n: "1080p_wb16_closures" for n in CLOSURES}
+                | {"run_extract": "1080p_runs"})
     kernels = []
     for name in KERNELS:
-        # times at the default 1080p path's fields; the pads run only at 4K.
-        rec = timed["4k_subsum" if name in PADS else "1080p_subsum"][name]
-        rec4k = timed["4k_subsum"][name]
+        rec = timed[timed_on.get(name, "1080p_subsum")][name]
+        rec4k = timed["4k_subsum"].get(name, {})
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNELS[name][3],
-            "replaces": KERNELS[name][4],
-            "launches": sum(r[0][name] for r in runs.values()),
-            "launches_by_path": {p: r[0][name] for p, r in runs.items()},
+            "name": name, "route": "cuda", "source": KERNELS[name].source,
+            "replaces": KERNELS[name].replaces,
+            "launches": sum(r["launches"][name] for r in runs.values()),
+            "launches_by_path": {p: r["launches"][name]
+                                 for p, r in runs.items()},
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "timed_on": timed_on.get(name, "1080p_subsum"),
             "passes_per_call": rec["passes"], "device_ms": rec["device_ms"],
-            "ms_4k": rec4k["ms"], "device_ms_4k": rec4k["device_ms"],
-            "plain_ms_4k": rec4k["plain_ms"],
-            "bound_ms_4k": rec4k["bound_ms"]})
-    print("paths: " + json.dumps({
-        p: {"main_ms": r[1], "stages_ms": r[2], "peak_mib": r[3]}
-        for p, r in runs.items()} | {"peel_ab_1080p": ab}))
+            "ms_4k": rec4k.get("ms"), "device_ms_4k": rec4k.get("device_ms"),
+            "plain_ms_4k": rec4k.get("plain_ms"),
+            "bound_ms_4k": rec4k.get("bound_ms")}
+            | {k: rec[k] for k in ("device_ms_rows", "device_ms_cols")
+               if k in rec})
+    print("paths: " + json.dumps(
+        {p: {k: v for k, v in r.items() if k != "launches"}
+         for p, r in runs.items()} | {"peel_ab_1080p": ab}))
     print(f"chip_smoke wall time {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

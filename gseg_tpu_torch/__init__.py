@@ -1,11 +1,14 @@
 """gseg_tpu_torch — the PyTorch/CUDA port of `gseg_tpu`.
 
 A second package beside the JAX reference, for NVIDIA Hopper (H100). It
-imports torch and never jax. This slice ports the turbo path in speed mode
-(`weight_buckets=0`): smoothing and edge weights, the stage-G gossip
-rounds, the boundary-edge handoff, the stage-2 compact rounds and the final
-map, with hand-written CUDA kernels (built from `csrc/` on first use) for
-the step fixpoints and the boundary extraction.
+imports torch and never jax. It ports the turbo path, in speed mode
+(`weight_buckets=0`) and in quality mode (`weight_buckets > 0`, the
+weight-quantile bucket ramp): smoothing and edge weights, the stage-G
+gossip rounds, the boundary-edge handoff, the stage-2 compact rounds and
+the final map, with hand-written CUDA kernels (built from `csrc/` on first
+use) for the step fixpoints, the scan closures, the boundary extraction,
+the row-run extraction and the wide-image padding. The atomic, fastmst and
+superpixel algorithms are not ported yet.
 
 Public API:
     segment(image, sigma=.8, k=300, min_size=100, algorithm="turbo",
@@ -27,7 +30,9 @@ __all__ = ["ALGORITHMS", "SegmentationConfig", "segment"]
 def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="turbo",
             config: SegmentationConfig | None = None, device=None):
     """Segment an (H, W, 3) image (NumPy array or tensor); returns (H, W)
-    int32 canonical labels (min member pixel id) on `device`.
+    int32 canonical labels (min member pixel id) on `device`. Quality
+    mode: pass a `config` with `weight_buckets > 0` (16 is the reference's
+    quality setting).
 
     device: default cuda:0, whatever device the image is on; without a
     CUDA device this raises RuntimeError. Pass device="cpu" to run on the
@@ -40,7 +45,6 @@ def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="turbo",
         raise NotImplementedError(
             f"algorithm {cfg.algorithm!r} is not ported yet (ROADMAP.md, "
             "queue 1, items 9-10)")
-    turbo.check_ported(cfg)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

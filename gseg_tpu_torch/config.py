@@ -2,7 +2,9 @@
 
 The same frozen dataclass with the same fields and validation, so a
 reference configuration converts with
-`SegmentationConfig(**dataclasses.asdict(reference_cfg))`.
+`SegmentationConfig(**dataclasses.asdict(reference_cfg))`. One default
+differs: `algorithm` is "turbo", the port's only algorithm so far (the
+reference's is "atomic"), as `gseg_tpu_torch.segment` defaults to it.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ class SegmentationConfig:
     k: float = 300.0
     min_size: int = 100
     max_iters: int = 32
-    algorithm: str = "atomic"
+    algorithm: str = "turbo"
     hierarchy_levels: int = 0
     quantize_weight_bits: int = 0
     connectivity: int = 8

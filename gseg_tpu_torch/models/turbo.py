@@ -1,8 +1,9 @@
-"""Turbo path, speed mode (port of `gseg_tpu/models/turbo.py`).
+"""Turbo path (port of `gseg_tpu/models/turbo.py`).
 
 Same partition and the same canonical min-vertex-id labels as the
 reference's speed mode (`weight_buckets=0`) in its default configuration
-(`GSEG_PEEL_SIZES` unset, i.e. "subsum" peel rounds):
+(`GSEG_PEEL_SIZES` unset, i.e. "subsum" peel rounds), and as its quality
+mode (`weight_buckets > 0`, scan closures on):
 
   STAGE G — gossip rounds over the pixel grid: component min edge by a
   lexmin fixpoint (`kernels.gossip.compmin_gossip`), merged labels by a
@@ -14,7 +15,18 @@ reference's speed mode (`weight_buckets=0`) in its default configuration
   grouping the compact old-root list. Rounds run until at most V/128
   components remain. `_PEEL_SIZES = "count"` selects the reference's
   `GSEG_PEEL_SIZES=count` peel instead (dist-free flood, counting
-  scatter), which gives the same labels.
+  scatter), and `"runs"` its `GSEG_PEEL_SIZES=runs` peel (dist-free flood,
+  sizes from the row-run pool of `kernels.runs.run_extract`); both give
+  the same labels.
+
+  QUALITY MODE — the weight-quantile bucket ramp (`bucket_thresholds`):
+  round r only sees edges at most the r-th of `weight_buckets` quantiles
+  (felz rounds in stage 2 too), the cap rising one bucket per round, and
+  min-size rounds start only once every bucket is open. Stage G runs two
+  count-peel rounds, a full-V root list, then root-list rounds down to V/32
+  components; every fixpoint takes the hybrid route with scan closures
+  (`closures=True`). The handoff and stage 2 use the reference's quality
+  capacities.
 
   HANDOFF — live boundary edges are extracted into a compact pool
   (`kernels.extract.boundary_extract`) and deduplicated to the min edge per
@@ -44,6 +56,7 @@ from ..ops import filters
 from ..ops import grid_graph as gg
 from ..ops.kernels import extract as kx
 from ..ops.kernels import gossip as kg
+from ..ops.kernels import runs as kr
 
 INT32_MAX = gg.INT32_MAX
 BIGDIST = kg.BIGDIST
@@ -57,7 +70,9 @@ FLAG_ITERS_EXHAUSTED = 16     # stage-2 exited its round budget unconverged
 _RLIST_FLOOR = 16384  # min sliced root-list capacity (tests shrink it)
 _CAP_FLOOR = 16384    # min pool/recompact capacity (tests shrink it)
 _EX_SMALL = True      # handoff: dedup only the live head of the pool
-_PEEL_SIZES = "subsum"  # peel-round sizes: "subsum" (default) or "count"
+_PEEL_SIZES = "subsum"  # peel-round sizes: "subsum" (default), "count", "runs"
+_GATE_DIV = 128       # speed-mode handoff: at most V/128 components
+_GATE_DIV_Q = 32      # quality-mode handoff: at most V/32 components
 _S2_SMALL = True      # stage 2: run the early rounds on a sliced pool
 
 
@@ -69,6 +84,7 @@ class GossipState(NamedTuple):
     ID: torch.Tensor      # (H, W) float32 Int(C), replicated
     merged: bool
     it: int
+    bucket: int           # weight-bucket index (quality mode; 0 in speed)
     flags: torch.Tensor   # () int32 FLAG_* bits accumulated so far
 
 
@@ -82,6 +98,7 @@ class CompactState(NamedTuple):
     fin: torch.Tensor     # (C,) int32 current root of each initial root
     merged: bool
     it: int
+    bucket: int           # weight-bucket index, carried from stage G
     phase: int            # 0 = felz rounds, 1 = min-size rounds
     flags: torch.Tensor   # () int32 FLAG_* bits accumulated so far
 
@@ -149,9 +166,34 @@ def _shifts8(x, fill):
 # ---------------------------------------------------------------------------
 
 
-def _vertex_min_outgoing(L, w8, eid8):
+def bucket_thresholds(weights, num_buckets: int) -> torch.Tensor:
+    """Quality-mode weight caps: the quantiles of a strided sample of the
+    finite edge weights, the last bucket +inf (the reference's
+    `bucket_thresholds` and `boruvka_cpu.bucket_thresholds_np`: same
+    sample, same int32 index arithmetic)."""
+    flat = torch.stack([weights[d] for d in range(4)], -1).reshape(-1)
+    stride = max(flat.numel() // 65536, 1)
+    sample = flat[::stride][:65536]
+    sample = torch.where(torch.isfinite(sample), sample, torch.inf)
+    sample = torch.sort(sample).values
+    n = sample.numel()
+    n_fin = torch.isfinite(sample).sum().to(torch.int32)
+    bs = torch.arange(num_buckets, dtype=torch.int32, device=weights.device)
+    idx = torch.div((bs + 1) * n_fin, num_buckets, rounding_mode="floor") - 1
+    idx = torch.minimum(idx.clamp(min=0), (n_fin - 1).clamp(min=0))
+    out = sample[idx.clamp(0, n - 1).to(torch.int64)]
+    out[num_buckets - 1] = torch.inf
+    return out
+
+
+def _vertex_min_outgoing(L, w8, eid8, tau=None):
+    """Per pixel, its min outgoing edge (w, eid) to another label, among
+    edges at most tau (None: all)."""
     nbrL = torch.stack(_shifts8(L, -1))
-    w = torch.where(nbrL != L[None], w8, torch.inf)
+    outgoing = nbrL != L[None]
+    if tau is not None:
+        outgoing &= w8 <= tau
+    w = torch.where(outgoing, w8, torch.inf)
     vminw = w.amin(0)
     veid = torch.where(w == vminw[None], eid8, INT32_MAX).amin(0)
     veid = torch.where(torch.isfinite(vminw), veid, INT32_MAX)
@@ -211,6 +253,19 @@ def _component_sizes(L):
     return torch.where(L == vid, S, 0), False
 
 
+def _runs_sizes(L):
+    """Exact per-component pixel counts from the row-run pool: the row runs
+    of L partition the plane, so run lengths summed by label count each
+    component (one cap-sized sort). When the pool overflows, the counting
+    scatter gives the same sizes. Returns ((H, W) size at root pixel / 0
+    elsewhere, overflow=False)."""
+    h, w = L.shape
+    lab, cnt, _, ovf = kr.run_extract(L, max(h * w // 2, 1024))
+    if bool(ovf):
+        return _component_sizes(L)
+    return _sum_by_label(lab, cnt, h, w)[0], False
+
+
 def _parent_dirs(L, dist):
     """Each pixel's parent in the BFS tree: the first DIRS8 direction whose
     same-label neighbour is one level closer (8 = root / unreached)."""
@@ -233,22 +288,25 @@ def _subtree_sizes(L, dist, max_sweeps):
 
 
 def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
-            sizes="subsum", idle_compmin=False):
+            sizes="subsum", idle_compmin=False, tau=None, closures=False):
     """One gossip Boruvka round (felz predicate).
 
     sizes="subsum": the label flood carries the BFS dist from the new
     roots, and subtree sums over its parent tree give exact sizes (the
     reference's default peel rounds).
     sizes="count": dist-free flood, exact sizes by a counting scatter.
+    sizes="runs": dist-free flood, exact sizes from the row-run pool.
     sizes="rlist": dist-free flood, sizes by grouping the compact old-root
     list `rlist`; returns (state, new rlist).
     idle_compmin: True on round 1 (all-singleton labels: the compmin
-    fixpoint is the identity)."""
+    fixpoint is the identity). tau: the round's weight cap (quality mode;
+    None: no cap). closures: the fixpoints' hybrid route (quality mode)."""
     L, S, ID = state.L, state.S, state.ID
 
-    vminw, veid, nbrL = _vertex_min_outgoing(L, w8, eid8)
+    vminw, veid, nbrL = _vertex_min_outgoing(L, w8, eid8, tau)
     cw, ce, SZ, unconv = kg.compmin_gossip(L, vminw, veid, S, max_sweeps,
-                                           idle=idle_compmin)
+                                           idle=idle_compmin,
+                                           closures=closures)
 
     # Multiply-form predicate (w - Int) * |C| <= k, as separate float32 ops.
     kf = torch.tensor(k, dtype=torch.float32, device=L.device)
@@ -291,15 +349,18 @@ def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
         Snew, size_unconv = _subtree_sizes(Lnew, dist, max_sweeps)
     else:
         Lnew, IDnew, lab_unconv = kg.label_flood(bits, L, id_init,
-                                                 max_sweeps)
+                                                 max_sweeps,
+                                                 closures=closures)
     if sizes == "rlist":
         Snew, rlist_new = _rlist_sizes(rlist, Lnew, S)
     elif sizes == "count":
         Snew, _ = _component_sizes(Lnew)
+    elif sizes == "runs":
+        Snew, _ = _runs_sizes(Lnew)
     flags = _raise_flag(state.flags, unconv or lab_unconv or size_unconv,
                         FLAG_GOSSIP_UNCONVERGED)
     out = GossipState(L=Lnew, S=Snew, ID=IDnew, merged=merged,
-                      it=state.it + 1, flags=flags)
+                      it=state.it + 1, bucket=state.bucket, flags=flags)
     return (out, rlist_new) if sizes == "rlist" else out
 
 
@@ -320,7 +381,8 @@ def _rlist_loop(gcond, gbody, gst, rlist, vid, cap: int):
 
 def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
              weights_override=None):
-    """Smoothing + implicit graph + gossip rounds; returns (state, weights).
+    """Smoothing + implicit graph + gossip rounds; returns (state, weights,
+    thresholds): the bucket caps in quality mode, else None.
 
     weights_override: optional (4, H, W) float32 planes that replace the
     smoothing + edge-weight computation (parity-testing hook: feeding both
@@ -342,32 +404,51 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
     w8, eid8 = gg.incident_views(weights)
     vid = torch.arange(v, dtype=torch.int32, device=dev).reshape(h, w)
 
+    quality = cfg.weight_buckets > 0
+    nb = max(cfg.weight_buckets, 1)
+    thresholds = bucket_thresholds(weights, nb) if quality else None
+
+    def tau(s):
+        return thresholds[s.bucket] if quality else None
+
+    def advance(s, s2):
+        # quality mode: the cap rises one bucket per round; the rounds go
+        # on while buckets remain, even if this one merged nothing.
+        return s2._replace(bucket=min(s.bucket + 1, nb - 1),
+                           merged=s2.merged or s.bucket + 1 < nb)
+
     gst = GossipState(
         L=vid, S=torch.ones((h, w), dtype=torch.int32, device=dev),
         ID=torch.zeros((h, w), dtype=torch.float32, device=dev),
-        merged=True, it=0,
+        merged=True, it=0, bucket=0,
         flags=torch.zeros((), dtype=torch.int32, device=dev))
 
-    # two peel rounds.
+    # two peel rounds (quality mode: count sizes, closures on).
     while gst.merged and gst.it < 2:
-        gst = _ground(gst, w8, eid8, cfg.k, max_sweeps, sizes=_PEEL_SIZES,
-                      idle_compmin=gst.it == 0)
-    rlist, rovf = _build_rlist(gst.L, max(v // 4, _CAP_FLOOR))
+        gst = advance(gst, _ground(
+            gst, w8, eid8, cfg.k, max_sweeps,
+            sizes="count" if quality else _PEEL_SIZES,
+            idle_compmin=gst.it == 0, tau=tau(gst), closures=quality))
+    # quality mode: the bucket ramp merges slowly, so the root list gets
+    # full pixel capacity.
+    rlist, rovf = _build_rlist(gst.L, v if quality
+                               else max(v // 4, _CAP_FLOOR))
     gst = gst._replace(flags=_raise_flag(gst.flags, rovf, FLAG_COMP_OVERFLOW))
 
-    gate_c = v // 128
+    gate_c = v // (_GATE_DIV_Q if quality else _GATE_DIV)
 
     def gcond(s):
         return s.merged and (s.it < gossip_rounds
                              or int((s.L == vid).sum()) > gate_c)
 
     def gbody(s, rl):
-        return _ground(s, w8, eid8, cfg.k, max_sweeps, rlist=rl,
-                       sizes="rlist")
+        s2, rl2 = _ground(s, w8, eid8, cfg.k, max_sweeps, rlist=rl,
+                          sizes="rlist", tau=tau(s), closures=quality)
+        return advance(s, s2), rl2
 
     gst = _rlist_loop(gcond, gbody, gst, rlist, vid,
-                      max(v // 32, _RLIST_FLOOR))
-    return gst, weights
+                      max(v // (16 if quality else 32), _RLIST_FLOOR))
+    return gst, weights, thresholds
 
 
 # ---------------------------------------------------------------------------
@@ -401,12 +482,13 @@ def _pair_dedup(esrc, edst, ew, eid, cap):
     return o1, o2, ow, oe, ovf
 
 
-def _extract_stage(gst: GossipState, weights):
+def _extract_stage(gst: GossipState, weights, cfg: SegmentationConfig):
     """Gossip -> compact handoff: the boundary_extract pool, then a flat
     sort-dedup of its live head. Returns (st, rm, r0)."""
     h, w = gst.L.shape
     v = h * w
-    pair_cap = max(v // 24, _CAP_FLOOR)
+    quality = cfg.weight_buckets > 0
+    pair_cap = max(v // (6 if quality else 24), _CAP_FLOOR)
     cap_live = max(v // 2, 1 << 16)
     lo, hi, ew4, eid4, cnt, extract_ovf = kx.boundary_extract(
         gst.L, weights, cap_live)
@@ -428,12 +510,15 @@ def _extract_stage(gst: GossipState, weights):
     pm, (plo, phi, pw, pe), pair_ovf = _select_compact(
         head, [s_lo, s_hi, s_w, s_e], pair_cap)
     return _pools_to_state(pm, plo, phi, pw, pe, pair_ovf | extract_ovf, v,
-                           gst.S.reshape(-1), gst.ID.reshape(-1), gst.flags)
+                           quality, gst.S.reshape(-1), gst.ID.reshape(-1),
+                           gst.bucket, gst.flags)
 
 
-def _pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v, SZf, IDf, base_flags):
+def _pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v, quality, SZf, IDf,
+                    bucket, base_flags):
     """Deduped pair pool -> two-orientation edge pool + stage-2 entry state,
-    plus the initial-root list (rm, r0) for the final map."""
+    plus the initial-root list (rm, r0) for the final map. The state
+    carries stage G's bucket: the ramp goes on where stage G left it."""
     plo = torch.where(pm, plo, 0)
     phi = torch.where(pm, phi, 0)
     pw = torch.where(pm, pw, torch.inf)
@@ -443,7 +528,7 @@ def _pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v, SZf, IDf, base_flags):
     eeid = torch.cat([pe, pe])
 
     # every component with a live edge; the others never merge in stage 2.
-    comp_cap = max(v // 96, _CAP_FLOOR)
+    comp_cap = max(v // (24 if quality else 96), _CAP_FLOOR)
     srt_src = torch.sort(torch.where(torch.isfinite(ew), esrc,
                                      INT32_MAX)).values
     rhead = _run_heads(srt_src) & (srt_src != INT32_MAX)
@@ -454,17 +539,20 @@ def _pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v, SZf, IDf, base_flags):
                          root_ovf, FLAG_COMP_OVERFLOW)
     st = CompactState(esrc=esrc, edst=edst, ew=ew, eeid=eeid, SZf=SZf,
                       IDf=IDf, fin=torch.where(rm, r0_arr, 0), merged=True,
-                      it=0, phase=0, flags=flags0)
+                      it=0, bucket=bucket, phase=0, flags=flags0)
     return st, rm, r0
 
 
 def _s2_round(st: CompactState, v, comp_cap, k, min_size,
-              is_felz: bool) -> CompactState:
+              is_felz: bool, tau=None) -> CompactState:
     """One compact round (canonical min-member relabel). is_felz: the
-    predicate-gated felz round vs a min-size round."""
+    predicate-gated felz round vs a min-size round. tau: the felz round's
+    weight cap (quality mode; None: no cap)."""
     esrc, edst, ew = st.esrc, st.edst, st.ew
     dev = esrc.device
     live = (esrc != edst) & torch.isfinite(ew)
+    if tau is not None:
+        live &= ew <= tau
     k1 = torch.where(live, esrc, INT32_MAX)
     kw = torch.where(live, ew, torch.inf)
     perm = _lexsort(_key64(k1, kw), st.eeid)
@@ -528,21 +616,31 @@ def _s2_round(st: CompactState, v, comp_cap, k, min_size,
         esrc=M[esrc.to(torch.int64)], edst=M[edst.to(torch.int64)],
         ew=st.ew, eeid=st.eeid, SZf=SZf, IDf=IDf,
         fin=M[st.fin.to(torch.int64)],
-        merged=bool(changed.any()), it=st.it + 1, phase=st.phase,
+        merged=bool(changed.any()), it=st.it + 1, bucket=st.bucket,
+        phase=st.phase,
         flags=_raise_flag(st.flags, head_ovf, FLAG_COMP_OVERFLOW))
 
 
 def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
-              with_minsize: bool, flag_exhaustion: bool = True):
+              thresholds, with_minsize: bool, flag_exhaustion: bool = True):
     """Felz rounds to convergence, then (optionally) min-size rounds; the
-    phase flips 0 -> 1 when a felz round merges nothing.
+    phase flips 0 -> 1 when a felz round merges nothing with every bucket
+    open. thresholds: the bucket caps (quality mode) or None.
     flag_exhaustion=False for deliberately round-capped warm-up phases."""
+    nb = 1 if thresholds is None else thresholds.numel()
     st = st._replace(merged=True, it=0)
     while st.merged and st.it < max_iters:
         is_felz = st.phase == 0
-        st = _s2_round(st, v, comp_cap, k, min_size, is_felz)
-        if with_minsize and is_felz and not st.merged:
-            st = st._replace(phase=1, merged=True)
+        tau = (thresholds[st.bucket]
+               if is_felz and thresholds is not None else None)
+        s2 = _s2_round(st, v, comp_cap, k, min_size, is_felz, tau)
+        if is_felz:
+            # bucket ramp: the cap rises one bucket per felz round.
+            s2 = s2._replace(bucket=min(st.bucket + 1, nb - 1),
+                             merged=s2.merged or st.bucket + 1 < nb)
+        if with_minsize and is_felz and not s2.merged:
+            s2 = s2._replace(phase=1, merged=True)
+        st = s2
     if flag_exhaustion and st.merged:
         # the round budget ended the loop early.
         st = st._replace(flags=st.flags | FLAG_ITERS_EXHAUSTED)
@@ -591,19 +689,28 @@ def _slice_pool(st: CompactState, pair_cap: int, cs: int) -> CompactState:
                        ew=take(st.ew), eeid=take(st.eeid))
 
 
-def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig):
-    """All stage-2 compact rounds: warm-up round, recompact, two rounds,
-    prune, recompact, then the main phase with the min-size rounds."""
-    comp_cap = v if v <= 1 << 20 else max(v // 96, _CAP_FLOOR)
-    rec1_cap = max(v // 64, _CAP_FLOOR)
+def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
+              thresholds=None):
+    """All stage-2 compact rounds. Speed mode: warm-up round, recompact,
+    two rounds, prune, recompact, then the main phase with the min-size
+    rounds. Quality mode (thresholds: the bucket caps): two warm-up rounds,
+    recompact, then the main phase."""
+    quality = cfg.weight_buckets > 0
+    comp_cap = v if v <= 1 << 20 else max(v // (24 if quality else 96),
+                                          _CAP_FLOOR)
+    rec1_cap = max(v // (8 if quality else 64), _CAP_FLOOR)
+    s2_iters = 2 * cfg.max_iters + max(cfg.weight_buckets, 1)
 
     def early(s: CompactState) -> CompactState:
-        s = _s2_phase(s, v, comp_cap, cfg.k, cfg.min_size, 1,
-                      with_minsize=False, flag_exhaustion=False)
+        s = _s2_phase(s, v, comp_cap, cfg.k, cfg.min_size,
+                      2 if quality else 1, thresholds, with_minsize=False,
+                      flag_exhaustion=False)
         s, rec_ovf = _recompact_edges(s, rec1_cap)
         s = s._replace(flags=_raise_flag(s.flags, rec_ovf,
                                          FLAG_RECOMPACT_OVERFLOW))
-        s = _s2_phase(s, v, comp_cap, cfg.k, cfg.min_size, 2,
+        if quality:
+            return s
+        s = _s2_phase(s, v, comp_cap, cfg.k, cfg.min_size, 2, thresholds,
                       with_minsize=False, flag_exhaustion=False)
         s = _prune_dead(s, v, cfg.k, cfg.min_size)
         s, rec2_ovf = _recompact_edges(s, max(v // 128, _CAP_FLOOR // 2))
@@ -614,37 +721,32 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig):
     # slice, run the same early rounds on the sliced pool (dead slots past
     # the slice carry no information).
     pair_cap = st.esrc.numel() // 2
-    cs = max(v // 64, -(-rec1_cap // 2))
+    cs = max(v // (24 if quality else 64), -(-rec1_cap // 2))
     if (_S2_SMALL and cs < pair_cap
             and int(torch.isfinite(st.ew[:pair_cap]).sum()) <= cs):
         st = early(_slice_pool(st, pair_cap, cs))
     else:
         st = early(st)
-    return _s2_phase(st, v, max(v // 1024, 4096), cfg.k, cfg.min_size,
-                     2 * cfg.max_iters + 1, with_minsize=cfg.min_size > 1)
+    return _s2_phase(st, v, comp_cap if quality else max(v // 1024, 4096),
+                     cfg.k, cfg.min_size, s2_iters, thresholds,
+                     with_minsize=cfg.min_size > 1)
 
 
-def _final_map(gst: GossipState, st: CompactState, rm, r0, max_sweeps):
+def _final_map(gst: GossipState, st: CompactState, rm, r0, max_sweeps,
+               closures=False):
     """Stage-G labels through the stage-2 root map -> final (H, W) labels:
     each root pixel holds its final label (its own id when stage 2 never
-    saw it), and a value flood spreads it over the stage-G component.
-    Returns (labels, unconverged)."""
+    saw it), and a value flood spreads it over the stage-G component
+    (closures: its hybrid route, quality mode). Returns (labels,
+    unconverged)."""
     h, w = gst.L.shape
     v = h * w
     vid2d = torch.arange(v, dtype=torch.int32,
                          device=gst.L.device).reshape(h, w)
     seed = torch.where(gst.L == vid2d, gst.L, INT32_MAX).reshape(-1)
     seed = _scatter(seed, r0, st.fin)  # r0 holds v (dropped) where ~rm
-    return kg.value_flood(gst.L, seed.reshape(h, w), max_sweeps)
-
-
-def check_ported(cfg: SegmentationConfig) -> None:
-    """Raise NotImplementedError for a turbo configuration the port does
-    not run yet."""
-    if cfg.weight_buckets > 0:
-        raise NotImplementedError(
-            "turbo quality mode (weight_buckets > 0) is not ported yet "
-            "(ROADMAP.md, queue 1, item 7)")
+    return kg.value_flood(gst.L, seed.reshape(h, w), max_sweeps,
+                          closures=closures)
 
 
 def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
@@ -655,13 +757,14 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
     must not be trusted (`segment_turbo` checks it).
 
     weights_override: see _stage_g (parity-testing hook)."""
-    check_ported(cfg)
     h, w = image.shape[0], image.shape[1]
     v = h * w
-    gst, weights = _stage_g(image, cfg, gossip_rounds, weights_override)
-    st, rm, r0 = _extract_stage(gst, weights)
-    st = _s2_stage(st, v, cfg)
-    labels, fm_unconv = _final_map(gst, st, rm, r0, 4 * (h + w))
+    gst, weights, thresholds = _stage_g(image, cfg, gossip_rounds,
+                                        weights_override)
+    st, rm, r0 = _extract_stage(gst, weights, cfg)
+    st = _s2_stage(st, v, cfg, thresholds)
+    labels, fm_unconv = _final_map(gst, st, rm, r0, 4 * (h + w),
+                                   closures=cfg.weight_buckets > 0)
     flags = _raise_flag(st.flags, fm_unconv, FLAG_GOSSIP_UNCONVERGED)
     return labels, int(flags)
 

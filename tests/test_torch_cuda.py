@@ -22,6 +22,7 @@ from gseg_tpu_torch.ops import grid_graph as gg  # noqa: E402
 from gseg_tpu_torch.ops.kernels import extract as kx  # noqa: E402
 from gseg_tpu_torch.ops.kernels import gossip as kg  # noqa: E402
 from gseg_tpu_torch.ops.kernels import pad as kp  # noqa: E402
+from gseg_tpu_torch.ops.kernels import runs as kr  # noqa: E402
 from gseg_tpu_torch.utils.synthetic import blobs_image  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -255,3 +256,160 @@ def test_turbo_on_card_equals_cpu(dev, case):
     assert labels.device.type == "cuda"
     assert flags == cpu_flags == 0
     assert torch.equal(labels.cpu(), cpu_labels)
+
+
+def _serpentine(h, w, lanes, thick=3, margin=4):
+    """Label 1 on `lanes` horizontal lanes joined at alternating ends (a
+    long thin component), label 0 elsewhere."""
+    L = np.zeros((h, w), np.int32)
+    ys = np.linspace(margin, h - margin - thick, lanes).astype(int)
+    x0, x1 = margin, w - margin - thick
+    for i, y in enumerate(ys):
+        L[y:y + thick, x0:x1 + thick] = 1
+        if i + 1 < lanes:
+            x = x1 if i % 2 == 0 else x0
+            L[y:ys[i + 1] + thick, x:x + thick] = 1
+    return L
+
+
+CLOSURE_SHAPES = SHAPES + [(40, 3840), (300, 301)]
+
+
+@pytest.mark.parametrize("shape", CLOSURE_SHAPES)
+@pytest.mark.parametrize("axis", [1, 0])
+def test_closure_kernels_equal_plain(dev, shape, axis):
+    h, w = shape
+    f = _fields(h, w, dev, seed=h * 3 + w + axis, ncomp=3)
+    cases = [(kg.compmin_closure, kg.compmin_closure_plain,
+              (f["L"], f["bw"], f["be"], f["sz"])),
+             (kg.labelnd_closure, kg.labelnd_closure_plain,
+              (f["allow"], f["be"], f["bw"])),
+             (kg.value_closure, kg.value_closure_plain, (f["L"], f["be"]))]
+    for wrapper, plain, args in cases:
+        n0 = list(wrapper.axis_launches)
+        got, ref = wrapper(*args, axis), plain(*args, axis)
+        assert _equal(got[:-1], ref[:-1]) and got[-1] is ref[-1]
+        assert wrapper.axis_launches[axis] == n0[axis] + 1
+        assert wrapper.axis_launches[1 - axis] == n0[1 - axis]
+
+
+def test_closure_kernels_on_a_serpentine(dev):
+    """Runs that span whole rows and columns: the closures carry a value
+    across every chunk of the rows kernel and down every column."""
+    h, w = 97, 1500
+    L = torch.from_numpy(_serpentine(h, w, 5)).to(dev)
+    rng = np.random.default_rng(3)
+    val = torch.from_numpy(rng.integers(0, 1 << 30, (h, w)).astype(
+        np.int32)).to(dev)
+    for axis in (1, 0):
+        got = kg.value_closure(L, val, axis)
+        ref = kg.value_closure_plain(L, val, axis)
+        assert _equal(got[:-1], ref[:-1]) and got[-1] is ref[-1] is True
+
+
+@pytest.mark.parametrize("shape", [(23, 70), (96, 56), (37, 2600)])
+def test_closure_route_fixpoints_equal_plain(dev, shape, monkeypatch):
+    """closures=True from the first pass (WARM_PASSES = 0), the padded
+    route included: the plain fixpoints' bits."""
+    monkeypatch.setattr(kg, "WARM_PASSES", 0)
+    h, w = shape
+    f = _fields(h, w, dev, seed=h + w, ncomp=3)
+    ms = 4 * (h + w)
+    n0 = [c.launches for c in kg._CLOSURE_WRAPPERS.values()]
+    got = kg.compmin_gossip(f["L"], f["bw"], f["be"], f["sz"], ms,
+                            closures=True)
+    ref = kg.compmin_gossip_plain(f["L"], f["bw"], f["be"], f["sz"], ms)
+    assert _equal(got[:3], ref[:3]) and got[3] is ref[3] is False
+    got = kg.label_flood(f["allow"], f["be"], f["bw"], ms, closures=True)
+    ref = kg.label_flood_plain(f["allow"], f["be"], f["bw"], ms)
+    assert _equal(got[:2], ref[:2]) and got[2] is ref[2] is False
+    got = kg.value_flood(f["L"], f["be"], ms, closures=True)
+    ref = kg.value_flood_plain(f["L"], f["be"], ms)
+    assert torch.equal(got[0], ref[0]) and got[1] is ref[1] is False
+    n1 = [c.launches for c in kg._CLOSURE_WRAPPERS.values()]
+    assert all(b >= a + 2 for a, b in zip(n0, n1))
+
+
+def test_closure_route_engages_past_the_warm_passes(dev):
+    """A serpentine whose geodesic length (~3 x 1190 px, inside the plain
+    sweep cap of 4 (h + w)) outruns WARM_PASSES x T = 512 px: at the
+    default WARM_PASSES phase 2 runs, both orientations launch, and the
+    result is the plain fixpoint."""
+    h, w = 300, 1200
+    L = torch.from_numpy(_serpentine(h, w, 3)).to(dev)
+    rng = np.random.default_rng(5)
+    val = torch.from_numpy(rng.integers(0, 1 << 30, (h, w)).astype(
+        np.int32)).to(dev)
+    ms = 4 * (h + w)
+    kg.HYBRID_LOG.clear()
+    n0 = list(kg.value_closure.axis_launches)
+    got, unconv = kg.value_flood(L, val, ms, closures=True)
+    ref, ref_unconv = kg.value_flood_plain(L, val, ms)
+    assert torch.equal(got, ref) and unconv is ref_unconv is False
+    assert [(v, s) for v, s, _ in kg.HYBRID_LOG] == [("value",
+                                                      kg.WARM_PASSES)]
+    assert kg.HYBRID_LOG[0][2] > 0
+    assert all(b > a for a, b in zip(n0, kg.value_closure.axis_launches))
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1080, 1920)])
+def test_run_extract_kernel_equals_plain(dev, shape):
+    h, w = shape
+    rng = np.random.default_rng(h + w)
+    L = torch.from_numpy(rng.integers(0, 3, (h, w)).astype(np.int32)).to(dev)
+    vid = torch.arange(h * w, dtype=torch.int32, device=dev).reshape(h, w)
+    n0 = kr.run_extract.launches
+    for labels, cap in ((L, h * w), (vid, max(h * w // 2, 1))):
+        got = kr.run_extract(labels, cap)
+        ref = kr.run_extract_plain(labels, cap)
+        assert int(got[2]) == int(ref[2]) and bool(got[3]) == bool(ref[3])
+        if bool(got[3]):  # overflow: every slot filled, the rest dropped
+            assert bool((got[0] != kr.INT32_MAX).all())
+            continue
+        n = int(got[2])
+
+        def pairs(r):
+            k = torch.stack([r[0][:n], r[1][:n]], 1).cpu().numpy()
+            return k[np.lexsort(k.T[::-1])]
+        assert np.array_equal(pairs(got), pairs(ref))
+        assert bool((got[0][n:] == kr.INT32_MAX).all())
+    assert kr.run_extract.launches == n0 + 2
+
+
+@pytest.mark.parametrize("case", [
+    dict(h=48, w=64, k=30.0, min_size=10, wb=16, seed=1, warm=None),
+    dict(h=48, w=64, k=30.0, min_size=10, wb=8, seed=1, warm=0),
+    dict(h=96, w=56, k=200.0, min_size=20, wb=16, seed=11, warm=0),
+])
+def test_quality_turbo_on_card_equals_cpu(dev, case, monkeypatch):
+    """Quality mode on the card (closure route from the first pass where
+    warm = 0) gives the CPU run's labels and flags, both fed the same
+    weight planes."""
+    if case["warm"] is not None:
+        monkeypatch.setattr(kg, "WARM_PASSES", case["warm"])
+    cfg = SegmentationConfig(k=case["k"], min_size=case["min_size"],
+                             weight_buckets=case["wb"])
+    img = torch.from_numpy(blobs_image(case["h"], case["w"], 5, 4.0,
+                                       case["seed"]))
+    cpu_labels, cpu_flags = turbo.segment_turbo_impl(img, cfg, 2)
+    weights = gg.edge_weight_planes(filters.gaussian_smooth(img, cfg.sigma),
+                                    cfg.connectivity)[0]
+    labels, flags = turbo.segment_turbo_impl(img.to(dev), cfg, 2,
+                                             weights_override=weights)
+    assert flags == cpu_flags == 0
+    assert torch.equal(labels.cpu(), cpu_labels)
+
+
+def test_runs_peel_on_card_equals_cpu(dev, monkeypatch):
+    monkeypatch.setattr(turbo, "_PEEL_SIZES", "runs")
+    cfg = SegmentationConfig(k=100.0, min_size=8)
+    img = torch.from_numpy(blobs_image(96, 56, 6, 6.0, 11))
+    cpu_labels, cpu_flags = turbo.segment_turbo_impl(img, cfg, 2)
+    weights = gg.edge_weight_planes(filters.gaussian_smooth(img, cfg.sigma),
+                                    cfg.connectivity)[0]
+    n0 = kr.run_extract.launches
+    labels, flags = turbo.segment_turbo_impl(img.to(dev), cfg, 2,
+                                             weights_override=weights)
+    assert flags == cpu_flags == 0
+    assert torch.equal(labels.cpu(), cpu_labels)
+    assert kr.run_extract.launches > n0

@@ -210,9 +210,10 @@ def test_segment_api():
                           canonical_min_labels_np(labels.numpy()))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gseg_tpu_torch.segment(img, algorithm="atomic")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gseg_tpu_torch.segment(img, config=dataclasses.replace(
-            cfg, weight_buckets=8))
+    # quality mode is ported: weight_buckets=8 gives the bucketed oracle.
+    qcfg = dataclasses.replace(cfg, weight_buckets=8)
+    labels = gseg_tpu_torch.segment(img, config=qcfg, device="cpu")
+    assert np.array_equal(labels.numpy(), _oracle(img, qcfg))
 
 
 def test_segment_defaults_to_the_gpu(monkeypatch):
