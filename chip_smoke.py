@@ -13,9 +13,13 @@ arguments). It
      and run extraction at the identity labeling (which overflows); a
      1081x1919 serpentine component whose geodesic diameter (1,000-8,000
      px) outruns the 64 warm step passes, so the closure route runs at the
-     default `WARM_PASSES`; then the fields captured from the main paths.
-     Fixpoints, closures and pads must be bit-equal, the extraction pools
-     equal as sorted multisets;
+     default `WARM_PASSES`; pad and unpad at ragged widths (37x2563,
+     1081x2599: the register route) and at 4K and 8K planes (the bulk
+     route), with 1-4 fields, t 0 and 8 and every inert fill, the route
+     read from the profiler; then the fields captured from the main paths
+     (pad/unpad also on copies offset by one word, which take the register
+     route). Fixpoints, closures and pads must be bit-equal, the
+     extraction pools equal as sorted multisets;
   4. runs `segment_turbo_flagged` (sigma 0.8, k 300, min_size 100,
      max_iters 32, gossip_rounds 2) on six main paths, each with the
      launch counts set to 0 just before it and read just after:
@@ -36,7 +40,9 @@ arguments). It
   5. times each path (median of CUDA-event reps after a warm-up), its
      stages, its peak memory, and each kernel beside its plain version,
      its bytes bound and, where one exists, a PyTorch call computing the
-     same function; then the 1080p subsum and count peels in 4
+     same function (call time in turns with the kernel's, and device
+     time); pad/unpad on both routes, with the L2 cache flushed, and at
+     8K planes too; then the 1080p subsum and count peels in 4
      alternating pairs.
 
 Every failure propagates and the script exits non-zero; no kernel falls
@@ -105,6 +111,15 @@ QUALITY = {"1080p_wb16", "1080p_wb16_closures"}
 # random-field shapes: odd multi-tile, 1080p-sized, and wide (w >= 2560).
 RANDOM_SHAPES = ((37, 150), (1081, 1919), (37, 2600), (160, 3840))
 SERPENTINE = (1081, 1919)
+# pad/unpad check shapes -> the route alignment gives their planes: ragged
+# widths (w % 4 != 0), the 4K main path's and an 8K frame's.
+PAD_SHAPES = {(37, 2563): "regs", (1081, 2599): "regs",
+              (2160, 3840): "bulk", (4320, 7680): "bulk"}
+PAD_8K = (4320, 7680)
+# t -> fills of four planes (int32, float32, int32, int32): at t = 8 the
+# compmin fixpoint's, at t = 0 the other inert fills of kg._VARIANTS.
+PAD_FILLS = {8: (-1, float("inf"), kg.INT32_MAX, 0),
+             0: (8, 0.0, kg.BIGDIST, 0)}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 _GOSSIP = "gseg_tpu/ops/pallas/gossip.py:386 (_strip_call_skip, "
@@ -155,12 +170,13 @@ KERNELS = {
         kp, "fast_pad_fields", kp.fast_pad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:703 (_fast_pad_fields, call :781)",
-        {"4k_subsum"}, set(), None, 0, (r"\bpad_fields\b",)),
+        {"4k_subsum"}, set(), None, 0, (r"\bpad_fields_(bulk|regs)\b",)),
     "unpad_fields": Kernel(
         kp, "fast_unpad_fields", kp.fast_unpad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:799 (_fast_unpad_fields, call :826)",
-        {"4k_subsum"}, set(), None, 0, (r"\bunpad_fields\b",)),
+        {"4k_subsum"}, set(), None, 0,
+        (r"\bunpad_fields_(bulk|regs)\b",)),
     "boundary_extract": Kernel(
         kx, "boundary_extract", kx.boundary_extract_plain,
         "gseg_tpu_torch/csrc/extract.cu",
@@ -229,41 +245,63 @@ def _reset_counts():
     kg.HYBRID_LOG.clear()
 
 
+def _event_ms(fn):
+    """Milliseconds of one call, CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def _cuda_ms(fn, reps):
     """Median milliseconds of `reps` calls, CUDA events, after one warm-up
     call."""
     fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    return statistics.median(_event_ms(fn) for _ in range(reps))
+
+
+def _turns_ms(fns, reps):
+    """Median CUDA-event milliseconds of each function over `reps` rounds
+    of one call each, in an order that reverses every round (ABBA...),
+    after one warm-up call each."""
+    for fn in fns:
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    times = [[] for _ in fns]
+    for i in range(reps):
+        order = range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))
+        for j in order:
+            times[j].append(_event_ms(fns[j]))
+    return [statistics.median(t) for t in times]
+
+
+def _profile(fn, calls):
+    """key_averages() of `calls` calls after a warm-up call, on the device
+    only."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return prof.key_averages()
 
 
 def _device_ms(fn, name, calls=3, side=None):
     """Device time (ms) per call of the kernel's own launches, from
     torch.profiler over `calls` calls (side "rows" or "cols": a closure's
-    launches of that orientation only). Raises, listing the device kernels
-    the trace holds, when no key matches the kernel's symbols in two
-    profiled windows."""
-    pats = [re.compile(p.replace("(rows|cols)", side) if side else p)
+    launches of that orientation only; "bulk" or "regs": a pad route's).
+    Raises, listing the device kernels the trace holds, when no key matches
+    the kernel's symbols in two profiled windows."""
+    pats = [re.compile(re.sub(r"\(\w+\|\w+\)", side, p) if side else p)
             for p in KERNELS[name].symbols]
-    fn()
-    torch.cuda.synchronize()
     seen = set()
     for _ in range(2):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
         us = 0.0
-        for e in prof.key_averages():
+        for e in _profile(fn, calls):
             t = getattr(e, "device_time_total", 0)
             if t:
                 seen.add(e.key)
@@ -274,6 +312,32 @@ def _device_ms(fn, name, calls=3, side=None):
     raise AssertionError(
         f"{name}: no device time in the profiler trace for "
         f"{KERNELS[name].symbols}; device kernels it holds: {sorted(seen)}")
+
+
+def _routes_ms(fn, name, calls=10):
+    """Device ms per call of each pad route's kernels (csrc/pad.cu:
+    "bulk", "regs") in `calls` calls; raises if neither shows in two
+    profiled windows."""
+    pat = re.compile(KERNELS[name].symbols[0])
+    for _ in range(2):
+        out = {}
+        for e in _profile(fn, calls):
+            m = pat.search(e.key)
+            if m and e.device_time_total:
+                out[m.group(1)] = (out.get(m.group(1), 0.0)
+                                   + e.device_time_total / 1e3 / calls)
+        if out:
+            return out
+    raise AssertionError(f"{name}: no route's kernel in the profiler trace")
+
+
+def _library_device_ms(fn, calls):
+    """Device time (ms) per call of every kernel a library call runs."""
+    for _ in range(2):
+        us = sum(e.self_device_time_total for e in _profile(fn, calls))
+        if us:
+            return us / 1e3 / calls
+    raise AssertionError("no device time in the library call's trace")
 
 
 def _max_abs_err(a, b):
@@ -727,24 +791,74 @@ def _peel_ab(image, card, pairs=4):
     return out
 
 
+def _offset(x):
+    """A contiguous copy of x whose data starts one word past a 16-byte
+    boundary: csrc/pad.cu's alignment test sends it to the register
+    route."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _offset_args(name, args):
+    if name == "pad_fields":
+        fields, t, hp, wp = args
+        return ([(_offset(x), f) for x, f in fields], t, hp, wp)
+    fields, t, h, w = args
+    return ([_offset(x) for x in fields], t, h, w)
+
+
+def _pad_routes(name, args, rec):
+    """Both pad routes at one call's aligned planes: the call as given (the
+    bulk route) and on copies offset by one word (the register route).
+    Checks each against the plain version and that it ran its route's
+    kernel alone; adds their device ms, the register route's call ms and
+    the bulk route's device ms with the L2 cache flushed (a 256 MB read)
+    before each call to rec. Returns a note for the log."""
+    off = _offset_args(name, args)
+    rec["max_abs_err"] = max(rec["max_abs_err"], _compare(name, off))
+    for route, a in (("bulk", args), ("regs", off)):
+        taken = _routes_ms(_kernel_fn(name, a), name)
+        if set(taken) != {route}:
+            raise AssertionError(f"{name}: ran routes {sorted(taken)} where "
+                                 f"{route} alone was due")
+        rec[f"device_ms_{route}"] = taken[route]
+    rec["ms_regs"] = _cuda_ms(_kernel_fn(name, off), 21)
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device="cuda")
+    call = _kernel_fn(name, args)
+    rec["device_ms_bulk_cold"] = _routes_ms(
+        lambda: (flush.sum(), call()), name)["bulk"]
+    return (f": bulk route {rec['device_ms_bulk']:.4f}, L2 flushed "
+            f"{rec['device_ms_bulk_cold']:.4f}; register route on planes "
+            f"offset by one word {rec['device_ms_regs']:.4f}, call "
+            f"{rec['ms_regs']:.4f} ms")
+
+
 def _time_kernels(fields, label, card, plain_reps):
-    """Check and time each kernel call: kernel ms (median of 5), plain ms,
-    library ms where one exists, bound ms, device ms and launches per
-    call."""
+    """Check and time each kernel call: kernel ms (median of 5; of 21 in
+    turns with the library call where one exists), plain ms, library ms
+    (call and device), bound ms, device ms (pad/unpad: of both routes, over
+    10 profiled calls) and launches per call."""
     out = {}
     for name, (args, kwargs) in fields.items():
         err = _compare(name, args, kwargs)
+        kfn = _kernel_fn(name, args, kwargs)
         before = _wrapper(name).launches
-        _kernel_fn(name, args, kwargs)()
+        kfn()
         passes = _wrapper(name).launches - before
+        calls = 10 if name in PADS else 3
         rec = {"max_abs_err": err, "passes": passes,
-               "ms": _cuda_ms(_kernel_fn(name, args, kwargs), 5),
                "plain_ms": _cuda_ms(_plain_fn(name, args), plain_reps)}
         lib = _library_call(name, args)
-        rec["library_ms"] = _cuda_ms(lib, 5) if lib else None
+        if lib:
+            rec["ms"], rec["library_ms"] = _turns_ms([kfn, lib], 21)
+            rec["library_device_ms"] = _library_device_ms(lib, calls)
+        else:
+            rec["ms"], rec["library_ms"] = _cuda_ms(kfn, 5), None
         rec["bound_ms"], rec["bound_by"] = _bound(name, args)
-        rec["device_ms"] = _device_ms(_kernel_fn(name, args, kwargs), name)
-        split = ""
+        rec["device_ms"] = _device_ms(kfn, name, calls)
+        split = _pad_routes(name, args, rec) if name in PADS else ""
         if name in CLOSURES:
             fn = _wrapper(name)
             for axis, side in ((1, "rows"), (0, "cols")):
@@ -753,14 +867,63 @@ def _time_kernels(fields, label, card, plain_reps):
             split = (f": rows {rec['device_ms_rows']:.3f}, columns "
                      f"{rec['device_ms_cols']:.3f}")
         out[name] = rec
-        print(f"check {name} {label} main-path fields: equal to plain; "
+        print(f"check {name} {label}: equal to plain; "
               f"kernel {rec['ms']:.3f} ms ({passes} launches; on the device"
-              f" {rec['device_ms']:.3f} ms{split}), plain "
+              f" {rec['device_ms']:.4f} ms{split}), plain "
               f"{rec['plain_ms']:.3f} ms, library "
-              + (f"{rec['library_ms']:.3f} ms" if lib else "none")
+              + (f"{rec['library_ms']:.3f} ms (on the device "
+                 f"{rec['library_device_ms']:.4f} ms)" if lib else "none")
               + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) "
               f"({card})", flush=True)
     return out
+
+
+def _pad_planes(h, w, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints():
+        return torch.randint(-(1 << 31), (1 << 31) - 1, (h, w), generator=g,
+                             dtype=torch.int32, device=dev)
+    return [ints(), torch.rand((h, w), generator=g, device=dev), ints(),
+            ints()]
+
+
+def _pad_checks(dev, card):
+    """pad and unpad against their plain versions at PAD_SHAPES with 1 to 4
+    fields and t 0 and 8, the route of each shape's 4-field calls read
+    from the profiler; then the 8K planes (4 fields padded, 3 unpadded, as
+    the compmin fixpoint does) timed like the main-path fields. Returns
+    (name -> max abs error, name -> 8K record)."""
+    errs = {n: 0.0 for n in PADS}
+    for (h, w), route in PAD_SHAPES.items():
+        planes = _pad_planes(h, w, dev, seed=h + w)
+        hp, wp = -(-h // 32) * 32, -(-w // 128) * 128
+        for t, fills in PAD_FILLS.items():
+            for k in range(1, 5):
+                pad = (list(zip(planes[:k], fills[:k])), t, hp, wp)
+                unpad = (kp.fast_pad_fields(*pad), t, h, w)
+                for name, args in (("pad_fields", pad),
+                                   ("unpad_fields", unpad)):
+                    errs[name] = max(errs[name], _compare(name, args))
+                    taken = set(_routes_ms(_kernel_fn(name, args), name)) \
+                        if k == 4 else {route}
+                    if taken != {route}:
+                        raise AssertionError(
+                            f"{name} {h}x{w}: ran routes {sorted(taken)} "
+                            f"where {route} alone was due")
+        print(f"check pad/unpad {h}x{w} (hp {hp}, wp {wp}), 1-4 fields, t 0 "
+              f"and 8, fills {PAD_FILLS}: equal to plain, {route} route",
+              flush=True)
+    h, w = PAD_8K
+    planes = _pad_planes(h, w, dev, seed=8)
+    pad = (list(zip(planes, PAD_FILLS[8])), 8, h, w)
+    unpad = (kp.fast_pad_fields(*pad)[1:], 8, h, w)
+    timed = _time_kernels({"pad_fields": (pad, {}),
+                           "unpad_fields": (unpad, {})},
+                          f"{h}x{w} planes", card, plain_reps=3)
+    for name, rec in timed.items():
+        errs[name] = max(errs[name], rec["max_abs_err"])
+    return errs, timed
 
 
 def _build_all():
@@ -803,6 +966,14 @@ def _random_checks(dev):
     return errs
 
 
+# per-kernel keys of the kernels line beyond the contract's, where measured
+_EXTRA_KEYS = ("library_device_ms", "device_ms_rows", "device_ms_cols",
+               "device_ms_bulk", "device_ms_regs", "ms_regs",
+               "device_ms_bulk_cold")
+_KEYS_8K = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "max_abs_err")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -821,6 +992,9 @@ def main() -> None:
 
     errs = _random_checks(dev)
     for name, err in _serpentine_check(dev, card).items():
+        errs[name] = max(errs[name], err)
+    pad_errs, timed8k = _pad_checks(dev, card)
+    for name, err in pad_errs.items():
         errs[name] = max(errs[name], err)
     print(f"random and serpentine checks done at "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -858,7 +1032,7 @@ def main() -> None:
                 print(f"check {name} {path} main-path fields "
                       f"{kwargs or ''}: equal to plain", flush=True)
             timed[path] = _time_kernels(
-                to_time, path, card,
+                to_time, f"{path} main-path fields", card,
                 plain_reps=3 if path in ("1080p_subsum",) else 1)
             for name, rec in timed[path].items():
                 errs[name] = max(errs[name], rec["max_abs_err"])
@@ -895,8 +1069,9 @@ def main() -> None:
             "ms_4k": rec4k.get("ms"), "device_ms_4k": rec4k.get("device_ms"),
             "plain_ms_4k": rec4k.get("plain_ms"),
             "bound_ms_4k": rec4k.get("bound_ms")}
-            | {k: rec[k] for k in ("device_ms_rows", "device_ms_cols")
-               if k in rec})
+            | {k: rec[k] for k in _EXTRA_KEYS if k in rec}
+            | {f"{k}_8k": v for k, v in timed8k.get(name, {}).items()
+               if k in _EXTRA_KEYS + _KEYS_8K})
     print("paths: " + json.dumps(
         {p: {k: v for k, v in r.items() if k != "launches"}
          for p, r in runs.items()} | {"peel_ab_1080p": ab}))

@@ -139,22 +139,47 @@ def test_subsum_kernel_deep_tree(dev):
     assert torch.equal(sizes, ref)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# the tile shapes, then wide ones: ragged widths (w % 4 != 0: csrc/pad.cu's
+# register route), aligned widths with wp > w, 4K and 8K (the bulk route).
+PAD_SHAPES = SHAPES + [(37, 2563), (1081, 2599), (37, 2600), (2160, 3840),
+                       (4320, 7680)]
+# t -> fills of the four planes (int32, float32, int32, int32)
+PAD_FILLS = {8: (-1, float("inf"), kg.INT32_MAX, 0),
+             0: (8, 0.0, kg.BIGDIST, 0)}
+
+
+def _offset(x):
+    """A contiguous copy of x starting one word past a 16-byte boundary
+    (the register route for any width)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("shape", PAD_SHAPES)
 def test_pad_kernels_equal_plain(dev, shape):
     h, w = shape
-    t, hp, wp = 8, -(-h // 32) * 32, -(-w // 128) * 128
+    hp, wp = -(-h // 32) * 32, -(-w // 128) * 128
     f = _fields(h, w, dev, seed=h + 7 * w, ncomp=5)
-    fields = [(f["L"], -1), (f["bw"], float("inf")),
-              (f["be"], kg.INT32_MAX), (f["allow"], 0)]
+    planes = [f["L"], f["bw"], f["be"], f["allow"]]
     n0 = (kp.fast_pad_fields.launches, kp.fast_unpad_fields.launches)
-    for k in (1, 4):
-        got = kp.fast_pad_fields(fields[:k], t, hp, wp)
-        assert _equal(got, kp.fast_pad_fields_plain(fields[:k], t, hp, wp))
-        back = kp.fast_unpad_fields(got, t, h, w)
-        assert _equal(back, kp.fast_unpad_fields_plain(got, t, h, w))
-        assert _equal(back, [x for x, _ in fields[:k]])
+    for t, fills in PAD_FILLS.items():
+        for k in (1, 2, 3, 4):
+            fields = list(zip(planes[:k], fills[:k]))
+            got = kp.fast_pad_fields(fields, t, hp, wp)
+            assert _equal(got, kp.fast_pad_fields_plain(fields, t, hp, wp))
+            back = kp.fast_unpad_fields(got, t, h, w)
+            assert _equal(back, kp.fast_unpad_fields_plain(got, t, h, w))
+            assert _equal(back, planes[:k])
+    # the register route on planes of any width
+    fields = [(_offset(x), fill) for x, fill in zip(planes, PAD_FILLS[8])]
+    got = kp.fast_pad_fields(fields, 8, hp, wp)
+    assert _equal(got, kp.fast_pad_fields_plain(fields, 8, hp, wp))
+    back = kp.fast_unpad_fields([_offset(x) for x in got], 8, h, w)
+    assert _equal(back, planes)
     n1 = (kp.fast_pad_fields.launches, kp.fast_unpad_fields.launches)
-    assert n1 == (n0[0] + 2, n0[1] + 2)
+    assert n1 == (n0[0] + 9, n0[1] + 9)
 
 
 @pytest.mark.parametrize("shape", [(37, 2600), (160, 3840)])
