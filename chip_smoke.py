@@ -19,7 +19,13 @@ arguments). It
      read from the profiler; then the fields captured from the main paths
      (pad/unpad also on copies offset by one word, which take the register
      route). Fixpoints, closures and pads must be bit-equal, the
-     extraction pools equal as sorted multisets;
+     extraction pools equal as sorted multisets. Each step-kernel variant
+     is also driven pass by pass with tile skipping on (`kg._pass_loop`),
+     every pass by the kernel (`kg.step_pass`) and by
+     `kg.step_pass_plain` from the same input into copies of the same
+     destination: fields, act bytes and the changed flag must agree after
+     every pass, at the random shapes and at each path's fields (the
+     label flood with its seed);
   4. runs `segment_turbo_flagged` (sigma 0.8, k 300, min_size 100,
      max_iters 32, gossip_rounds 2) on six main paths, each with the
      launch counts set to 0 just before it and read just after:
@@ -31,7 +37,8 @@ arguments). It
        - 1080p quality mode with `kg.WARM_PASSES = 0`: every hybrid
          fixpoint on the closure route from its first pass;
        - 1080p, the runs peel (`turbo._PEEL_SIZES = "runs"`);
-     and requires flags == 0, the canonical partition of the committed
+     and requires flags == 0, the launch counts of run 4f (PERF.md §5,
+     `RUN_4F_LAUNCHES`), the canonical partition of the committed
      oracle (bench_out/oracle_bench_{1080x1920,2160x3840}_wb0.npy,
      bench_out/oracle_bench_1080x1920_wb16.npy), a launch of every kernel
      that path must run (pad and unpad only at 4K, the closures in both
@@ -42,8 +49,17 @@ arguments). It
      its bytes bound and, where one exists, a PyTorch call computing the
      same function (call time in turns with the kernel's, and device
      time); pad/unpad on both routes, with the L2 cache flushed, and at
-     8K planes too; then the 1080p subsum and count peels in 4
-     alternating pairs.
+     8K planes too; for the step kernel at the fixpoint fields also the
+     device time with `kg.TILE_SKIP` off, the share of tiles the gated
+     call computed, its in-tile steps per tile, and each pass's tiles and
+     device time (gated and ungated) with a fit ms = a + b x tiles; per
+     path, the step kernel's device time (profiler) over one whole
+     main-path run with `kg.TILE_SKIP` on and off in turns (on, off, off,
+     on), which must give the same labels and launches, with the
+     active-tile share of the gated runs (device counters: tiles computed
+     / tiles launched, each fixpoint's first pass counted as full) and the
+     bytes bound of the tiles computed; then the 1080p subsum and count
+     peels in 4 alternating pairs.
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -210,6 +226,30 @@ KERNELS = {
         {"1080p_runs"}, set(), None, 4, (r"\brun_extract_kernel\b",)),
 }
 PADS = ("pad_fields", "unpad_fields")
+# the step kernel's wrappers -> their variant in ops/kernels/gossip.py
+STEP = {"gossip_compmin": "compmin", "gossip_labeldist": "labeldist",
+        "gossip_labelnd": "labelnd", "gossip_value": "value",
+        "gossip_subsum": "subsum"}
+# Launches of one main-path run of each path in run 4f (PERF.md §5); the
+# other kernels launched none. Tile skipping must leave them as they were.
+RUN_4F_LAUNCHES = {
+    "1080p_subsum": dict(gossip_compmin=16, gossip_labeldist=8,
+                         gossip_labelnd=23, gossip_value=17, gossip_subsum=8,
+                         boundary_extract=1),
+    "1080p_count": dict(gossip_compmin=16, gossip_labelnd=31, gossip_value=17,
+                        boundary_extract=1),
+    "4k_subsum": dict(gossip_compmin=18, gossip_labeldist=8, gossip_labelnd=21,
+                      gossip_value=17, gossip_subsum=8, pad_fields=10,
+                      unpad_fields=10, boundary_extract=1),
+    "1080p_wb16": dict(gossip_compmin=114, gossip_labelnd=179,
+                       gossip_value=46, boundary_extract=1),
+    "1080p_wb16_closures": dict(gossip_compmin=62, gossip_labelnd=108,
+                                gossip_value=10, boundary_extract=1,
+                                closure_compmin=62, closure_labelnd=108,
+                                closure_value=10),
+    "1080p_runs": dict(gossip_compmin=16, gossip_labelnd=31, gossip_value=17,
+                       boundary_extract=1, run_extract=2),
+}
 CLOSURES = ("closure_compmin", "closure_labelnd", "closure_value")
 # closure kernel -> the fixpoint whose fields it is checked and timed at
 CLOSURE_OF = {"closure_compmin": "gossip_compmin",
@@ -249,6 +289,20 @@ def _event_ms(fn):
     """Milliseconds of one call, CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _device_event_ms(fn):
+    """Milliseconds of one call on the device: CUDA events around it, with
+    the stream held busy (a 0.5 ms device sleep) while the host enqueues
+    the call, so the host's launch latency stays out of the reading."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000)
     start.record()
     fn()
     end.record()
@@ -737,6 +791,7 @@ def _run_path(path, image, card):
               flush=True)
     if flags != 0:
         raise AssertionError(f"{path}: main path raised flags {flags}")
+    _check_launches(path, launches)
     idle = [n for n in KERNELS if path in KERNELS[n].must
             and launches[n] == 0]
     if idle:
@@ -835,6 +890,72 @@ def _pad_routes(name, args, rec):
             f"{rec['ms_regs']:.4f} ms")
 
 
+def _step_call(name, kfn, rec, calls):
+    """The device time of one fixpoint call with TILE_SKIP off, and the
+    share of its tiles that the gated call computed (device counter).
+    Returns a note for the log."""
+    skip = kg.TILE_SKIP
+    kg.TILE_SKIP = False
+    try:
+        rec["device_ms_ungated"] = _device_ms(kfn, name, calls)
+    finally:
+        kg.TILE_SKIP = skip
+    kg.reset_tile_counts()
+    kfn()
+    torch.cuda.synchronize()
+    v = STEP[name]
+    c0, c1, steps = kg.tile_counts()[v]
+    rec["tile_share_call"] = (c0 + c1) / kg.TILE_LAUNCHES[v][0]
+    rec["steps_per_tile_call"] = steps / (c0 + c1)
+    p = rec["passes"]
+    return (f": per launch gated {rec['device_ms'] / p:.4f}, ungated "
+            f"{rec['device_ms_ungated'] / p:.4f} (call "
+            f"{rec['device_ms_ungated']:.4f}); tiles computed gated "
+            f"{rec['tile_share_call']:.4f}, {rec['steps_per_tile_call']:.2f} "
+            "in-tile steps each")
+
+
+def _pass_times(name, args, kwargs, card):
+    """The fixpoint pass by pass, gated and ungated: each pass's tiles
+    computed, in-tile steps run (device counters) and its device ms
+    (_device_event_ms around the one launch), and a least-squares fit
+    ms = a + b x tiles over both runs' passes. Returns the record."""
+    v = STEP[name]
+    ro, *fields, ms = args
+    seed = kwargs.get("seed_mask")
+    h, w = ro.shape
+    tiles = (-(-h // kg._TILE), -(-w // kg._TILE))
+    stream = torch.cuda.current_stream().cuda_stream
+    rec = {}
+    for gate in (True, False):
+        bufs = [[torch.empty_like(x) for x in fields] for _ in range(2)]
+        acts = [torch.empty(tiles, dtype=torch.uint8, device=ro.device)
+                for _ in range(2)]
+        changed = torch.zeros(1, dtype=torch.int32, device=ro.device)
+        passes = []
+
+        def step(src, dst, act_in, act_out):
+            kg.reset_tile_counts()
+            t = _device_event_ms(lambda: kg._launch_pass(
+                v, ro, src, dst, act_in, act_out, changed, stream))
+            c0, c1, steps = kg.tile_counts()[v]
+            passes.append((c0 + c1, steps, t))
+
+        seed_act = None if seed is None else kg._seed_act(seed, h, w, 0)
+        cap = -(-ms // kg.STEPS)
+        kg._pass_loop(step, None, fields, bufs, acts, changed, cap, cap,
+                      seed_act, gate)
+        rec["gated" if gate else "ungated"] = passes
+    pts = np.array([(n, t) for p in rec.values() for n, _, t in p], float)
+    b, a = np.polyfit(pts[:, 0], pts[:, 1], 1)
+    rec["fit_ms"] = {"a": a, "b_per_tile": b}
+    print(f"  {name} pass by pass (tiles computed, in-tile steps, ms): gated "
+          f"{[(n, s, round(t, 4)) for n, s, t in rec['gated']]}, ungated "
+          f"{[(n, s, round(t, 4)) for n, s, t in rec['ungated']]}; fit ms = "
+          f"{a:.4f} + {b * 1e3:.4f}e-3 x tiles ({card})", flush=True)
+    return rec
+
+
 def _time_kernels(fields, label, card, plain_reps):
     """Check and time each kernel call: kernel ms (median of 5; of 21 in
     turns with the library call where one exists), plain ms, library ms
@@ -859,6 +980,10 @@ def _time_kernels(fields, label, card, plain_reps):
         rec["bound_ms"], rec["bound_by"] = _bound(name, args)
         rec["device_ms"] = _device_ms(kfn, name, calls)
         split = _pad_routes(name, args, rec) if name in PADS else ""
+        if name in STEP:
+            split = _step_call(name, kfn, rec, calls)
+            rec["pass_fit_ms"] = _pass_times(name, args, kwargs,
+                                             card)["fit_ms"]
         if name in CLOSURES:
             fn = _wrapper(name)
             for axis, side in ((1, "rows"), (0, "cols")):
@@ -876,6 +1001,148 @@ def _time_kernels(fields, label, card, plain_reps):
               + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) "
               f"({card})", flush=True)
     return out
+
+
+def _gated_passes(name, args, kwargs=None):
+    """One fixpoint driven pass by pass through the pass loop with tile
+    skipping, each pass by the kernel (kg.step_pass) and by
+    kg.step_pass_plain from the same input into copies of the same
+    destination: fields, act_out and changed must agree after every pass,
+    and the result must equal the plain fixpoint. A seed_mask in kwargs
+    seeds the first pass. Returns (passes, max abs error)."""
+    v = STEP[name]
+    ro, *fields, ms = args
+    seed = (kwargs or {}).get("seed_mask")
+    h, w = ro.shape
+    tiles = (-(-h // kg._TILE), -(-w // kg._TILE))
+    bufs = [[torch.zeros_like(x) for x in fields] for _ in range(2)]
+    acts = [torch.zeros(tiles, dtype=torch.uint8, device=ro.device)
+            for _ in range(2)]
+    changed = torch.zeros(1, dtype=torch.int32, device=ro.device)
+    err = 0.0
+
+    def step(src, dst, act_in, act_out):
+        nonlocal err
+        pdst = [x.clone() for x in dst]
+        _, ka, kc = kg.step_pass(v, ro, src, dst, act_in)
+        _, pa, pc = kg.step_pass_plain(v, ro, src, pdst, act_in)
+        if kc != pc:
+            raise AssertionError(f"{name} step pass: changed {kc} vs plain "
+                                 f"{pc}")
+        err = max(err, _max_abs_err(dst, pdst), _max_abs_err([ka], [pa]))
+        act_out.copy_(ka)
+        if kc:
+            changed.fill_(1)
+
+    seed_act = None if seed is None else kg._seed_act(seed, h, w, 0)
+    cap = -(-ms // kg.STEPS)
+    out, unconv, n, _ = kg._pass_loop(step, None, fields, bufs, acts,
+                                      changed, cap, cap, seed_act, True)
+    ref = KERNELS[name].plain(*args)
+    if unconv or ref[-1]:
+        raise AssertionError(f"{name}: a fixpoint hit its cap")
+    return n, max(err, _max_abs_err(out, ref[:-1]))
+
+
+def _check_launches(path, launches):
+    want = {n: RUN_4F_LAUNCHES[path].get(n, 0) for n in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, run 4f's {want}")
+
+
+def _step_run(image, cfg):
+    """One main-path run under the profiler: (labels, flags, launches, the
+    step kernel's device ms per wrapper, tiles computed per variant
+    (unseeded, seeded first passes), tiles launched per variant (all,
+    seeded first passes))."""
+    _reset_counts()
+    kg.reset_tile_counts()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        labels, flags = turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)
+        torch.cuda.synchronize()
+    pats = {n: re.compile(KERNELS[n].symbols[0]) for n in STEP}
+    ms = dict.fromkeys(STEP, 0.0)
+    for e in prof.key_averages():
+        for n, pat in pats.items():
+            if pat.search(e.key):
+                ms[n] += e.device_time_total / 1e3
+    return (labels, flags, _counts(), ms, kg.tile_counts(),
+            {v: list(c) for v, c in kg.TILE_LAUNCHES.items()})
+
+
+def _step_ab(path, image, card):
+    """The step kernel's device time over one whole main-path run with
+    TILE_SKIP on and off in turns (on, off, off, on), the active-tile share
+    of the gated runs from the device counter, and the bound of the tiles
+    each computed. Every run must give the same labels, flags 0 and run
+    4f's launches. Returns the record for the paths line."""
+    cfg = _cfg(path)
+    runs = {True: [], False: []}
+    skip = kg.TILE_SKIP
+    try:
+        for on in (True, False, False, True):
+            kg.TILE_SKIP = on
+            runs[on].append(_step_run(image, cfg))
+    finally:
+        kg.TILE_SKIP = skip
+    ref = runs[True][0][0]
+    for r in runs[True] + runs[False]:
+        if r[1] != 0 or not torch.equal(r[0], ref):
+            raise AssertionError(f"{path}: gated and ungated runs differ "
+                                 f"(flags {r[1]})")
+        _check_launches(path, r[2])
+    rec = {}
+    for on, key in ((True, "gated"), (False, "ungated")):
+        rec[f"step_device_ms_{key}"] = [sum(r[3].values()) for r in runs[on]]
+        rec[f"step_device_ms_{key}_by_kernel"] = {
+            n: statistics.mean(r[3][n] for r in runs[on]) for n in STEP}
+    tiles, launched = runs[True][0][4], runs[True][0][5]
+    if any(r[4] != tiles or r[5] != launched for r in runs[True]):
+        raise AssertionError(f"{path}: the gated runs computed different "
+                             "tiles")
+    by = {}
+    for n, v in STEP.items():
+        (c0, c1, steps), (l0, l1) = tiles[v], launched[v]
+        if l0:
+            by[n] = {"computed": c0 + c1, "launched": l0,
+                     "steps_per_tile": steps / (c0 + c1),
+                     "computed_first_full": c0 + l1,
+                     "share_first_full": (c0 + l1) / l0,
+                     "seed_saved": l1 - c1}
+    c0 = sum(tiles[v][0] for v in STEP.values())
+    c1 = sum(tiles[v][1] for v in STEP.values())
+    l0 = sum(launched[v][0] for v in STEP.values())
+    l1 = sum(launched[v][1] for v in STEP.values())
+    tile_px = kg._TILE ** 2
+
+    def bound(count):
+        return sum(count(STEP[n]) * tile_px * KERNELS[n].bytes_px
+                   for n in STEP) / HBM_BYTES_PER_S * 1e3
+
+    rec |= {"active_share_first_full": (c0 + l1) / l0,
+            "active_share": (c0 + c1) / l0, "tiles_launched": l0,
+            "seed_tiles_saved": l1 - c1, "active_by_kernel": by,
+            "step_bound_ms_gated": bound(lambda v: sum(tiles[v][:2])),
+            "step_bound_ms_ungated": bound(lambda v: launched[v][0])}
+    gated = statistics.mean(rec["step_device_ms_gated"])
+    ungated = statistics.mean(rec["step_device_ms_ungated"])
+    print(f"  step kernel {path}, one main-path run, device ms (profiler; "
+          f"on, off, off, on): gated {rec['step_device_ms_gated']}, ungated "
+          f"{rec['step_device_ms_ungated']}, gated/ungated "
+          f"{gated / ungated:.3f}; bound of the tiles computed "
+          f"{rec['step_bound_ms_gated']:.3f} (all launched "
+          f"{rec['step_bound_ms_ungated']:.3f}); active-tile share "
+          f"{rec['active_share_first_full']:.4f} with first passes full "
+          f"({rec['active_share']:.4f} as run; the seed saved "
+          f"{l1 - c1} of {l1} first-pass tiles), of {l0} tiles launched; "
+          "per kernel " + ", ".join(
+              f"{n} {b['share_first_full']:.4f} of {b['launched']} "
+              f"({b['steps_per_tile']:.2f} steps each)"
+              for n, b in by.items()) + f"; same labels, run 4f's launches "
+          f"({card})", flush=True)
+    return rec
 
 
 def _pad_planes(h, w, dev, seed):
@@ -949,6 +1216,11 @@ def _random_checks(dev):
         for name, a in args.items():
             errs[name] = max(errs[name], _compare(name, a))
             print(f"check {name} {h}x{w}: equal to plain", flush=True)
+        for name in STEP:
+            n, err = _gated_passes(name, args[name])
+            errs[name] = max(errs[name], err)
+            print(f"check {name} {h}x{w} gated passes: {n} passes equal to "
+                  "step_pass_plain", flush=True)
         kg.WARM_PASSES = 0
         try:
             for name in CLOSURE_OF.values():
@@ -969,7 +1241,8 @@ def _random_checks(dev):
 # per-kernel keys of the kernels line beyond the contract's, where measured
 _EXTRA_KEYS = ("library_device_ms", "device_ms_rows", "device_ms_cols",
                "device_ms_bulk", "device_ms_regs", "ms_regs",
-               "device_ms_bulk_cold")
+               "device_ms_bulk_cold", "device_ms_ungated", "tile_share_call",
+               "steps_per_tile_call", "pass_fit_ms")
 _KEYS_8K = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "max_abs_err")
 
@@ -1025,6 +1298,13 @@ def main() -> None:
                 to_time = {"run_extract": fields["run_extract"]}
             else:
                 to_time = {}
+            for name in [n for n in STEP if n in fields]:
+                args, kwargs = fields[name]
+                n, err = _gated_passes(name, args, kwargs)
+                errs[name] = max(errs[name], err)
+                print(f"check {name} {path} main-path fields "
+                      f"{sorted(kwargs)} gated passes: {n} passes equal to "
+                      "step_pass_plain", flush=True)
             for name, (args, kwargs) in fields.items():
                 if name in to_time:
                     continue
@@ -1037,6 +1317,7 @@ def main() -> None:
             for name, rec in timed[path].items():
                 errs[name] = max(errs[name], rec["max_abs_err"])
             runs[path] = _run_path(path, image, card)
+            runs[path] |= _step_ab(path, image, card)
         finally:
             kg.WARM_PASSES = warm
             turbo._PEEL_SIZES = "subsum"
@@ -1052,6 +1333,12 @@ def main() -> None:
                 | {n: "1080p_wb16_closures" for n in CLOSURES}
                 | {"run_extract": "1080p_runs"})
     kernels = []
+    shares = {}
+    for name in STEP:
+        by = [r["active_by_kernel"][name] for r in runs.values()
+              if name in r["active_by_kernel"]]
+        shares[name] = (sum(b["computed_first_full"] for b in by)
+                        / sum(b["launched"] for b in by))
     for name in KERNELS:
         rec = timed[timed_on.get(name, "1080p_subsum")][name]
         rec4k = timed["4k_subsum"].get(name, {})
@@ -1070,6 +1357,7 @@ def main() -> None:
             "plain_ms_4k": rec4k.get("plain_ms"),
             "bound_ms_4k": rec4k.get("bound_ms")}
             | {k: rec[k] for k in _EXTRA_KEYS if k in rec}
+            | ({"active_tile_share": shares[name]} if name in STEP else {})
             | {f"{k}_8k": v for k, v in timed8k.get(name, {}).items()
                if k in _EXTRA_KEYS + _KEYS_8K})
     print("paths: " + json.dumps(

@@ -348,9 +348,13 @@ def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
             bits, L, id_init, dist0, max_sweeps)
         Snew, size_unconv = _subtree_sizes(Lnew, dist, max_sweeps)
     else:
+        # Away from hook pixels Lc (= L) and Int are uniform per old
+        # component, so hook-free tiles start at a local fixpoint: the
+        # first pass runs near the hooks only.
         Lnew, IDnew, lab_unconv = kg.label_flood(bits, L, id_init,
                                                  max_sweeps,
-                                                 closures=closures)
+                                                 closures=closures,
+                                                 seed_mask=hook8.any(0))
     if sizes == "rlist":
         Snew, rlist_new = _rlist_sizes(rlist, Lnew, S)
     elif sizes == "count":

@@ -6,8 +6,10 @@ Port of the entry points of `gseg_tpu/ops/pallas/gossip.py`
 them), with:
 
   - the step kernel: `csrc/gossip.cu`, one T-step Jacobi pass over 2D
-    tiles with a T-pixel halo, one template per variant (see the note
-    there);
+    tiles with a T-pixel halo, one template per variant, which skips the
+    tiles that the previous pass left settled (see the note there);
+    `step_pass_plain` is its plain version, one gated pass in the kernel's
+    tiled form, and `_pass_loop` the pass loop that drives either;
   - the closure kernel: `csrc/closure.cu`, one bidirectional segmented
     interval closure along every full row or every full column, for the
     compmin, labelnd and value variants (see the note there);
@@ -67,8 +69,14 @@ INT32_MAX = gg.INT32_MAX
 BIGDIST = 1 << 30     # dist of a pixel that no seed has reached
 _REV = [4, 5, 6, 7, 0, 1, 2, 3]   # DIRS8 index of the reverse direction
 PAD_MIN_WIDTH = 2560  # the reference's padded-route gate (_fastpad_on)
+STEPS = 8             # steps per pass (T) in csrc/gossip.cu
 _TILE = 32            # interior side of a block in csrc/gossip.cu
 _PAD_LANES = 128      # padded width multiple
+_ACT_SEED = 2         # act byte of a seeded tile (csrc/gossip.cu, kActSeed)
+# Settled-tile skipping in the step kernel (csrc/gossip.cu, part 1). False
+# gives every pass a null act_in, which runs every tile: the same kernel
+# and the same results, for chip_smoke.py's and the card tests' A/B.
+TILE_SKIP = True
 # Step passes before the closure route engages (the reference's
 # WARM_PASSES, gossip.py:383); tests and chip_smoke.py set it to 0 to run
 # the closures from the first pass.
@@ -290,11 +298,127 @@ def value_closure_plain(L, val, axis):
 
 
 # ---------------------------------------------------------------------------
+# plain version of one gated step pass (the kernel's form)
+# ---------------------------------------------------------------------------
+
+
+def _labeldist_join(cands, fields, ok):
+    (nL, nid, nd), (Lc, idf, dist) = cands, fields
+    cand = torch.where(nd >= BIGDIST, BIGDIST, nd + 1)
+    adopt = ok & (nL < Lc)
+    relax = ok & (nL == Lc) & (cand < dist)
+    return [torch.where(adopt, nL, Lc), torch.where(ok & (nid > idf), nid, idf),
+            torch.where(adopt | relax, cand, dist)]
+
+
+_JOINS = {"compmin": _compmin_join, "labeldist": _labeldist_join,
+          "labelnd": _labelnd_join, "value": _value_join}
+
+
+def _slab_shift(x, dy, dx, fill):
+    """shift_plane over the last two axes of a (N, S, S) stack of slabs."""
+    return gg.shift_plane(x.permute(1, 2, 0), dy, dx, fill).permute(2, 0, 1)
+
+
+def _slabs(x, fill, th, tw):
+    """(th * tw, SLAB, SLAB): each tile's interior with a STEPS-pixel halo,
+    `fill` outside the (h, w) plane x, tiles in row-major order."""
+    h, w = x.shape
+    side = _TILE + 2 * STEPS
+    xp = torch.full((th * _TILE + 2 * STEPS, tw * _TILE + 2 * STEPS), fill,
+                    dtype=x.dtype, device=x.device)
+    xp[STEPS:STEPS + h, STEPS:STEPS + w] = x
+    return xp.unfold(0, side, _TILE).unfold(1, side, _TILE).reshape(
+        -1, side, side)
+
+
+def _slab_bits(variant, ro_s, inside, ro_fill):
+    """Per direction, the pixels of each slab that join that neighbour:
+    both in the image (so in the slab), and the read-only plane's relation
+    (same label, the allow bit, or the neighbour's pdir pointing back)."""
+    kind = _RO_KIND[variant]
+    ok = []
+    for d, (dy, dx) in enumerate(gg.DIRS8):
+        if kind == "label":
+            rel = _slab_shift(ro_s, dy, dx, ro_fill) == ro_s
+        elif kind == "allow":
+            rel = ((ro_s >> d) & 1) > 0
+        else:
+            rel = _slab_shift(ro_s, dy, dx, ro_fill) == _REV[d]
+        ok.append(inside & _slab_shift(inside, dy, dx, False) & rel)
+    return ok
+
+
+def _slab_step(variant, fields, ok, fills):
+    """One Jacobi step on every slab: each pixel folds in its joined
+    neighbours' old values in DIRS8 order (subsum: 1 + the children)."""
+    if variant == "subsum":
+        total = torch.ones_like(fields[0])
+        for d, (dy, dx) in enumerate(gg.DIRS8):
+            total = total + torch.where(
+                ok[d], _slab_shift(fields[0], dy, dx, 0), 0)
+        return [total]
+    out = list(fields)
+    for d, (dy, dx) in enumerate(gg.DIRS8):
+        cands = [_slab_shift(x, dy, dx, fill)
+                 for x, fill in zip(fields, fills)]
+        out = _JOINS[variant](cands, out, ok[d])
+    return out
+
+
+def _word_bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def step_pass_plain(variant, ro, src, dst, act_in=None):
+    """One gated T-step pass as csrc/gossip.cu computes it, vectorised over
+    tiles: each TILE x TILE tile whose 3 x 3 tile neighbourhood holds a
+    nonzero act_in byte (every tile when act_in is None) loads its slab
+    (a T-pixel halo, the variant's fills outside the image), runs T Jacobi
+    steps on it and writes its interior into `dst` (in place); the other
+    tiles leave `dst` as it was. Returns (dst, act_out, changed): act_out
+    the (H/TILE, W/TILE) uint8 bytes, 1 where a computed tile's interior
+    differs from `src` (word for word), and changed whether any does."""
+    _check_fields(variant, ro, src)
+    _check_fields(variant, ro, dst)
+    h, w = ro.shape
+    th, tw = -(-h // _TILE), -(-w // _TILE)
+    _, ro_fill, fills = _VARIANTS[variant]
+    run = torch.ones((th, tw), dtype=torch.bool, device=ro.device)
+    if act_in is not None:
+        run = torch.nn.functional.max_pool2d(
+            act_in.reshape(1, 1, th, tw).float(), 3, 1, 1)[0, 0] > 0
+    idx = run.reshape(-1).nonzero()[:, 0]
+    inside = _slabs(torch.ones_like(ro, dtype=torch.bool), False, th, tw)[idx]
+    ok = _slab_bits(variant, _slabs(ro, ro_fill, th, tw)[idx], inside,
+                    ro_fill)
+    cur = [_slabs(x, fill, th, tw)[idx] for x, fill in zip(src, fills)]
+    for _ in range(STEPS):
+        cur = _slab_step(variant, cur, ok, fills)
+    px_run = run.repeat_interleave(_TILE, 0).repeat_interleave(_TILE, 1)
+    px_run = px_run[:h, :w]
+    diff = torch.zeros((th * _TILE, tw * _TILE), dtype=torch.bool,
+                       device=ro.device)
+    for x_src, x_dst, c in zip(src, dst, cur):
+        tiles = torch.zeros((th * tw, _TILE, _TILE), dtype=c.dtype,
+                            device=c.device)
+        tiles[idx] = c[:, STEPS:STEPS + _TILE, STEPS:STEPS + _TILE]
+        new = tiles.view(th, tw, _TILE, _TILE).transpose(1, 2).reshape(
+            th * _TILE, tw * _TILE)[:h, :w]
+        new = torch.where(px_run, new, x_src)
+        diff[:h, :w] |= _word_bits(new) != _word_bits(x_src)
+        x_dst.copy_(torch.where(px_run, new, x_dst))
+    act_out = diff.view(th, _TILE, tw, _TILE).any(3).any(1).to(torch.uint8)
+    return dst, act_out, bool(act_out.any())
+
+
+# ---------------------------------------------------------------------------
 # kernel passes
 # ---------------------------------------------------------------------------
 
 # variant -> (C entry point, fill of the read-only plane, fills of the
-# read-write fields); the fills pad the fields on the wide-image route.
+# read-write fields); the fills pad the fields on the wide-image route. The
+# order is the kernel's variant index (csrc/gossip.cu, g_tiles).
 _VARIANTS = {
     "compmin": ("gseg_compmin_pass", -1, (torch.inf, INT32_MAX, 0)),
     "labeldist": ("gseg_labeldist_pass", 0, (INT32_MAX, 0.0, BIGDIST)),
@@ -302,6 +426,13 @@ _VARIANTS = {
     "value": ("gseg_value_pass", -1, (INT32_MAX,)),
     "subsum": ("gseg_subsum_pass", 8, (0,)),
 }
+# variant -> what its read-only plane holds (csrc/gossip.cu, Ro)
+_RO_KIND = {"compmin": "label", "labeldist": "allow", "labelnd": "allow",
+            "value": "label", "subsum": "pdir"}
+# Tiles launched by the step kernel per variant, counted on the host:
+# [every pass, seeded first passes]. The device counts the tiles computed
+# (tile_counts); chip_smoke.py reads both.
+TILE_LAUNCHES = {v: [0, 0] for v in _VARIANTS}
 
 
 # variant -> C entry point of its closure launch (csrc/closure.cu)
@@ -313,15 +444,45 @@ _closure_max_width: dict[int, int] = {}
 
 def _lib():
     lib = _build.load("gossip")
+    if getattr(lib, "gseg_bound", False):
+        return lib
     for fname, _, fills in _VARIANTS.values():
         fn = getattr(lib, fname)
         fn.argtypes = ([ctypes.c_void_p] * (1 + 2 * len(fills))
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                          ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
-    lib.gseg_gossip_steps.argtypes = []
-    lib.gseg_gossip_steps.restype = ctypes.c_int
+    for fname in ("gseg_gossip_steps", "gseg_gossip_tile",
+                  "gseg_gossip_reset_tile_counts"):
+        getattr(lib, fname).argtypes = []
+        getattr(lib, fname).restype = ctypes.c_int
+    lib.gseg_gossip_tile_counts.argtypes = [ctypes.c_void_p]
+    lib.gseg_gossip_tile_counts.restype = ctypes.c_int
+    got = (lib.gseg_gossip_steps(), lib.gseg_gossip_tile())
+    if got != (STEPS, _TILE):
+        raise RuntimeError(f"csrc/gossip.cu has (T, TILE) {got}; this module "
+                           f"expects {(STEPS, _TILE)}")
+    lib.gseg_bound = True
     return lib
+
+
+def tile_counts():
+    """Since the last reset_tile_counts(), per variant: (tiles the step
+    kernel computed in unseeded passes, in seeded first passes, the in-tile
+    steps they ran). Reads device counters back (synchronous); the main
+    path never calls it."""
+    buf = (ctypes.c_ulonglong * (3 * len(_VARIANTS)))()
+    _build.check(_lib().gseg_gossip_tile_counts(buf),
+                 "gseg_gossip_tile_counts")
+    return {v: tuple(buf[3 * i:3 * i + 3]) for i, v in enumerate(_VARIANTS)}
+
+
+def reset_tile_counts():
+    """Zero the device's computed-tile counts and TILE_LAUNCHES."""
+    _build.check(_lib().gseg_gossip_reset_tile_counts(),
+                 "gseg_gossip_reset_tile_counts")
+    for counts in TILE_LAUNCHES.values():
+        counts[:] = [0, 0]
 
 
 def _closure_lib():
@@ -357,88 +518,184 @@ def _check_contiguous(variant, planes):
         raise ValueError(f"{variant}: the kernel takes contiguous planes")
 
 
-def _fixpoint(variant, plain, ro, fields, max_sweeps, closures=False):
-    """The plain version for CPU tensors, the kernel passes for CUDA
-    tensors (the hybrid route with closures). Returns (*fields,
-    unconverged)."""
+def _fixpoint(variant, plain, ro, fields, max_sweeps, closures=False,
+              seed_mask=None):
+    """The plain version for CPU tensors (it ignores seed_mask), the kernel
+    passes for CUDA tensors (the hybrid route with closures). Returns
+    (*fields, unconverged)."""
     _check_fields(variant, ro, fields)
-    if _build.on_cpu(ro, *fields):
+    extra = []
+    if seed_mask is not None:
+        if seed_mask.dtype != torch.bool or seed_mask.shape != ro.shape:
+            raise ValueError(f"{variant}: seed_mask must be a bool plane of "
+                             f"shape {tuple(ro.shape)}")
+        extra = [seed_mask]
+    if _build.on_cpu(ro, *fields, *extra):
         return plain(ro, *fields, max_sweeps)
-    out, unconv = _run_fixpoint(variant, ro, fields, max_sweeps, closures)
+    out, unconv = _run_fixpoint(variant, ro, fields, max_sweeps, closures,
+                                seed_mask)
     return (*out, unconv)
 
 
-def _run_fixpoint(variant, ro, fields, max_sweeps, closures):
+def _seed_act(seed_mask, h, w, row0):
+    """The first pass's act bytes: kActSeed for each tile of the (h, w)
+    kernel plane that holds a seed pixel, with the mask placed at row
+    `row0` (a block max: one max-pool)."""
+    th, tw = -(-h // _TILE), -(-w // _TILE)
+    m = torch.zeros((th * _TILE, tw * _TILE), dtype=torch.uint8,
+                    device=seed_mask.device)
+    m[row0:row0 + seed_mask.shape[0], :seed_mask.shape[1]] = seed_mask
+    return m.view(th, _TILE, tw, _TILE).amax((1, 3)) * _ACT_SEED
+
+
+def _run_fixpoint(variant, ro, fields, max_sweeps, closures, seed_mask=None):
     """Jacobi passes (double-buffered) until one changes nothing or the
     pass cap ceil(max_sweeps / T) is reached, the hybrid route with
     closures; wide images on padded planes (module note). Returns (fields,
     unconverged)."""
     _check_contiguous(f"{variant} fixpoint", (ro, *fields))
-    lib = _lib()
-    entry, ro_fill, fills = _VARIANTS[variant]
-    fn = getattr(lib, entry)
-    t = lib.gseg_gossip_steps()
-    max_passes = -(-max_sweeps // t)
+    _, ro_fill, fills = _VARIANTS[variant]
+    max_passes = -(-max_sweeps // STEPS)
     h0, w0 = ro.shape
     padded = w0 >= PAD_MIN_WIDTH
     if padded:
         hp = -(-h0 // _TILE) * _TILE
         wp = -(-w0 // _PAD_LANES) * _PAD_LANES
         ro, *fields = kp.fast_pad_fields(
-            [(ro, ro_fill), *zip(fields, fills)], t, hp, wp)
-    fields, unconv = _passes(variant, fn, ro, fields, max_passes, closures)
+            [(ro, ro_fill), *zip(fields, fills)], STEPS, hp, wp)
+    seed_act = None
+    if seed_mask is not None and TILE_SKIP:
+        seed_act = _seed_act(seed_mask, *ro.shape, STEPS if padded else 0)
+    fields, unconv = _passes(variant, ro, fields, max_passes, closures,
+                             seed_act)
     if padded:
-        fields = kp.fast_unpad_fields(fields, t, h0, w0)
+        fields = kp.fast_unpad_fields(fields, STEPS, h0, w0)
     return fields, unconv
 
 
-def _passes(variant, fn, ro, fields, max_passes, closures):
+def _pass_loop(step, close, fields, bufs, acts, changed, max_passes, warm,
+               seed_act=None, gate=True):
+    """The pass loop of one fixpoint, its launches passed in (so the CPU
+    tests can drive it with step_pass_plain).
+
+    step(src, dst, act_in, act_out): one step pass from the fields `src`
+    into `dst`, running the tiles that act_in wakes (None: every tile),
+    writing act_out and ORing the device word `changed`. close(fields,
+    axis): one closure launch in place, ORing `changed` (None: step-only).
+    Up to `warm` step passes, then (with close) pairs of (step pass + rows
+    closure) and (step pass + columns closure), each pair one pass against
+    the cap, until a pass or pair changes nothing or the cap is reached.
+    The first pass reads `fields`, later ones ping-pong between the two
+    scratch sets `bufs` (the closures update one in place), so the inputs
+    are never written. gate: each step gets the previous step's act bytes
+    (the first, seed_act), and None after a closure, which rewrites the
+    planes. A skipped tile leaves its destination as it was, so the sets it
+    may skip into first hold the input: the second before pass 2, the
+    first too when pass 1 is seeded (note in csrc/gossip.cu). Returns
+    (fields, unconverged, step passes, pairs)."""
+    if gate:
+        for b, x in zip(bufs[1], fields):
+            b.copy_(x)
+        if seed_act is not None:
+            for b, x in zip(bufs[0], fields):
+                b.copy_(x)
+    src, n, act_in = list(fields), 0, seed_act if gate else None
+
+    def run():
+        nonlocal src, n, act_in
+        dst, act_out = bufs[n % 2], acts[n % 2]
+        step(src, dst, act_in, act_out)
+        src, n, act_in = dst, n + 1, act_out if gate else None
+
+    for _ in range(warm):
+        changed.zero_()
+        run()
+        if int(changed.item()) == 0:
+            return src, False, n, 0
+    if close is None:
+        return src, True, n, 0
+    pairs = 0
+    while warm + pairs < max_passes:
+        changed.zero_()
+        for axis in (1, 0):
+            run()
+            close(src, axis)
+            act_in = None
+        pairs += 1
+        if int(changed.item()) == 0:
+            return src, False, n, pairs
+    return src, True, n, pairs
+
+
+def _launch_pass(variant, ro, src, dst, act_in, act_out, changed, stream):
+    """One step-kernel launch on contiguous CUDA planes."""
     h, w = ro.shape
-    # the first pass reads the caller's tensors, later ones ping-pong
-    # between two scratch sets (the closures update a scratch set in
-    # place), so the inputs are never written.
-    src = list(fields)
+    err = getattr(_lib(), _VARIANTS[variant][0])(
+        ro.data_ptr(), *[x.data_ptr() for x in src],
+        *[x.data_ptr() for x in dst], h, w,
+        None if act_in is None else act_in.data_ptr(), act_out.data_ptr(),
+        changed.data_ptr(), stream)
+    _build.check(err, f"gseg_{variant}_pass")
+    _WRAPPERS[variant].launches += 1
+    TILE_LAUNCHES[variant][0] += act_out.numel()
+
+
+def _passes(variant, ro, fields, max_passes, closures, seed_act=None):
+    """Allocates the scratch sets and act bytes and drives _pass_loop with
+    the kernel. Returns (fields, unconverged)."""
+    h, w = ro.shape
+    tiles = (-(-h // _TILE), -(-w // _TILE))
     bufs = [[torch.empty_like(x) for x in fields] for _ in range(2)]
+    acts = [torch.empty(tiles, dtype=torch.uint8, device=ro.device)
+            for _ in range(2)]
     changed = torch.zeros(1, dtype=torch.int32, device=ro.device)
     warm = min(max_passes, WARM_PASSES) if closures else max_passes
     clib = _closure_lib() if closures else None
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream().cuda_stream
-        n = 0
 
-        def step():
-            nonlocal src, n
-            dst = bufs[n % 2]
-            err = fn(ro.data_ptr(), *[x.data_ptr() for x in src],
-                     *[x.data_ptr() for x in dst], h, w,
-                     changed.data_ptr(), stream)
-            _build.check(err, f"gseg_{variant}_pass")
-            _WRAPPERS[variant].launches += 1
-            src = dst
-            n += 1
+        def step(src, dst, act_in, act_out):
+            _launch_pass(variant, ro, src, dst, act_in, act_out, changed,
+                         stream)
+            if act_in is not None and act_in is seed_act:
+                TILE_LAUNCHES[variant][1] += act_out.numel()
 
-        for _ in range(warm):
-            changed.zero_()
-            step()
-            if int(changed.item()) == 0:
-                if closures:
-                    HYBRID_LOG.append((variant, n, 0))
-                return src, False
-        if not closures:
-            return src, True
-        # phase 2: each pair is one pass against the cap.
-        pairs = 0
-        while warm + pairs < max_passes:
-            changed.zero_()
-            for axis in (1, 0):
-                step()
-                _closure_launch(variant, clib, ro, src, axis, changed, stream)
-            pairs += 1
-            if int(changed.item()) == 0:
-                HYBRID_LOG.append((variant, warm, pairs))
-                return src, False
-    HYBRID_LOG.append((variant, warm, pairs))
-    return src, True
+        def close(src, axis):
+            _closure_launch(variant, clib, ro, src, axis, changed, stream)
+
+        out, unconv, n, pairs = _pass_loop(
+            step, close if closures else None, fields, bufs, acts, changed,
+            max_passes, warm, seed_act, TILE_SKIP)
+    if closures:
+        HYBRID_LOG.append((variant, min(n, warm), pairs))
+    return out, unconv
+
+
+def step_pass(variant, ro, src, dst, act_in=None):
+    """One step pass of `variant` from the fields `src` into `dst`, gated
+    by act_in (the previous pass's act bytes, or None for every tile): the
+    kernel for CUDA tensors, step_pass_plain for CPU tensors. Returns (dst,
+    act_out, changed); the card's checks hold the two against each other
+    pass by pass."""
+    _check_fields(variant, ro, src)
+    _check_fields(variant, ro, dst)
+    h, w = ro.shape
+    tiles = (-(-h // _TILE), -(-w // _TILE))
+    gate = []
+    if act_in is not None:
+        if act_in.dtype != torch.uint8 or act_in.shape != tiles:
+            raise ValueError(f"{variant} step pass: act_in must be uint8 of "
+                             f"shape {tiles}")
+        gate = [act_in]
+    if _build.on_cpu(ro, *src, *dst, *gate):
+        return step_pass_plain(variant, ro, src, dst, act_in)
+    _check_contiguous(f"{variant} step pass", (ro, *src, *dst, *gate))
+    act_out = torch.empty(tiles, dtype=torch.uint8, device=ro.device)
+    changed = torch.zeros(1, dtype=torch.int32, device=ro.device)
+    with torch.cuda.device(ro.device):
+        _launch_pass(variant, ro, src, dst, act_in, act_out, changed,
+                     torch.cuda.current_stream().cuda_stream)
+    return dst, act_out, bool(changed.item())
 
 
 def _closure_launch(variant, lib, ro, fields, axis, changed, stream):
@@ -518,10 +775,18 @@ def label_gossip(allow_bits, Lc, idf, dist, max_sweeps):
                      [Lc, idf, dist], max_sweeps)
 
 
-def label_flood(allow_bits, Lc, idf, max_sweeps, closures=False):
-    """Dist-free label flood. Returns (Lc, idf, unconverged)."""
+def label_flood(allow_bits, Lc, idf, max_sweeps, closures=False,
+                seed_mask=None):
+    """Dist-free label flood. Returns (Lc, idf, unconverged).
+
+    seed_mask: optional (H, W) bool, True where a hook (cross-label allow)
+    edge touches. On the card the first pass then runs only the tiles whose
+    3 x 3 tile neighbourhood holds a seed pixel. Caller's contract (the
+    reference's): away from hooks, Lc and idf are uniform per old
+    component, so an unseeded tile's first pass changes nothing. The plain
+    version ignores it."""
     return _fixpoint("labelnd", label_flood_plain, allow_bits, [Lc, idf],
-                     max_sweeps, closures)
+                     max_sweeps, closures, seed_mask)
 
 
 def value_flood(L, val, max_sweeps, closures=False):

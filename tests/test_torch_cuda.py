@@ -438,3 +438,102 @@ def test_runs_peel_on_card_equals_cpu(dev, monkeypatch):
     assert flags == cpu_flags == 0
     assert torch.equal(labels.cpu(), cpu_labels)
     assert kr.run_extract.launches > n0
+
+
+def _step_inputs(variant, h, w, dev, seed):
+    """(read-only plane, fields) of a step variant at random."""
+    f = _fields(h, w, dev, seed=seed, ncomp=5)
+    if variant == "compmin":
+        return f["L"], [f["bw"], f["be"], f["sz"]]
+    if variant == "labelnd":
+        return f["allow"], [f["be"], f["bw"]]
+    if variant == "value":
+        return f["L"], [f["be"]]
+    dist0, pdir = _dist_and_pdir(f["L"], seed=seed)
+    if variant == "labeldist":
+        return f["allow"], [f["be"], f["bw"], dist0]
+    return pdir, [torch.ones_like(pdir)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(100, 130)])
+@pytest.mark.parametrize("variant", list(kg._VARIANTS))
+def test_gated_kernel_passes_equal_plain(dev, variant, shape):
+    """Tile skipping on: every pass of a fixpoint, by the kernel and by
+    step_pass_plain from the same input into copies of the same
+    destination, gives the same fields, act bytes and changed flag."""
+    h, w = shape
+    ro, fields = _step_inputs(variant, h, w, dev, seed=h * 11 + w)
+    tiles = (-(-h // kg._TILE), -(-w // kg._TILE))
+    bufs = [[torch.zeros_like(x) for x in fields] for _ in range(2)]
+    acts = [torch.zeros(tiles, dtype=torch.uint8, device=dev)
+            for _ in range(2)]
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def step(src, dst, act_in, act_out):
+        pdst = [x.clone() for x in dst]
+        _, ka, kc = kg.step_pass(variant, ro, src, dst, act_in)
+        _, pa, pc = kg.step_pass_plain(variant, ro, src, pdst, act_in)
+        assert _equal(dst, pdst) and torch.equal(ka, pa) and kc == pc
+        act_out.copy_(ka)
+        changed.bitwise_or_(int(kc))
+
+    cap = -(-4 * (h + w) // kg.STEPS)
+    n0 = kg._WRAPPERS[variant].launches
+    out, unconv, n, _ = kg._pass_loop(step, None, fields, bufs, acts,
+                                      changed, cap, cap, None, True)
+    plain = {"compmin": kg.compmin_gossip_plain,
+             "labeldist": kg.label_gossip_plain,
+             "labelnd": kg.label_flood_plain,
+             "value": kg.value_flood_plain,
+             "subsum": kg.subtree_sums_plain}[variant]
+    *ref, ref_unconv = plain(ro, *fields, 4 * (h + w))
+    assert _equal(out, ref) and unconv is ref_unconv is False
+    assert kg._WRAPPERS[variant].launches == n0 + n
+
+
+@pytest.mark.parametrize("tile_skip", [True, False])
+def test_hybrid_route_equals_plain_with_and_without_skipping(
+        dev, tile_skip, monkeypatch):
+    """A few warm passes, then closure pairs: the pass after each closure
+    runs every tile; results equal the plain fixpoints either way."""
+    monkeypatch.setattr(kg, "TILE_SKIP", tile_skip)
+    monkeypatch.setattr(kg, "WARM_PASSES", 1)
+    h, w = 100, 1200
+    L = torch.from_numpy(_serpentine(h, w, 3)).to(dev)
+    rng = np.random.default_rng(4)
+    val = torch.from_numpy(rng.integers(0, 1 << 30, (h, w)).astype(
+        np.int32)).to(dev)
+    ms = 4 * (h + w)
+    got, unconv = kg.value_flood(L, val, ms, closures=True)
+    ref, ref_unconv = kg.value_flood_plain(L, val, ms)
+    assert torch.equal(got, ref) and unconv is ref_unconv is False
+    f = _fields(h, w, dev, seed=8, ncomp=3)
+    got = kg.label_flood(f["allow"], f["be"], f["bw"], ms, closures=True)
+    ref = kg.label_flood_plain(f["allow"], f["be"], f["bw"], ms)
+    assert _equal(got[:2], ref[:2]) and got[2] is ref[2] is False
+
+
+def test_label_flood_seed_mask_changes_nothing(dev, monkeypatch):
+    """Every label_flood call of the turbo path on the card, with and
+    without its seed: the same outputs and the same number of passes."""
+    monkeypatch.setattr(turbo, "_PEEL_SIZES", "count")
+    orig = kg.label_flood
+    seen = []
+
+    def rec(bits, Lc, idf, max_sweeps, closures=False, seed_mask=None):
+        n0 = orig.launches
+        plain = orig(bits, Lc, idf, max_sweeps, closures)
+        n1 = orig.launches
+        got = orig(bits, Lc, idf, max_sweeps, closures, seed_mask)
+        assert seed_mask is not None and _equal(got[:2], plain[:2])
+        assert got[2] is plain[2] and orig.launches - n1 == n1 - n0
+        seen.append(n1 - n0)
+        return got
+
+    monkeypatch.setattr(kg, "label_flood", rec)
+    cfg = SegmentationConfig(k=300.0, min_size=100)
+    for noise in (0.0, 6.0):
+        img = torch.from_numpy(blobs_image(270, 480, 3, noise, 0)).to(dev)
+        labels, flags = turbo.segment_turbo_impl(img, cfg, 2)
+        assert flags == 0
+    assert seen
