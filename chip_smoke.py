@@ -27,7 +27,7 @@ arguments). It
      every pass, at the random shapes and at each path's fields (the
      label flood with its seed);
   4. runs `segment_turbo_flagged` (sigma 0.8, k 300, min_size 100,
-     max_iters 32, gossip_rounds 2) on six main paths, each with the
+     max_iters 32, gossip_rounds 2) on seven main paths, each with the
      launch counts set to 0 just before it and read just after:
        - 1080p, the default configuration (subsum peel rounds):
          blobs_image(1080, 1920, 31, 8.0, 0);
@@ -37,22 +37,27 @@ arguments). It
        - 1080p quality mode with `kg.WARM_PASSES = 0`: every hybrid
          fixpoint on the closure route from its first pass;
        - 1080p, the runs peel (`turbo._PEEL_SIZES = "runs"`);
-     and requires flags == 0, the launch counts of run 4f (PERF.md §5,
-     `RUN_4F_LAUNCHES`), the canonical partition of the committed
+       - 4K quality mode (weight_buckets 16), default `WARM_PASSES`: the
+         padded route with the closure route past the warm passes;
+     and requires flags == 0, the launch counts of PERF.md §5
+     (`RECORDED_LAUNCHES`), the canonical partition of the committed
      oracle (bench_out/oracle_bench_{1080x1920,2160x3840}_wb0.npy,
-     bench_out/oracle_bench_1080x1920_wb16.npy), a launch of every kernel
-     that path must run (pad and unpad only at 4K, the closures in both
-     orientations on the closure path, run extraction on the runs path),
-     and none of a kernel the path must not run;
+     bench_out/oracle_bench_1080x1920_wb16.npy, and the port's
+     gseg_tpu_torch/oracles/blobs_2160x3840_wb16.npz), a launch of every
+     kernel that path must run (pad and unpad only at 4K, the closures in
+     both orientations on the closure path, run extraction on the runs
+     path), and none of a kernel the path must not run;
   5. times each path (median of CUDA-event reps after a warm-up), its
      stages, its peak memory, and each kernel beside its plain version,
      its bytes bound and, where one exists, a PyTorch call computing the
      same function (call time in turns with the kernel's, and device
      time); pad/unpad on both routes, with the L2 cache flushed, and at
-     8K planes too; for the step kernel at the fixpoint fields also the
-     device time with `kg.TILE_SKIP` off, the share of tiles the gated
-     call computed, its in-tile steps per tile, and each pass's tiles and
-     device time (gated and ungated) with a fit ms = a + b x tiles; per
+     8K planes too; the closures' rows and columns launches (CUDA events)
+     at the 1080p and the padded 4K fields; for the step kernel at the
+     fixpoint fields also the device time with `kg.TILE_SKIP` off, the
+     share of tiles the gated call computed, its in-tile steps per tile,
+     and each pass's tiles and device time (gated and ungated) with a fit
+     ms = a + b x tiles; per
      path, the step kernel's device time (profiler) over one whole
      main-path run with `kg.TILE_SKIP` on and off in turns (on, off, off,
      on), which must give the same labels and launches, with the
@@ -93,6 +98,7 @@ from gseg_tpu_torch.ops.kernels import extract as kx
 from gseg_tpu_torch.ops.kernels import gossip as kg
 from gseg_tpu_torch.ops.kernels import pad as kp
 from gseg_tpu_torch.ops.kernels import runs as kr
+from gseg_tpu_torch.oracles import load_oracle, oracle_path
 from gseg_tpu_torch.utils.labels import canonical_min_labels_np
 from gseg_tpu_torch.utils.synthetic import blobs_image
 
@@ -107,23 +113,25 @@ class Path(NamedTuple):
     w: int
     blobs: int
     sizes: str                # peel sizes (speed mode)
-    oracle: str
+    oracle: FsPath
     weight_buckets: int = 0
     warm_passes: int | None = None  # kg.WARM_PASSES for the path (None: 64)
 
 
-_WB0 = "bench_out/oracle_bench_1080x1920_wb0.npy"
-_WB16 = "bench_out/oracle_bench_1080x1920_wb16.npy"
+_WB0 = ROOT / "bench_out/oracle_bench_1080x1920_wb0.npy"
+_WB16 = ROOT / "bench_out/oracle_bench_1080x1920_wb16.npy"
 PATHS = {
     "1080p_subsum": Path(1080, 1920, 31, "subsum", _WB0),
     "1080p_count": Path(1080, 1920, 31, "count", _WB0),
     "4k_subsum": Path(2160, 3840, 126, "subsum",
-                      "bench_out/oracle_bench_2160x3840_wb0.npy"),
+                      ROOT / "bench_out/oracle_bench_2160x3840_wb0.npy"),
     "1080p_wb16": Path(1080, 1920, 31, "subsum", _WB16, 16),
     "1080p_wb16_closures": Path(1080, 1920, 31, "subsum", _WB16, 16, 0),
     "1080p_runs": Path(1080, 1920, 31, "runs", _WB0),
+    "4k_wb16": Path(2160, 3840, 126, "subsum",
+                    FsPath(oracle_path("blobs_2160x3840_wb16")).resolve(), 16),
 }
-QUALITY = {"1080p_wb16", "1080p_wb16_closures"}
+QUALITY = {"1080p_wb16", "1080p_wb16_closures", "4k_wb16"}
 # random-field shapes: odd multi-tile, 1080p-sized, and wide (w >= 2560).
 RANDOM_SHAPES = ((37, 150), (1081, 1919), (37, 2600), (160, 3840))
 SERPENTINE = (1081, 1919)
@@ -186,38 +194,39 @@ KERNELS = {
         kp, "fast_pad_fields", kp.fast_pad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:703 (_fast_pad_fields, call :781)",
-        {"4k_subsum"}, set(), None, 0, (r"\bpad_fields_(bulk|regs)\b",)),
+        {"4k_subsum", "4k_wb16"}, set(), None, 0,
+        (r"\bpad_fields_(bulk|regs)\b",)),
     "unpad_fields": Kernel(
         kp, "fast_unpad_fields", kp.fast_unpad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:799 (_fast_unpad_fields, call :826)",
-        {"4k_subsum"}, set(), None, 0,
+        {"4k_subsum", "4k_wb16"}, set(), None, 0,
         (r"\bunpad_fields_(bulk|regs)\b",)),
     "boundary_extract": Kernel(
         kx, "boundary_extract", kx.boundary_extract_plain,
         "gseg_tpu_torch/csrc/extract.cu",
         "gseg_tpu/ops/pallas/extract.py:344 (_extract_kernel, via "
         "boundary_extract :515)",
-        ALL, set(), 20, 16, (r"\bboundary_extract_kernel\b",)),
+        ALL, set(), 20, 16, (r"\bextract_(fill|rows)\b",)),
     # a closure "call" below is one rows launch and one columns launch.
     "closure_compmin": Kernel(
         kg, "compmin_closure", kg.compmin_closure_plain,
         "gseg_tpu_torch/csrc/closure.cu",
         _CLOSURE + "_compmin_closure :1031, combine :1020)",
-        {"1080p_wb16_closures"}, {"1080p_wb16"}, 2 * 28, 2 * 20,
-        (r"\bclosure_(rows|cols)<.*\bCompminOp>",)),
+        {"1080p_wb16_closures"}, {"1080p_wb16", "4k_wb16"}, 2 * 28, 2 * 20,
+        (r"\bclosure_(rows|cols)<.*\bCompminOp\b",)),
     "closure_labelnd": Kernel(
         kg, "labelnd_closure", kg.labelnd_closure_plain,
         "gseg_tpu_torch/csrc/closure.cu",
         _CLOSURE + "_labelnd_closure :1115, combine :1106)",
-        {"1080p_wb16_closures"}, {"1080p_wb16"}, 2 * 20, 2 * 12,
-        (r"\bclosure_(rows|cols)<.*\bLabelndOp>",)),
+        {"1080p_wb16_closures"}, {"1080p_wb16", "4k_wb16"}, 2 * 20, 2 * 12,
+        (r"\bclosure_(rows|cols)<.*\bLabelndOp\b",)),
     "closure_value": Kernel(
         kg, "value_closure", kg.value_closure_plain,
         "gseg_tpu_torch/csrc/closure.cu",
         _CLOSURE + "_value_closure :1141, combine :1135)",
-        {"1080p_wb16_closures"}, {"1080p_wb16"}, 2 * 12, 2 * 8,
-        (r"\bclosure_(rows|cols)<.*\bValueOp>",)),
+        {"1080p_wb16_closures"}, {"1080p_wb16", "4k_wb16"}, 2 * 12, 2 * 8,
+        (r"\bclosure_(rows|cols)<.*\bValueOp\b",)),
     "run_extract": Kernel(
         kr, "run_extract", kr.run_extract_plain,
         "gseg_tpu_torch/csrc/runs.cu",
@@ -230,25 +239,34 @@ PADS = ("pad_fields", "unpad_fields")
 STEP = {"gossip_compmin": "compmin", "gossip_labeldist": "labeldist",
         "gossip_labelnd": "labelnd", "gossip_value": "value",
         "gossip_subsum": "subsum"}
-# Launches of one main-path run of each path in run 4f (PERF.md §5); the
-# other kernels launched none. Tile skipping must leave them as they were.
-RUN_4F_LAUNCHES = {
-    "1080p_subsum": dict(gossip_compmin=16, gossip_labeldist=8,
-                         gossip_labelnd=23, gossip_value=17, gossip_subsum=8,
-                         boundary_extract=1),
-    "1080p_count": dict(gossip_compmin=16, gossip_labelnd=31, gossip_value=17,
-                        boundary_extract=1),
-    "4k_subsum": dict(gossip_compmin=18, gossip_labeldist=8, gossip_labelnd=21,
-                      gossip_value=17, gossip_subsum=8, pad_fields=10,
-                      unpad_fields=10, boundary_extract=1),
-    "1080p_wb16": dict(gossip_compmin=114, gossip_labelnd=179,
-                       gossip_value=46, boundary_extract=1),
-    "1080p_wb16_closures": dict(gossip_compmin=62, gossip_labelnd=108,
-                                gossip_value=10, boundary_extract=1,
-                                closure_compmin=62, closure_labelnd=108,
-                                closure_value=10),
-    "1080p_runs": dict(gossip_compmin=16, gossip_labelnd=31, gossip_value=17,
-                       boundary_extract=1, run_extract=2),
+# Launches of one main-path run of each path (PERF.md §5), with the run
+# that first recorded them; the other kernels launched none. Tile skipping
+# and kernel redesigns must leave them as they are.
+RECORDED_LAUNCHES = {
+    "1080p_subsum": ("4f", dict(
+        gossip_compmin=16, gossip_labeldist=8, gossip_labelnd=23,
+        gossip_value=17, gossip_subsum=8, boundary_extract=1)),
+    "1080p_count": ("4f", dict(
+        gossip_compmin=16, gossip_labelnd=31, gossip_value=17,
+        boundary_extract=1)),
+    "4k_subsum": ("4f", dict(
+        gossip_compmin=18, gossip_labeldist=8, gossip_labelnd=21,
+        gossip_value=17, gossip_subsum=8, pad_fields=10, unpad_fields=10,
+        boundary_extract=1)),
+    "1080p_wb16": ("4f", dict(
+        gossip_compmin=114, gossip_labelnd=179, gossip_value=46,
+        boundary_extract=1)),
+    "1080p_wb16_closures": ("4f", dict(
+        gossip_compmin=62, gossip_labelnd=108, gossip_value=10,
+        boundary_extract=1, closure_compmin=62, closure_labelnd=108,
+        closure_value=10)),
+    "1080p_runs": ("4f", dict(
+        gossip_compmin=16, gossip_labelnd=31, gossip_value=17,
+        boundary_extract=1, run_extract=2)),
+    # its closures never engage at the default WARM_PASSES
+    "4k_wb16": ("6c", dict(
+        gossip_compmin=124, gossip_labelnd=196, gossip_value=61,
+        pad_fields=18, unpad_fields=18, boundary_extract=1)),
 }
 CLOSURES = ("closure_compmin", "closure_labelnd", "closure_value")
 # closure kernel -> the fixpoint whose fields it is checked and timed at
@@ -346,10 +364,12 @@ def _profile(fn, calls):
 
 def _device_ms(fn, name, calls=3, side=None):
     """Device time (ms) per call of the kernel's own launches, from
-    torch.profiler over `calls` calls (side "rows" or "cols": a closure's
-    launches of that orientation only; "bulk" or "regs": a pad route's).
-    Raises, listing the device kernels the trace holds, when no key matches
-    the kernel's symbols in two profiled windows."""
+    torch.profiler over `calls` calls (side: one alternative of the (a|b)
+    group in the kernel's symbols, e.g. "fill" or "rows" of
+    boundary_extract, "bulk" or "regs" of a pad route). Raises, listing the
+    device kernels the trace holds, when no key matches the kernel's
+    symbols in two profiled windows; a first window that holds no device
+    time at all is logged (cause unknown, PERF.md §7)."""
     pats = [re.compile(re.sub(r"\(\w+\|\w+\)", side, p) if side else p)
             for p in KERNELS[name].symbols]
     seen = set()
@@ -363,6 +383,9 @@ def _device_ms(fn, name, calls=3, side=None):
                 us += t
         if us:
             return us / 1e3 / calls
+        if not seen:
+            print(f"profiler window for {name} held no device time; "
+                  "profiling again", flush=True)
     raise AssertionError(
         f"{name}: no device time in the profiler trace for "
         f"{KERNELS[name].symbols}; device kernels it holds: {sorted(seen)}")
@@ -744,11 +767,12 @@ def _stage_split(image, cfg, reps):
     return out
 
 
-def _check_oracle(labels, image, oracle_path, cfg):
+def _check_oracle(labels, image, path, cfg):
     got = canonical_min_labels_np(labels.cpu().numpy())
-    oracle = np.load(ROOT / oracle_path)
+    oracle = load_oracle(path)
     ndiff = int((got != oracle).sum())
-    print(f"  oracle partition ({oracle_path}): {ndiff} pixels differ "
+    print(f"  oracle partition ({path.relative_to(ROOT)}): {ndiff} pixels "
+          "differ "
           f"({len(np.unique(got))} components, oracle "
           f"{len(np.unique(oracle))})", flush=True)
     if ndiff:
@@ -956,6 +980,65 @@ def _pass_times(name, args, kwargs, card):
     return rec
 
 
+def _closure_launch_ms(name, args, axis, reps=5):
+    """Device ms of one closure launch along `axis` (median of `reps`, CUDA
+    events behind a device sleep, after a warm-up), each on fresh copies of
+    the fields, so every launch does the same work."""
+    variant = STEP[CLOSURE_OF[name]]
+    ro, *fields = args
+    lib = kg._closure_lib()
+    changed = torch.zeros(1, dtype=torch.int32, device=ro.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    times = []
+    for _ in range(reps + 1):
+        f = [x.clone() for x in fields]
+        times.append(_device_event_ms(lambda: kg._closure_launch(
+            variant, lib, ro, f, axis, changed, stream)))
+    return statistics.median(times[1:])
+
+
+def _closure_split(name, args, rec):
+    """A closure's rows and columns launches' device ms. Returns a note for
+    the log."""
+    for axis, side in ((1, "rows"), (0, "cols")):
+        rec[f"device_ms_{side}"] = _closure_launch_ms(name, args, axis)
+    return (f": rows {rec['device_ms_rows']:.4f}, columns "
+            f"{rec['device_ms_cols']:.4f} (one launch each, CUDA events)")
+
+
+def _padded_closure_fields(fields):
+    """Each closure's arguments as the padded route gives them at w >=
+    PAD_MIN_WIDTH: its fixpoint's captured input planes padded to (hp +
+    2T, wp) with the inert fills."""
+    out = {}
+    for c, f in CLOSURE_OF.items():
+        ro, *planes, _ = fields[f][0]
+        _, ro_fill, fills = kg._VARIANTS[STEP[f]]
+        h, w = ro.shape
+        hp = -(-h // kg._TILE) * kg._TILE
+        wp = -(-w // kg._PAD_LANES) * kg._PAD_LANES
+        out[c] = (tuple(kp.fast_pad_fields(
+            [(ro, ro_fill), *zip(planes, fills)], kg.STEPS, hp, wp)), {})
+    return out
+
+
+def _closure_route_check(fields, path, errs):
+    """Each closure-route fixpoint at a path's captured fields with
+    WARM_PASSES 0 (closures from the first pass) against its plain
+    fixpoint; raises the entries of errs."""
+    warm = kg.WARM_PASSES
+    kg.WARM_PASSES = 0
+    try:
+        for f in CLOSURE_OF.values():
+            kg.HYBRID_LOG.clear()
+            errs[f] = max(errs[f], _compare(f, *fields[f]))
+            print(f"check {f} {path} main-path fields closures=True "
+                  f"WARM_PASSES=0: equal to plain; hybrid (variant, step "
+                  f"passes, pairs) {list(kg.HYBRID_LOG)}", flush=True)
+    finally:
+        kg.WARM_PASSES = warm
+
+
 def _time_kernels(fields, label, card, plain_reps):
     """Check and time each kernel call: kernel ms (median of 5; of 21 in
     turns with the library call where one exists), plain ms, library ms
@@ -985,12 +1068,12 @@ def _time_kernels(fields, label, card, plain_reps):
             rec["pass_fit_ms"] = _pass_times(name, args, kwargs,
                                              card)["fit_ms"]
         if name in CLOSURES:
-            fn = _wrapper(name)
-            for axis, side in ((1, "rows"), (0, "cols")):
-                rec[f"device_ms_{side}"] = _device_ms(
-                    lambda a=axis: fn(*args, a), name, side=side)
-            split = (f": rows {rec['device_ms_rows']:.3f}, columns "
-                     f"{rec['device_ms_cols']:.3f}")
+            split = _closure_split(name, args, rec)
+        if name == "boundary_extract":
+            for side in ("fill", "rows"):
+                rec[f"device_ms_{side}"] = _device_ms(kfn, name, calls, side)
+            split = (f": fill {rec['device_ms_fill']:.4f}, rows "
+                     f"{rec['device_ms_rows']:.4f}")
         out[name] = rec
         print(f"check {name} {label}: equal to plain; "
               f"kernel {rec['ms']:.3f} ms ({passes} launches; on the device"
@@ -1045,9 +1128,11 @@ def _gated_passes(name, args, kwargs=None):
 
 
 def _check_launches(path, launches):
-    want = {n: RUN_4F_LAUNCHES[path].get(n, 0) for n in KERNELS}
+    run, recorded = RECORDED_LAUNCHES[path]
+    want = {n: recorded.get(n, 0) for n in KERNELS}
     if launches != want:
-        raise AssertionError(f"{path}: launches {launches}, run 4f's {want}")
+        raise AssertionError(f"{path}: launches {launches}, run {run}'s "
+                             f"{want}")
 
 
 def _step_run(image, cfg):
@@ -1076,8 +1161,8 @@ def _step_ab(path, image, card):
     """The step kernel's device time over one whole main-path run with
     TILE_SKIP on and off in turns (on, off, off, on), the active-tile share
     of the gated runs from the device counter, and the bound of the tiles
-    each computed. Every run must give the same labels, flags 0 and run
-    4f's launches. Returns the record for the paths line."""
+    each computed. Every run must give the same labels, flags 0 and the
+    recorded launches. Returns the record for the paths line."""
     cfg = _cfg(path)
     runs = {True: [], False: []}
     skip = kg.TILE_SKIP
@@ -1140,8 +1225,8 @@ def _step_ab(path, image, card):
           "per kernel " + ", ".join(
               f"{n} {b['share_first_full']:.4f} of {b['launched']} "
               f"({b['steps_per_tile']:.2f} steps each)"
-              for n, b in by.items()) + f"; same labels, run 4f's launches "
-          f"({card})", flush=True)
+              for n, b in by.items()) + "; same labels, the recorded "
+          f"launches ({card})", flush=True)
     return rec
 
 
@@ -1240,7 +1325,7 @@ def _random_checks(dev):
 
 # per-kernel keys of the kernels line beyond the contract's, where measured
 _EXTRA_KEYS = ("library_device_ms", "device_ms_rows", "device_ms_cols",
-               "device_ms_bulk", "device_ms_regs", "ms_regs",
+               "device_ms_fill", "device_ms_bulk", "device_ms_regs", "ms_regs",
                "device_ms_bulk_cold", "device_ms_ungated", "tile_share_call",
                "steps_per_tile_call", "pass_fit_ms")
 _KEYS_8K = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
@@ -1294,6 +1379,8 @@ def main() -> None:
             elif path == "1080p_wb16_closures":
                 to_time = {c: (fields[f][0][:-1], {})
                            for c, f in CLOSURE_OF.items()}
+            elif path == "4k_wb16":
+                to_time = _padded_closure_fields(fields)
             elif path == "1080p_runs":
                 to_time = {"run_extract": fields["run_extract"]}
             else:
@@ -1311,6 +1398,8 @@ def main() -> None:
                 errs[name] = max(errs[name], _compare(name, args, kwargs))
                 print(f"check {name} {path} main-path fields "
                       f"{kwargs or ''}: equal to plain", flush=True)
+            if path == "4k_wb16":
+                _closure_route_check(fields, path, errs)
             timed[path] = _time_kernels(
                 to_time, f"{path} main-path fields", card,
                 plain_reps=3 if path in ("1080p_subsum",) else 1)
@@ -1341,7 +1430,8 @@ def main() -> None:
                         / sum(b["launched"] for b in by))
     for name in KERNELS:
         rec = timed[timed_on.get(name, "1080p_subsum")][name]
-        rec4k = timed["4k_subsum"].get(name, {})
+        rec4k = timed["4k_wb16" if name in CLOSURES
+                      else "4k_subsum"].get(name, {})
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name].source,
             "replaces": KERNELS[name].replaces,
@@ -1357,6 +1447,7 @@ def main() -> None:
             "plain_ms_4k": rec4k.get("plain_ms"),
             "bound_ms_4k": rec4k.get("bound_ms")}
             | {k: rec[k] for k in _EXTRA_KEYS if k in rec}
+            | {f"{k}_4k": rec4k[k] for k in _EXTRA_KEYS if k in rec4k}
             | ({"active_tile_share": shares[name]} if name in STEP else {})
             | {f"{k}_8k": v for k, v in timed8k.get(name, {}).items()
                if k in _EXTRA_KEYS + _KEYS_8K})

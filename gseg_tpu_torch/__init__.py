@@ -7,8 +7,10 @@ weight-quantile bucket ramp): smoothing and edge weights, the stage-G
 gossip rounds, the boundary-edge handoff, the stage-2 compact rounds and
 the final map, with hand-written CUDA kernels (built from `csrc/` on first
 use) for the step fixpoints, the scan closures, the boundary extraction,
-the row-run extraction and the wide-image padding. The atomic, fastmst and
-superpixel algorithms are not ported yet.
+the row-run extraction and the wide-image padding. The NumPy Boruvka
+oracle is ported (`models.boruvka_cpu`, with committed oracle partitions
+in `oracles/`), but `segment()` does not dispatch to it; the atomic,
+fastmst and superpixel algorithms are not ported yet.
 
 Public API:
     segment(image, sigma=.8, k=300, min_size=100, algorithm="turbo",

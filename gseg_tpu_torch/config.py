@@ -19,7 +19,9 @@ ALGORITHMS = (
     "fastmst",          # DPP/FastMST path (not ported yet)
     "superpixel",       # superpixel hierarchy (not ported yet)
     "kruskal_cpu",      # sequential Felzenszwalb oracle (not ported yet)
-    "boruvka_cpu",      # sequential Boruvka oracle (not ported yet)
+    "boruvka_cpu",      # sequential Boruvka oracle: ported as
+                        # models.boruvka_cpu; segment() does not dispatch
+                        # to it yet
     "kruskal_native",   # C++ Felzenszwalb baseline (not ported yet)
 )
 

@@ -30,24 +30,29 @@
 // column is 0 (explicit bounds). The launch ORs a device flag when any
 // field changed.
 //
-// Design. Rows: one block per row. The row's fields and its two reach bits
-// sit in dynamic shared memory (13 B per pixel for compmin: 25 KB at
-// w = 1920, 50 KB at 3840, so the limit is raised past 48 KB at launch).
-// Each scan direction is a three-phase segmented scan: every thread scans
-// a contiguous chunk sequentially, a Hillis-Steele scan over the threads'
-// (value, chunk passes its carry) pairs gives each chunk its carry-in, and
-// each thread folds that carry into the prefix of its chunk that the carry
-// reaches. Columns: one thread per column (warp-wide blocks), a sequential
-// down sweep and then an up sweep in registers, so neighbouring threads
-// read neighbouring addresses.
+// Design. Both launches run a three-phase segmented scan per direction:
+// every thread scans a contiguous chunk sequentially, a scan over the
+// chunks' (value, chunk passes its carry) pairs gives each chunk its
+// carry-in, and each thread folds that carry into the prefix of its chunk
+// that the carry reaches. Rows: one block per row; the row's fields and its
+// two reach bits sit in dynamic shared memory (13 B per pixel for compmin:
+// 25 KB at w = 1920, 50 KB at 3840, so the limit is raised past 48 KB at
+// launch), and the carry scan is a Hillis-Steele scan over the 256 chunks.
+// Columns: a block of 256 threads takes COLS = 8 adjacent columns whole (240
+// blocks at w = 1920, so every SM has work), R = 32 chunks of ceil(h / 32)
+// rows per column, threads of a warp on adjacent columns of four rows, so
+// a warp's loads and stores are 32-byte sectors; one thread per column runs
+// the carry scan over its R chunks in shared memory; the up sweep follows
+// the down sweep after a barrier and reads its results back through L2 (a
+// 1080p plane set is 17-33 MB, the L2 50 MB). A column never spans two
+// blocks, so no carry crosses blocks and each axis stays one launch. Only
+// words that change are written back.
 //
 // Bound on the H100: one launch reads the read-only plane and every field
 // once and writes the fields once (28 B per pixel for compmin, 20 labelnd,
 // 12 value: 58 / 41 / 25 MB at 1080p), a few compares per pixel: bytes-
-// bound at ~17 / 12 / 7 us. The columns launch is latency-bound instead: a
-// 1080-long dependent chain per thread on 1920 threads, one warp per SM
-// slot. Making either fast (column tiles with a carry scan, vector loads)
-// is later work.
+// bound at ~17 / 12 / 7 us per launch. A columns launch reads each field
+// about twice (the two sweeps, the folds), mostly from L2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,7 +60,9 @@
 namespace {
 
 constexpr int ROW_THREADS = 256;
-constexpr int COL_THREADS = 32;
+constexpr int COL_THREADS = 256;
+// Columns per block of the columns launch (see the note at the top).
+constexpr int COLS = 8;
 // DIRS8 bits of the reach links (gseg_tpu/ops/pallas/gossip.py:86-91).
 constexpr int BIT_L = 4, BIT_R = 0, BIT_U = 5, BIT_D = 1;
 
@@ -243,77 +250,142 @@ closure_rows(const int32_t* __restrict__ ro, Io<Op::NRW> io, int w,
     if (threadIdx.x == 0 && block_changed) atomicOr(changed, 1);
 }
 
-// Whether pixel g takes the value of its column neighbour gn (the row above
-// on the down sweep, the row below on the up sweep).
+// Whether pixel y of column x takes the value of its column neighbour: the
+// pixel above on the down sweep, the one below on the up sweep; none across
+// the ends.
 template <class Op>
 __device__ __forceinline__ bool col_takes(const int32_t* __restrict__ ro,
-                                          size_t g, size_t gn, int bit) {
-    if constexpr (Op::RO == Ro::kLabel) return ro[g] == ro[gn];
-    else return (static_cast<uint32_t>(ro[g]) >> bit) & 1u;
+                                          int y, int x, int h, int w,
+                                          bool down) {
+    const int yn = down ? y - 1 : y + 1;
+    if (yn < 0 || yn >= h) return false;
+    const int32_t r = ro[static_cast<size_t>(y) * w + x];
+    if constexpr (Op::RO == Ro::kLabel)
+        return r == ro[static_cast<size_t>(yn) * w + x];
+    else
+        return (static_cast<uint32_t>(r) >> (down ? BIT_U : BIT_D)) & 1u;
 }
 
+// One direction of the column closure over a block's COLS columns (see the
+// note at the top). Thread (r, c) owns rows [lo, hi) of column x; s is its
+// chunk's place in scan order (the down sweep runs the chunks top to
+// bottom, the up sweep bottom to top). Returns whether it changed a word.
+template <class Op>
+__device__ bool col_scan(const int32_t* __restrict__ ro, Io<Op::NRW> io,
+                         int x, int h, int w, int lo, int hi, int s, int c,
+                         bool down,
+                         uint32_t (*agg)[COL_THREADS / COLS][COLS],
+                         uint8_t (*pass)[COLS]) {
+    constexpr int N = Op::NRW;
+    constexpr int R = COL_THREADS / COLS;
+    const int n = hi - lo;
+    bool any = false;
+
+    // 1. sequential scan of the chunk; `all`: every pixel of it takes its
+    //    predecessor's value, so a carry from before the chunk reaches its
+    //    last pixel.
+    uint32_t cur[N];
+    bool all = true;
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+        const int y = down ? lo + i : hi - 1 - i;
+        const size_t g = static_cast<size_t>(y) * w + x;
+        uint32_t v[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) v[k] = io.f[k][g];
+        const bool takes = col_takes<Op>(ro, y, x, h, w, down);
+        if (i > 0 && takes) {
+            uint32_t o[N];
+#pragma unroll
+            for (int k = 0; k < N; ++k) o[k] = v[k];
+            Op::join(v, cur);
+#pragma unroll
+            for (int k = 0; k < N; ++k) {
+                if (v[k] != o[k]) {
+                    io.f[k][g] = v[k];
+                    any = true;
+                }
+            }
+        }
+        all = all && takes;
+#pragma unroll
+        for (int k = 0; k < N; ++k) cur[k] = v[k];
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) agg[k][s][c] = n > 0 ? cur[k] : 0u;
+    pass[s][c] = n > 0 && all;
+    __syncthreads();
+
+    // 2. the carry scan: one thread per column runs over its R chunks in
+    //    scan order, (a, pa) then (m, pm) giving (pm ? join(m, a) : m);
+    //    agg[k][s] becomes the scan's value at the end of chunk s. Empty
+    //    chunks come last in row order; a chunk after one in scan order
+    //    starts at the image's end, so it never takes the carry.
+    if (threadIdx.x < COLS) {
+        for (int t = 1; t < R; ++t) {
+            if (!pass[t][c]) continue;
+            uint32_t m[N], a[N];
+#pragma unroll
+            for (int k = 0; k < N; ++k) {
+                m[k] = agg[k][t][c];
+                a[k] = agg[k][t - 1][c];
+            }
+            Op::join(m, a);
+#pragma unroll
+            for (int k = 0; k < N; ++k) agg[k][t][c] = m[k];
+        }
+    }
+    __syncthreads();
+
+    // 3. the carry-in (the scan's value at the previous chunk's end) reaches
+    //    the chunk's prefix up to the first pixel that takes nothing.
+    if (s > 0 && n > 0) {
+        uint32_t cin[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) cin[k] = agg[k][s - 1][c];
+        for (int i = 0; i < n; ++i) {
+            const int y = down ? lo + i : hi - 1 - i;
+            if (!col_takes<Op>(ro, y, x, h, w, down)) break;
+            const size_t g = static_cast<size_t>(y) * w + x;
+            uint32_t v[N], o[N];
+#pragma unroll
+            for (int k = 0; k < N; ++k) o[k] = v[k] = io.f[k][g];
+            Op::join(v, cin);
+#pragma unroll
+            for (int k = 0; k < N; ++k) {
+                if (v[k] != o[k]) {
+                    io.f[k][g] = v[k];
+                    any = true;
+                }
+            }
+        }
+    }
+    __syncthreads();
+    return any;
+}
+
+// Columns launch: a block takes COLS adjacent columns whole; thread (r, c)
+// scans rows [r * chunk, (r + 1) * chunk) of column c, so a warp reads
+// 32 / COLS rows of COLS adjacent words at each step.
 template <class Op>
 __global__ void __launch_bounds__(COL_THREADS)
 closure_cols(const int32_t* __restrict__ ro, Io<Op::NRW> io, int h, int w,
              int32_t* __restrict__ changed) {
     constexpr int N = Op::NRW;
-    const int x = blockIdx.x * COL_THREADS + threadIdx.x;
-    if (x >= w) return;
-    bool any = false;
-    uint32_t c[N];
-    // down sweep: flow from above.
-#pragma unroll
-    for (int k = 0; k < N; ++k) c[k] = io.f[k][x];
-#pragma unroll 4
-    for (int y = 1; y < h; ++y) {
-        const size_t g = static_cast<size_t>(y) * w + x;
-        uint32_t v[N];
-#pragma unroll
-        for (int k = 0; k < N; ++k) v[k] = io.f[k][g];
-        if (col_takes<Op>(ro, g, g - w, BIT_U)) {
-            uint32_t o[N];
-#pragma unroll
-            for (int k = 0; k < N; ++k) o[k] = v[k];
-            Op::join(v, c);
-#pragma unroll
-            for (int k = 0; k < N; ++k) {
-                if (v[k] != o[k]) {
-                    io.f[k][g] = v[k];
-                    any = true;
-                }
-            }
-        }
-#pragma unroll
-        for (int k = 0; k < N; ++k) c[k] = v[k];
-    }
-    // up sweep, on the down sweep's results: flow from below.
-    const size_t last = static_cast<size_t>(h - 1) * w + x;
-#pragma unroll
-    for (int k = 0; k < N; ++k) c[k] = io.f[k][last];
-#pragma unroll 4
-    for (int y = h - 2; y >= 0; --y) {
-        const size_t g = static_cast<size_t>(y) * w + x;
-        uint32_t v[N];
-#pragma unroll
-        for (int k = 0; k < N; ++k) v[k] = io.f[k][g];
-        if (col_takes<Op>(ro, g, g + w, BIT_D)) {
-            uint32_t o[N];
-#pragma unroll
-            for (int k = 0; k < N; ++k) o[k] = v[k];
-            Op::join(v, c);
-#pragma unroll
-            for (int k = 0; k < N; ++k) {
-                if (v[k] != o[k]) {
-                    io.f[k][g] = v[k];
-                    any = true;
-                }
-            }
-        }
-#pragma unroll
-        for (int k = 0; k < N; ++k) c[k] = v[k];
-    }
-    if (__any_sync(__activemask(), any) && (threadIdx.x & 31) == 0)
-        atomicOr(changed, 1);
+    constexpr int R = COL_THREADS / COLS;
+    __shared__ uint32_t agg[N][R][COLS];
+    __shared__ uint8_t pass[R][COLS];
+    const int c = threadIdx.x % COLS, r = threadIdx.x / COLS;
+    // columns past w take part in the barriers only, with empty chunks
+    const int x = min(static_cast<int>(blockIdx.x) * COLS + c, w - 1);
+    const bool col = static_cast<int>(blockIdx.x) * COLS + c < w;
+    const int chunk = (h + R - 1) / R;
+    const int lo = col ? min(r * chunk, h) : h;
+    const int hi = col ? min(lo + chunk, h) : h;
+    bool any = col_scan<Op>(ro, io, x, h, w, lo, hi, r, c, true, agg, pass);
+    any |= col_scan<Op>(ro, io, x, h, w, lo, hi, R - 1 - r, c, false, agg,
+                        pass);
+    if (__syncthreads_or(any) && threadIdx.x == 0) atomicOr(changed, 1);
 }
 
 // Dynamic shared memory a rows launch needs at width w.
@@ -338,8 +410,8 @@ int launch(const void* ro, Io<Op::NRW> io, int h, int w, int axis,
         if (err != cudaSuccess) return static_cast<int>(err);
         closure_rows<Op><<<h, ROW_THREADS, smem, s>>>(r, io, w, ch);
     } else {
-        closure_cols<Op><<<(w + COL_THREADS - 1) / COL_THREADS, COL_THREADS,
-                           0, s>>>(r, io, h, w, ch);
+        const unsigned blocks = static_cast<unsigned>((w + COLS - 1) / COLS);
+        closure_cols<Op><<<blocks, COL_THREADS, 0, s>>>(r, io, h, w, ch);
     }
     return static_cast<int>(cudaGetLastError());
 }

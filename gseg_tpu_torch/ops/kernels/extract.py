@@ -2,8 +2,10 @@
 
 Port of `gseg_tpu/ops/pallas/extract.py:boundary_extract`, with:
 
-  - the kernel: `csrc/extract.cu` (run tails take their run's exact lexmin
-    (w, eid) and claim output slots with one atomic counter);
+  - the kernel: `csrc/extract.cu` (one block per image row: a segmented
+    min-scan gives each run's exact lexmin (w, eid) at its tail, and a
+    block claims the slots of a tile's entries with one atomic; the same C
+    entry first writes the sentinels and zeroes the count);
   - the plain PyTorch version: a row-run id from a cumsum, and a
     `scatter_reduce(amin)` on an int64 key packed as (float32 bits of w)
     << 32 | eid (w >= 0, so the bits order like the floats).
@@ -22,6 +24,7 @@ capacity are dropped, and the caller must treat the pool as invalid).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -81,10 +84,13 @@ def boundary_extract_plain(L, weights, cap: int):
 
 
 def _kernel():
-    fn = _build.load("extract").gseg_boundary_extract
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-    fn.restype = ctypes.c_int
+    lib = _build.load("extract")
+    fn = lib.gseg_boundary_extract
+    if not getattr(lib, "gseg_bound", False):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn.restype = ctypes.c_int
+        lib.gseg_bound = True
     return fn
 
 
@@ -104,16 +110,21 @@ def boundary_extract(L, weights, cap: int):
             or not (L.is_contiguous() and weights.is_contiguous()):
         raise ValueError("boundary_extract: contiguous int32 labels and "
                          "float32 weights expected")
-    lo, hi, wv, eid = _empty_pool(cap, L.device)
-    count = torch.zeros((), dtype=torch.int32, device=L.device)
-    fn = _kernel()
-    with torch.cuda.device(L.device):
-        err = fn(L.data_ptr(), weights.data_ptr(), h, w, cap, lo.data_ptr(),
-                 hi.data_ptr(), wv.data_ptr(), eid.data_ptr(),
-                 count.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    # one allocation: the four pools, then the count and overflow words,
+    # all written by the kernel's C entry.
+    buf = torch.empty(4 * cap + 2, dtype=torch.int32, device=L.device)
+    lo, hi, wv, eid = (buf[i * cap:(i + 1) * cap] for i in range(4))
+    dev = L.get_device()
+    with (contextlib.nullcontext() if dev == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        err = _kernel()(L.data_ptr(), weights.data_ptr(), h, w, cap,
+                        lo.data_ptr(), hi.data_ptr(), wv.data_ptr(),
+                        eid.data_ptr(), buf[4 * cap:].data_ptr(),
+                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gseg_boundary_extract")
     _WRAPPER.launches += 1
-    return lo, hi, wv, eid, count, count > cap
+    overflow = buf[4 * cap + 1:].view(torch.uint8)[0].view(torch.bool)
+    return lo, hi, wv.view(torch.float32), eid, buf[4 * cap], overflow
 
 
 # the launch count lives on the wrapper object (bound here, so a caller that

@@ -1,0 +1,52 @@
+"""Oracle partitions committed with the port, and the recipe that makes them.
+
+Each oracle is the canonical partition (`canonical_min_labels_np`) that
+`models.boruvka_cpu.segment_boruvka_np` gives for a synthetic image at the
+benchmark configuration of `scripts/precompute_oracles.py`: sigma 0.8, k 300,
+min_size 100, max_iters 32, `blobs_image(h, w, max(8, h * w // 65536), 8.0,
+0)`. It is saved with `np.savez_compressed` under the key "labels".
+
+Remake the committed files (about 75 s each at 4K on one CPU core):
+    python -m gseg_tpu_torch.oracles
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+# name -> (h, w, weight_buckets)
+ORACLES = {
+    "blobs_2160x3840_wb16": (2160, 3840, 16),
+}
+
+
+def oracle_path(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        f"{name}.npz")
+
+
+def load_oracle(path) -> np.ndarray:
+    """The (H, W) int32 canonical labels of a committed oracle: an `.npz`
+    written here, or a bare `.npy` array as `bench_out/` holds them."""
+    data = np.load(path)
+    if isinstance(data, np.ndarray):
+        return data
+    with data:
+        return data["labels"]
+
+
+def make_oracle(name: str) -> np.ndarray:
+    """Recompute an oracle's canonical labels with the port's NumPy Boruvka."""
+    from ..config import SegmentationConfig
+    from ..models.boruvka_cpu import segment_boruvka_np
+    from ..utils.labels import canonical_min_labels_np
+    from ..utils.synthetic import blobs_image
+
+    h, w, wb = ORACLES[name]
+    img = blobs_image(h, w, num_blobs=max(8, (h * w) // 65536), noise=8.0,
+                      seed=0)
+    cfg = SegmentationConfig(sigma=0.8, k=300.0, min_size=100, max_iters=32,
+                             weight_buckets=wb)
+    return canonical_min_labels_np(segment_boruvka_np(img, cfg))

@@ -164,6 +164,101 @@ def test_closure_wrappers_check_arguments():
         kg.compmin_closure(z, z, z, z, 1)  # bw must be float32
 
 
+_TORCH_JOINS = {"compmin": kg._compmin_join, "labelnd": kg._labelnd_join,
+                "value": kg._value_join}
+
+
+def _chunked_columns(kind, join, ro, fields, chunk, nchunks):
+    """The columns launch's decomposition (csrc/closure.cu, closure_cols)
+    in plain torch, vectorised over columns: per sweep (down, then up on
+    its results) each of `nchunks` chunks of `chunk` rows (empty ones
+    last) scans itself sequentially, a carry scan over the chunks in scan
+    order joins a chunk's end value with its predecessor's where every
+    pixel of the chunk takes, and each chunk folds its predecessor's value
+    into the prefix that the carry reaches."""
+    h, w = ro.shape
+    assert chunk * nchunks >= h
+    f = [x.clone() for x in fields]
+    rows = [(min(r * chunk, h), min(r * chunk + chunk, h))
+            for r in range(nchunks)]
+    for down, takes in zip((True, False), kg._reach(ro, kind, 0)):
+        order = rows if down else rows[::-1]
+        ys = [list(range(lo, hi)) if down else list(range(hi - 1, lo - 1, -1))
+              for lo, hi in order]
+        agg, passes = [], []
+        for chunk_ys in ys:  # 1. each chunk alone
+            if not chunk_ys:
+                agg.append(None)
+                passes.append(torch.zeros(w, dtype=torch.bool))
+                continue
+            cur = [x[chunk_ys[0]] for x in f]
+            every = takes[chunk_ys[0]].clone()
+            for y in chunk_ys[1:]:
+                cur = join(cur, [x[y] for x in f], takes[y])
+                for x, v in zip(f, cur):
+                    x[y] = v
+                every &= takes[y]
+            agg.append(cur)
+            passes.append(every)
+        for s in range(1, nchunks):  # 2. the carry scan
+            if agg[s] is not None and agg[s - 1] is not None:
+                agg[s] = join(agg[s - 1], agg[s], passes[s])
+            elif agg[s] is not None:
+                assert not passes[s].any()  # a chunk after an empty one
+        for s in range(1, nchunks):  # 3. the fold
+            if agg[s - 1] is None:
+                continue
+            reach = torch.ones(w, dtype=torch.bool)
+            for y in ys[s]:
+                reach &= takes[y]
+                new = join(agg[s - 1], [x[y] for x in f], reach)
+                for x, v in zip(f, new):
+                    x[y] = v
+    return f
+
+
+def _boundary_columns(h, chunk, rng):
+    """Labels whose runs start, end and span exactly at chunk boundaries
+    and one row off them, a column of one label, one with no run, and
+    random runs; (h, 11) int32."""
+    y = np.arange(h)
+    cols = [np.zeros(h), y % 2, y // chunk, (y + 1) // chunk,
+            (y + chunk - 1) // chunk, y // (2 * chunk),
+            (y + chunk // 2) // (3 * chunk)]
+    for _ in range(4):
+        cols.append(np.cumsum(rng.random(h) < 0.2) % 3)
+    return np.stack(cols, 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 7, 64])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_chunked_columns_decomposition_equals_plain(variant, chunk):
+    """The columns kernel's three-phase decomposition gives the plain
+    closure's bits on axis 0, at heights below one chunk, at one chunk, one
+    row past it and across many, with two empty chunks past the image as
+    the kernel has when its chunks outrun h."""
+    plain, _, kind, names, _ = VARIANTS[variant]
+    rng = np.random.default_rng(chunk)
+    for h in sorted({1, max(chunk - 1, 1), chunk, chunk + 1, 3 * chunk,
+                     5 * chunk + 2}):
+        L = _boundary_columns(h, chunk, rng)
+        f = _fields(h, L.shape[1], seed=h + chunk)
+        if kind == "label":
+            ro = _t(L)
+        else:  # same-label links both ways plus random one-way links
+            same = np.zeros_like(L, dtype=bool)
+            same[1:] = L[1:] == L[:-1]
+            up = same | (rng.random(L.shape) < 0.1)
+            down = np.roll(same, -1, 0) | (rng.random(L.shape) < 0.1)
+            ro = _t(f["allow"] & ~0x22 | up << 5 | down << 1)
+        fields = [_t(f[k]) for k in names]
+        want = plain(ro, *fields, 0)[:-1]
+        got = _chunked_columns(kind, _TORCH_JOINS[variant], ro, fields,
+                               chunk, -(-h // chunk) + 2)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b), (h, chunk)
+
+
 def _assert_equal(ref, got):
     for r, g in zip(ref, got):
         assert np.array_equal(np.asarray(r), g.numpy())

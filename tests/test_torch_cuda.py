@@ -252,6 +252,43 @@ def test_extract_kernel_equals_plain(dev, shape):
     assert kx.boundary_extract.launches == n0 + 2
 
 
+def _striped(h, w, rng):
+    """Labels in horizontal stripes 3 rows high with a few breaks: the
+    S, SE and NE edges between two stripes form runs across whole rows,
+    over every thread, warp (256 pixels) and 2048-pixel tile of the
+    kernel's row walk."""
+    L = np.repeat(np.arange(h) // 3, w).reshape(h, w)
+    breaks = rng.random((h, w)) < 0.002
+    return (L + breaks * 1000 * np.arange(1, w + 1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("shape", [(7, 1000), (50, 1919), (301, 3840)])
+def test_extract_kernel_runs_across_tiles_and_caps(dev, shape):
+    """Runs crossing the row walk's warps and tiles give one entry each with
+    the run's lexmin; at caps 0, 1, count - 1 and count the count and the
+    overflow flag are exact, and the filled slots are entries of the full
+    pool."""
+    h, w = shape
+    rng = np.random.default_rng(h + w)
+    L = torch.from_numpy(_striped(h, w, rng)).to(dev)
+    weights = rng.uniform(0.5, 9.0, (4, h, w)).astype(np.float32)
+    for d, (dy, dx) in enumerate(gg.DIRS4):
+        weights[d][~gg.valid_plane(h, w, dy, dx).numpy()] = np.inf
+    weights = torch.from_numpy(weights).to(dev)
+    full, _, count = _pool(kx.boundary_extract_plain(L, weights, 4 * h * w))
+    assert count > 1
+    got = _pool(kx.boundary_extract(L, weights, 4 * h * w))
+    assert got[1:] == (False, count) and np.array_equal(got[0], full)
+    entries = {tuple(r) for r in full}
+    assert len(entries) == count  # eids are unique
+    for cap in (0, 1, count - 1, count):
+        lo, hi, wv, eid, n, ovf = kx.boundary_extract(L, weights, cap)
+        assert int(n) == count and bool(ovf) is (count > cap)
+        filled = torch.stack([x.double() for x in (lo, hi, wv, eid)], 1)
+        rows = {tuple(r) for r in filled.cpu().numpy()}
+        assert len(rows) == cap and rows <= entries
+
+
 def test_wrappers_refuse_mixed_devices(dev):
     L = torch.zeros((4, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
@@ -316,6 +353,30 @@ def test_closure_kernels_equal_plain(dev, shape, axis):
         assert _equal(got[:-1], ref[:-1]) and got[-1] is ref[-1]
         assert wrapper.axis_launches[axis] == n0[axis] + 1
         assert wrapper.axis_launches[1 - axis] == n0[1 - axis]
+
+
+@pytest.mark.parametrize("h", [1, 2, 33, 1081, 2192])
+def test_columns_closure_kernel_equals_plain(dev, h):
+    """The columns launch against the plain closure, bit for bit, at heights
+    below, at and across its row chunks and widths below, at and across its
+    column blocks; column 0 takes its neighbour's value at every pixel,
+    column 1 at none."""
+    for w in (1, 7, 31, 33, 1919, 3840):
+        f = _fields(h, w, dev, seed=h * 5 + w, ncomp=3)
+        f["L"][:, 0] = 7
+        f["allow"][:, 0] |= (1 << 5) | (1 << 1)
+        if w > 1:
+            f["L"][:, 1] = torch.arange(h, device=dev) % 2
+            f["allow"][:, 1] &= ~((1 << 5) | (1 << 1))
+        cases = [(kg.compmin_closure, kg.compmin_closure_plain,
+                  (f["L"], f["bw"], f["be"], f["sz"])),
+                 (kg.labelnd_closure, kg.labelnd_closure_plain,
+                  (f["allow"], f["be"], f["bw"])),
+                 (kg.value_closure, kg.value_closure_plain,
+                  (f["L"], f["be"]))]
+        for wrapper, plain, args in cases:
+            got, ref = wrapper(*args, 0), plain(*args, 0)
+            assert _equal(got[:-1], ref[:-1]) and got[-1] is ref[-1], (w,)
 
 
 def test_closure_kernels_on_a_serpentine(dev):
