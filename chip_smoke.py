@@ -27,8 +27,9 @@ arguments). It
      every pass, at the random shapes and at each path's fields (the
      label flood with its seed);
   4. runs `segment_turbo_flagged` (sigma 0.8, k 300, min_size 100,
-     max_iters 32, gossip_rounds 2) on seven main paths, each with the
-     launch counts set to 0 just before it and read just after:
+     max_iters 32, gossip_rounds 2) on seven main paths, then three more
+     paths at 1080p (step 6), each with the launch counts set to 0 just
+     before it and read just after:
        - 1080p, the default configuration (subsum peel rounds):
          blobs_image(1080, 1920, 31, 8.0, 0);
        - 1080p, the count peel (`turbo._PEEL_SIZES = "count"`);
@@ -64,7 +65,21 @@ arguments). It
      active-tile share of the gated runs (device counters: tiles computed
      / tiles launched, each fixpoint's first pass counted as full) and the
      bytes bound of the tiles computed; then the 1080p subsum and count
-     peels in 4 alternating pairs.
+     peels in 4 alternating pairs. Run extraction is also held on 9-row
+     planes 1 to 3840 wide (one run a row, or runs of one pixel) at caps
+     0, 1, count - 1 and count, and timed (its row and fill launches, the
+     fill's bytes past the count beside the bound, `torch.bincount`) on
+     each peel round's label plane of the 1080p runs path and the 4K
+     default path;
+  6. drives the atomic path (`segment_atomic`, which launches none of the
+     kernels; its rounds and host reads), its hierarchy and the turbo
+     hierarchy (`segment_turbo_hierarchy_flagged`: flags 0, the recorded
+     launches, level 0 the identity, every level nested in the next, final
+     labels equal to `segment_turbo_flagged`'s) on the 1080p default
+     image: final labels 0 pixels off the 1080p oracle, every level's
+     canonical sha256 equal to the committed level oracle
+     (gseg_tpu_torch/oracles/levels_blobs_1080x1920_wb0.json) and the two
+     hierarchies equal level by level; each timed by CUDA-event reps.
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -77,6 +92,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
+import hashlib
 import json
 import re
 import statistics
@@ -90,7 +106,7 @@ import numpy as np
 import torch
 
 from gseg_tpu_torch.config import SegmentationConfig
-from gseg_tpu_torch.models import turbo
+from gseg_tpu_torch.models import atomic_boruvka, turbo
 from gseg_tpu_torch.ops import filters
 from gseg_tpu_torch.ops import grid_graph as gg
 from gseg_tpu_torch.ops.kernels import _build
@@ -98,7 +114,8 @@ from gseg_tpu_torch.ops.kernels import extract as kx
 from gseg_tpu_torch.ops.kernels import gossip as kg
 from gseg_tpu_torch.ops.kernels import pad as kp
 from gseg_tpu_torch.ops.kernels import runs as kr
-from gseg_tpu_torch.oracles import load_oracle, oracle_path
+from gseg_tpu_torch.oracles import (load_level_oracle, load_oracle,
+                                    oracle_path)
 from gseg_tpu_torch.utils.labels import canonical_min_labels_np
 from gseg_tpu_torch.utils.synthetic import blobs_image
 
@@ -165,7 +182,11 @@ class Kernel(NamedTuple):
     symbols: tuple            # regexes of its device kernels' names
 
 
-ALL = set(PATHS)
+# beside segment_turbo_flagged's paths, _new_paths runs 1080p_atomic and
+# 1080p_atomic_hierarchy (no kernel) and the turbo hierarchy.
+TURBO_HIERARCHY = "1080p_turbo_hierarchy"
+LEVEL_ORACLE = "levels_blobs_1080x1920_wb0"
+ALL = set(PATHS) | {TURBO_HIERARCHY}
 SPEED_SUBSUM = {"1080p_subsum", "4k_subsum"}
 KERNELS = {
     "gossip_compmin": Kernel(
@@ -225,14 +246,14 @@ KERNELS = {
         kg, "value_closure", kg.value_closure_plain,
         "gseg_tpu_torch/csrc/closure.cu",
         _CLOSURE + "_value_closure :1141, combine :1135)",
-        {"1080p_wb16_closures"}, {"1080p_wb16", "4k_wb16"}, 2 * 12, 2 * 8,
-        (r"\bclosure_(rows|cols)<.*\bValueOp\b",)),
+        {"1080p_wb16_closures"}, {"1080p_wb16", "4k_wb16", TURBO_HIERARCHY},
+        2 * 12, 2 * 8, (r"\bclosure_(rows|cols)<.*\bValueOp\b",)),
     "run_extract": Kernel(
         kr, "run_extract", kr.run_extract_plain,
         "gseg_tpu_torch/csrc/runs.cu",
         "gseg_tpu/ops/pallas/extract.py:191 (_runs_kernel, via run_extract "
         ":293, call :315)",
-        {"1080p_runs"}, set(), None, 4, (r"\brun_extract_kernel\b",)),
+        {"1080p_runs"}, set(), None, 4, (r"\bruns_(rows|fill)\b",)),
 }
 PADS = ("pad_fields", "unpad_fields")
 # the step kernel's wrappers -> their variant in ops/kernels/gossip.py
@@ -267,6 +288,14 @@ RECORDED_LAUNCHES = {
     "4k_wb16": ("6c", dict(
         gossip_compmin=124, gossip_labelnd=196, gossip_value=61,
         pad_fields=18, unpad_fields=18, boundary_extract=1)),
+    # the atomic path has no kernel
+    "1080p_atomic": ("7b", {}),
+    "1080p_atomic_hierarchy": ("7b", {}),
+    # stage G as the count peel's; one value flood per distinct stage-2
+    # root map and the final map's
+    TURBO_HIERARCHY: ("7b", dict(
+        gossip_compmin=16, gossip_labelnd=31, gossip_value=153,
+        boundary_extract=1)),
 }
 CLOSURES = ("closure_compmin", "closure_labelnd", "closure_value")
 # closure kernel -> the fixpoint whose fields it is checked and timed at
@@ -368,12 +397,12 @@ def _device_ms(fn, name, calls=3, side=None):
     group in the kernel's symbols, e.g. "fill" or "rows" of
     boundary_extract, "bulk" or "regs" of a pad route). Raises, listing the
     device kernels the trace holds, when no key matches the kernel's
-    symbols in two profiled windows; a first window that holds no device
-    time at all is logged (cause unknown, PERF.md §7)."""
+    symbols in four profiled windows; a window that holds no device time
+    at all is logged (cause unknown, PERF.md §7)."""
     pats = [re.compile(re.sub(r"\(\w+\|\w+\)", side, p) if side else p)
             for p in KERNELS[name].symbols]
     seen = set()
-    for _ in range(2):
+    for _ in range(4):
         us = 0.0
         for e in _profile(fn, calls):
             t = getattr(e, "device_time_total", 0)
@@ -409,11 +438,15 @@ def _routes_ms(fn, name, calls=10):
 
 
 def _library_device_ms(fn, calls):
-    """Device time (ms) per call of every kernel a library call runs."""
-    for _ in range(2):
+    """Device time (ms) per call of every kernel a library call runs; a
+    profiled window that holds no device time is logged (cause unknown,
+    PERF.md §7) and profiled again, up to four windows."""
+    for _ in range(4):
         us = sum(e.self_device_time_total for e in _profile(fn, calls))
         if us:
             return us / 1e3 / calls
+        print("profiler window for a library call held no device time; "
+              "profiling again", flush=True)
     raise AssertionError("no device time in the library call's trace")
 
 
@@ -815,16 +848,7 @@ def _run_path(path, image, card):
               flush=True)
     if flags != 0:
         raise AssertionError(f"{path}: main path raised flags {flags}")
-    _check_launches(path, launches)
-    idle = [n for n in KERNELS if path in KERNELS[n].must
-            and launches[n] == 0]
-    if idle:
-        raise AssertionError(f"{path}: main path never launched {idle}")
-    stray = [n for n in KERNELS if path not in KERNELS[n].must
-             and path not in KERNELS[n].may and launches[n]]
-    if stray:
-        raise AssertionError(f"{path}: main path launched {stray}, which "
-                             "it must not run")
+    _check_path_launches(path, launches)
     one_way = [n for n in CLOSURES if path in KERNELS[n].must
                and min(axis[n]) == 0]
     if one_way:
@@ -1069,11 +1093,19 @@ def _time_kernels(fields, label, card, plain_reps):
                                              card)["fit_ms"]
         if name in CLOSURES:
             split = _closure_split(name, args, rec)
-        if name == "boundary_extract":
+        if name in ("boundary_extract", "run_extract"):
             for side in ("fill", "rows"):
                 rec[f"device_ms_{side}"] = _device_ms(kfn, name, calls, side)
             split = (f": fill {rec['device_ms_fill']:.4f}, rows "
                      f"{rec['device_ms_rows']:.4f}")
+        if name == "run_extract":
+            L, cap = args
+            rec["pairs"] = int(kr.run_extract_plain(L, cap)[2])
+            rec["cap"] = cap
+            rec["fill_bytes"] = 8 * max(cap - rec["pairs"], 0)
+            split += (f"; {rec['pairs']} pairs, cap {cap}: the sentinel fill "
+                      f"writes {rec['fill_bytes']} B past the count, outside "
+                      "the bound")
         out[name] = rec
         print(f"check {name} {label}: equal to plain; "
               f"kernel {rec['ms']:.3f} ms ({passes} launches; on the device"
@@ -1133,6 +1165,21 @@ def _check_launches(path, launches):
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, run {run}'s "
                              f"{want}")
+
+
+def _check_path_launches(path, launches):
+    """The recorded launches, a launch of every kernel the path must run
+    and none of a kernel it must not run."""
+    _check_launches(path, launches)
+    idle = [n for n in KERNELS if path in KERNELS[n].must
+            and launches[n] == 0]
+    if idle:
+        raise AssertionError(f"{path}: main path never launched {idle}")
+    stray = [n for n in KERNELS if path not in KERNELS[n].must
+             and path not in KERNELS[n].may and launches[n]]
+    if stray:
+        raise AssertionError(f"{path}: main path launched {stray}, which "
+                             "it must not run")
 
 
 def _step_run(image, cfg):
@@ -1323,11 +1370,254 @@ def _random_checks(dev):
     return errs
 
 
+RUN_WIDTHS = (1, 31, 32, 33, 1920, 3840)
+
+
+def _runs_pairs(res):
+    """The filled slots of a run pool as a Counter of (label, length)."""
+    lab, cnt = res[0].cpu(), res[1].cpu()
+    live = lab != kr.INT32_MAX
+    return collections.Counter(zip(lab[live].tolist(), cnt[live].tolist()))
+
+
+def _runs_checks(dev):
+    """run_extract against its plain version on 9-row planes of each width
+    in RUN_WIDTHS, every row one run (all equal) or runs of one pixel
+    (alternating labels), at caps 0, 1, count - 1 and count: equal sorted
+    multisets and exact counts; at overflow, the filled slots a
+    sub-multiset of the plane's pairs. Returns the max abs error."""
+    err, h = 0.0, 9
+    for w in RUN_WIDTHS:
+        planes = {
+            "all-equal": torch.arange(h, dtype=torch.int32, device=dev)[
+                :, None].expand(h, w).contiguous(),
+            "alternating": (torch.arange(h * w, device=dev).reshape(h, w)
+                            % 2).int()}
+        for kind, L in planes.items():
+            full = kr.run_extract_plain(L, h * w)
+            count = int(full[2])
+            caps = sorted({0, 1, max(count - 1, 0), count})
+            for cap in caps:
+                err = max(err, _compare("run_extract", (L, cap)))
+                if count > cap:
+                    got = _runs_pairs(kr.run_extract(L, cap))
+                    if sum(got.values()) != cap or got - _runs_pairs(full):
+                        raise AssertionError(
+                            f"run_extract {kind} {h}x{w} cap {cap}: the "
+                            "filled slots are not pairs of the plane")
+            print(f"check run_extract {kind} rows {h}x{w}: equal to plain "
+                  f"at caps {caps} ({count} pairs)", flush=True)
+    return err
+
+
+def _record_calls(image, cfg, name, outputs=False):
+    """Every call of one kernel wrapper in one main-path run: its arguments,
+    or (outputs=True) the first field of its result."""
+    k = KERNELS[name]
+    fn = getattr(k.mod, k.attr)
+    got = []
+
+    def rec(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        got.append(_clone(out[0] if outputs else args))
+        return out
+
+    setattr(k.mod, k.attr, rec)
+    try:
+        turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)
+    finally:
+        setattr(k.mod, k.attr, fn)
+    return got
+
+
+def _canonical(labels):
+    """Canonical min-pixel-id labels of an (H, W) map whose labels lie in
+    [0, H*W) (root ids or canonical ids), on the device: the same array as
+    utils.labels.canonical_min_labels_np."""
+    flat = labels.reshape(-1).long()
+    v = flat.numel()
+    vid = torch.arange(v, dtype=torch.int32, device=labels.device)
+    m = torch.full((v,), kr.INT32_MAX, dtype=torch.int32,
+                   device=labels.device).scatter_reduce_(0, flat, vid, "amin")
+    return m[flat].reshape(labels.shape)
+
+
+def _level_stats(canon):
+    """(components, sha256 of the int32 C-order bytes) of a canonical map."""
+    vid = torch.arange(canon.numel(), dtype=torch.int32,
+                       device=canon.device)
+    n = int((canon.reshape(-1) == vid).sum())
+    return n, hashlib.sha256(canon.cpu().numpy().tobytes()).hexdigest()
+
+
+def _nested(fine, coarse):
+    """Whether every class of the canonical map `fine` lies inside one
+    class of `coarse`."""
+    f = fine.reshape(-1).long()
+    c = coarse.reshape(-1)
+    lo = torch.full_like(c, kr.INT32_MAX).scatter_reduce_(0, f, c, "amin")
+    return torch.equal(lo[f], c)
+
+
+def _oracle_diff(labels, path):
+    got = _canonical(labels)
+    oracle = torch.from_numpy(load_oracle(path)).to(labels.device)
+    return int((got != oracle).sum())
+
+
+def _atomic_path(path, image, card):
+    """The counted run of the atomic path (segment_atomic) or of its
+    hierarchy: no kernel may launch; final labels 0 pixels off the 1080p
+    oracle; its rounds by mode (each reads `merged` on the host once, and
+    nothing else does), median ms of CUDA-event reps, peak memory. Returns
+    the record and, for the hierarchy, its canonical levels."""
+    cfg = dataclasses.replace(CFG, algorithm="atomic")
+    hierarchy = path == "1080p_atomic_hierarchy"
+
+    def run():
+        if hierarchy:
+            return atomic_boruvka.segment_atomic_hierarchy(image, cfg)
+        return None, atomic_boruvka.segment_atomic(image, cfg)
+
+    rounds = collections.Counter()
+    one_round = atomic_boruvka._round
+
+    def counted(*args):
+        rounds[args[-1]] += 1  # the mode, "felz" or "minsize"
+        return one_round(*args)
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    atomic_boruvka._round = counted
+    try:
+        levels, labels = run()
+    finally:
+        atomic_boruvka._round = one_round
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    _check_path_launches(path, launches)
+    ndiff = _oracle_diff(labels, _WB0)
+    reps = 5 if not hierarchy else 3
+    ms = _cuda_ms(run, reps)
+    felz, minsize = rounds["felz"], rounds["minsize"]
+    rec = {"launches": launches, "peak_mib": peak, "main_ms": ms,
+           "rounds_felz_minsize": [felz, minsize],
+           "host_reads": felz + minsize, "oracle_pixels_differ": ndiff}
+    print(f"main path {path}: launches none of the {len(KERNELS)} kernels; "
+          f"rounds felz {felz}, min-size {minsize}, host reads "
+          f"{felz + minsize}; oracle partition ({_WB0.relative_to(ROOT)}): "
+          f"{ndiff} pixels differ; median {ms:.3f} ms of {reps} reps = "
+          f"{image.shape[0] * image.shape[1] / 1e3 / ms:.2f} MPix/s; peak "
+          f"memory {peak:.1f} MiB ({card})", flush=True)
+    if ndiff:
+        raise AssertionError(f"{path}: partition differs from the oracle")
+    canon = [_canonical(lv) for lv in levels] if hierarchy else None
+    return rec, canon
+
+
+def _turbo_hierarchy_path(image, card):
+    """The counted run of the turbo hierarchy: flags 0, the recorded
+    launches, level 0 the identity, levels nested, final labels 0 pixels
+    off the oracle and equal to segment_turbo_flagged's; median ms of
+    CUDA-event reps, peak memory. Returns the record and its canonical
+    levels."""
+    path = TURBO_HIERARCHY
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    levels, labels, flags = turbo.segment_turbo_hierarchy_flagged(
+        image, CFG, GOSSIP_ROUNDS)
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    hybrid = list(kg.HYBRID_LOG)
+    print(f"main path {path}: flags {flags} ({turbo.describe_flags(flags)}),"
+          f" launches {launches}, {len(hybrid)} hybrid fixpoints "
+          f"(variant, step passes, pairs) {hybrid}; peak memory "
+          f"{peak:.1f} MiB", flush=True)
+    if flags != 0:
+        raise AssertionError(f"{path}: raised flags {flags}")
+    _check_path_launches(path, launches)
+    canon = [_canonical(lv) for lv in levels]
+    vid = torch.arange(labels.numel(), dtype=torch.int32,
+                       device=labels.device).reshape(labels.shape)
+    if not torch.equal(levels[0], vid):
+        raise AssertionError(f"{path}: level 0 is not the identity")
+    loose = [i for i in range(len(canon) - 1)
+             if not _nested(canon[i], canon[i + 1])]
+    if loose:
+        raise AssertionError(f"{path}: levels {loose} do not nest in the "
+                             "next")
+    ndiff = _oracle_diff(labels, _WB0)
+    ref, rflags = turbo.segment_turbo_flagged(image, CFG, GOSSIP_ROUNDS)
+    same = rflags == 0 and torch.equal(ref, labels)
+    ms = _cuda_ms(lambda: turbo.segment_turbo_hierarchy_flagged(
+        image, CFG, GOSSIP_ROUNDS), 3)
+    print(f"  {path}: level 0 the identity, {len(canon)} levels nested; "
+          f"final labels: oracle partition {ndiff} pixels differ, equal to "
+          f"segment_turbo_flagged's: {same}; median {ms:.3f} ms of 3 reps "
+          f"({card})", flush=True)
+    if ndiff or not same:
+        raise AssertionError(f"{path}: final labels differ")
+    return {"launches": launches, "peak_mib": peak, "main_ms": ms,
+            "hybrid_variant_steps_pairs": hybrid}, canon
+
+
+def _check_levels(atomic_canon, turbo_canon):
+    """Each level of both hierarchies against the committed reference level
+    (component count and sha256 of the canonical map) and the two
+    hierarchies against each other, pixel for pixel; prints each mismatch
+    (component counts, pixels apart) and raises after all are printed.
+    Returns the per-level component counts."""
+    ref = load_level_oracle(LEVEL_ORACLE)["levels"]
+    if not len(ref) == len(atomic_canon) == len(turbo_canon):
+        raise AssertionError(f"level counts {len(ref)}, {len(atomic_canon)}"
+                             f", {len(turbo_canon)}")
+    bad, counts = [], []
+    for i, (r, a, t) in enumerate(zip(ref, atomic_canon, turbo_canon)):
+        (na, ha), (nt, ht) = _level_stats(a), _level_stats(t)
+        apart = int((a != t).sum())
+        counts.append(nt)
+        if ha != r["sha256"] or ht != r["sha256"] or apart:
+            bad.append(i)
+            print(f"  level {i} differs: components reference "
+                  f"{r['components']}, atomic {na}, turbo {nt}; sha256 "
+                  f"equal to the reference's: atomic {ha == r['sha256']}, "
+                  f"turbo {ht == r['sha256']}; atomic and turbo {apart} "
+                  "pixels apart", flush=True)
+    print(f"check levels: {len(ref)} levels of {TURBO_HIERARCHY} and "
+          f"1080p_atomic_hierarchy, {len(ref) - len(bad)} equal to the "
+          f"committed reference levels "
+          f"(gseg_tpu_torch/oracles/{LEVEL_ORACLE}.json) and to each other;"
+          f" components per level {counts}", flush=True)
+    if bad:
+        raise AssertionError(f"hierarchy levels {bad} differ")
+    return counts
+
+
+def _new_paths(images, card):
+    """The atomic path, its hierarchy and the turbo hierarchy at 1080p,
+    each with the launch counts set to 0 just before it and read just
+    after. Returns name -> record."""
+    P = PATHS["1080p_subsum"]
+    image = images[P.h, P.w]
+    out = {}
+    out["1080p_atomic"], _ = _atomic_path("1080p_atomic", image, card)
+    out["1080p_atomic_hierarchy"], a_canon = _atomic_path(
+        "1080p_atomic_hierarchy", image, card)
+    out[TURBO_HIERARCHY], t_canon = _turbo_hierarchy_path(image, card)
+    counts = _check_levels(a_canon, t_canon)
+    for p in ("1080p_atomic_hierarchy", TURBO_HIERARCHY):
+        out[p]["level_components"] = counts
+    return out
+
+
 # per-kernel keys of the kernels line beyond the contract's, where measured
 _EXTRA_KEYS = ("library_device_ms", "device_ms_rows", "device_ms_cols",
                "device_ms_fill", "device_ms_bulk", "device_ms_regs", "ms_regs",
                "device_ms_bulk_cold", "device_ms_ungated", "tile_share_call",
-               "steps_per_tile_call", "pass_fit_ms")
+               "steps_per_tile_call", "pass_fit_ms", "pairs", "cap",
+               "fill_bytes")
 _KEYS_8K = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "max_abs_err")
 
@@ -1349,6 +1639,7 @@ def main() -> None:
     _build_all()
 
     errs = _random_checks(dev)
+    errs["run_extract"] = max(errs["run_extract"], _runs_checks(dev))
     for name, err in _serpentine_check(dev, card).items():
         errs[name] = max(errs[name], err)
     pad_errs, timed8k = _pad_checks(dev, card)
@@ -1357,7 +1648,7 @@ def main() -> None:
     print(f"random and serpentine checks done at "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    images, timed, runs = {}, {}, {}
+    images, timed, runs, runs_planes = {}, {}, {}, {}
     warm = kg.WARM_PASSES
     for path, P in PATHS.items():
         if (P.h, P.w) not in images:
@@ -1381,8 +1672,6 @@ def main() -> None:
                            for c, f in CLOSURE_OF.items()}
             elif path == "4k_wb16":
                 to_time = _padded_closure_fields(fields)
-            elif path == "1080p_runs":
-                to_time = {"run_extract": fields["run_extract"]}
             else:
                 to_time = {}
             for name in [n for n in STEP if n in fields]:
@@ -1403,6 +1692,26 @@ def main() -> None:
             timed[path] = _time_kernels(
                 to_time, f"{path} main-path fields", card,
                 plain_reps=3 if path in ("1080p_subsum",) else 1)
+            if path in ("1080p_runs", "4k_subsum"):
+                # run_extract on each peel round's label plane: the runs
+                # path's calls, and the 4K default path's round labels
+                # (the same planes the runs peel would give it at 4K)
+                planes = ([a[0] for a in _record_calls(
+                    image, _cfg(path), "run_extract")] if path == "1080p_runs"
+                    else _record_calls(image, _cfg(path), "gossip_labeldist",
+                                       outputs=True))
+                for i, L in enumerate(planes):
+                    cap = max(L.numel() // 2, 1024)
+                    rec = _time_kernels(
+                        {"run_extract": ((L, cap), {})},
+                        f"{path} peel round {i + 1} label plane", card, 1)
+                    rec = runs_planes[f"{path}_round{i + 1}"] = rec[
+                        "run_extract"]
+                    errs["run_extract"] = max(errs["run_extract"],
+                                              rec["max_abs_err"])
+                if path == "1080p_runs":
+                    timed[path]["run_extract"] = runs_planes[
+                        "1080p_runs_round1"]
             for name, rec in timed[path].items():
                 errs[name] = max(errs[name], rec["max_abs_err"])
             runs[path] = _run_path(path, image, card)
@@ -1414,6 +1723,8 @@ def main() -> None:
               flush=True)
     P = PATHS["1080p_subsum"]
     ab = _peel_ab(images[P.h, P.w], card)
+    runs |= _new_paths(images, card)
+    print(f"new paths done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
                                    for m in sys.modules):
@@ -1425,13 +1736,14 @@ def main() -> None:
     shares = {}
     for name in STEP:
         by = [r["active_by_kernel"][name] for r in runs.values()
-              if name in r["active_by_kernel"]]
+              if name in r.get("active_by_kernel", {})]
         shares[name] = (sum(b["computed_first_full"] for b in by)
                         / sum(b["launched"] for b in by))
     for name in KERNELS:
         rec = timed[timed_on.get(name, "1080p_subsum")][name]
-        rec4k = timed["4k_wb16" if name in CLOSURES
-                      else "4k_subsum"].get(name, {})
+        rec4k = (runs_planes["4k_subsum_round1"] if name == "run_extract"
+                 else timed["4k_wb16" if name in CLOSURES
+                            else "4k_subsum"].get(name, {}))
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name].source,
             "replaces": KERNELS[name].replaces,
@@ -1449,6 +1761,11 @@ def main() -> None:
             | {k: rec[k] for k in _EXTRA_KEYS if k in rec}
             | {f"{k}_4k": rec4k[k] for k in _EXTRA_KEYS if k in rec4k}
             | ({"active_tile_share": shares[name]} if name in STEP else {})
+            | ({"label_planes": {p: {k: r[k] for k in _KEYS_8K + (
+                "library_device_ms", "bound_by", "device_ms_rows",
+                "device_ms_fill", "pairs", "cap", "fill_bytes")}
+                for p, r in runs_planes.items()}}
+               if name == "run_extract" else {})
             | {f"{k}_8k": v for k, v in timed8k.get(name, {}).items()
                if k in _EXTRA_KEYS + _KEYS_8K})
     print("paths: " + json.dumps(

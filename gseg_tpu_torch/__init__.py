@@ -1,22 +1,31 @@
 """gseg_tpu_torch — the PyTorch/CUDA port of `gseg_tpu`.
 
 A second package beside the JAX reference, for NVIDIA Hopper (H100). It
-imports torch and never jax. It ports the turbo path, in speed mode
-(`weight_buckets=0`) and in quality mode (`weight_buckets > 0`, the
-weight-quantile bucket ramp): smoothing and edge weights, the stage-G
-gossip rounds, the boundary-edge handoff, the stage-2 compact rounds and
-the final map, with hand-written CUDA kernels (built from `csrc/` on first
-use) for the step fixpoints, the scan closures, the boundary extraction,
-the row-run extraction and the wide-image padding. The NumPy Boruvka
-oracle is ported (`models.boruvka_cpu`, with committed oracle partitions
-in `oracles/`), but `segment()` does not dispatch to it; the atomic,
-fastmst and superpixel algorithms are not ported yet.
+imports torch and never jax. It ports:
+
+  - the turbo path, in speed mode (`weight_buckets=0`) and in quality mode
+    (`weight_buckets > 0`, the weight-quantile bucket ramp): smoothing and
+    edge weights, the stage-G gossip rounds, the boundary-edge handoff, the
+    stage-2 compact rounds and the final map, with hand-written CUDA
+    kernels (built from `csrc/` on first use) for the step fixpoints, the
+    scan closures, the boundary extraction, the row-run extraction and the
+    wide-image padding; and its hierarchy (`segment_hierarchy`);
+  - the atomic path (`models.atomic_boruvka`: scatter-min Boruvka rounds in
+    plain torch ops on the device, as in the reference, which has no Pallas
+    kernel there), with its hierarchy;
+  - the NumPy oracles `models.boruvka_cpu`, `models.felzenszwalb_cpu` and
+    `models.fastmst_np` (committed oracle data in `oracles/`).
+The fastmst and superpixel algorithms and the native Kruskal baseline are
+not ported yet.
 
 Public API:
     segment(image, sigma=.8, k=300, min_size=100, algorithm="turbo",
-            device=None) -> (H, W) int32 label tensor, on cuda:0 unless
-            device="cpu" is given
+            device=None) -> (H, W) int32 label tensor
+    segment_hierarchy(...) -> (levels (L, H, W), labels (H, W))
     SegmentationConfig
+Both run on cuda:0 unless device="cpu" is given. The default algorithm is
+"turbo", where the reference's is "atomic": the port's default path is the
+one that runs its hand-written kernels.
 """
 
 from __future__ import annotations
@@ -26,34 +35,130 @@ import torch
 
 from .config import ALGORITHMS, SegmentationConfig
 
-__all__ = ["ALGORITHMS", "SegmentationConfig", "segment"]
+__all__ = ["ALGORITHMS", "SegmentationConfig", "segment",
+           "segment_hierarchy"]
+
+# ROADMAP.md items of the algorithms that are not ported yet.
+_NOT_PORTED = {
+    "fastmst": "queue 1, item 6",
+    "superpixel": "queue 1, item 6",
+    "kruskal_native": "queue 1, item 7",
+}
+
+# Paths that honor cfg.weight_buckets (the quality-mode bucket ramp); every
+# other algorithm would silently ignore it.
+_BUCKET_AWARE = ("turbo", "boruvka_cpu")
+
+
+def _check_weight_buckets(cfg: SegmentationConfig, route: str) -> None:
+    # the Kruskal paths already take the edges in sorted weight order, so
+    # the ramp changes nothing there.
+    kruskal = ("kruskal_cpu", "kruskal_native")
+    if cfg.weight_buckets > 0 and route not in _BUCKET_AWARE + kruskal:
+        raise ValueError(
+            f"weight_buckets={cfg.weight_buckets} is only honored by "
+            f"{_BUCKET_AWARE}; the {route!r} path would silently ignore it "
+            "and produce a different partition. Use weight_buckets=0 or "
+            "algorithm='turbo'."
+        )
+
+
+def _config(config, hierarchy=False, **kw) -> SegmentationConfig:
+    cfg = config or SegmentationConfig(**kw)
+    _check_weight_buckets(cfg, cfg.algorithm)
+    # kruskal_native has no hierarchy mode in the reference either
+    if cfg.algorithm in _NOT_PORTED and not (
+            hierarchy and cfg.algorithm == "kruskal_native"):
+        raise NotImplementedError(
+            f"algorithm {cfg.algorithm!r} is not ported yet (ROADMAP.md, "
+            f"{_NOT_PORTED[cfg.algorithm]})")
+    return cfg
+
+
+def _device(device):
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "gseg_tpu_torch runs on the GPU by default and no CUDA device "
+            "is available; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", 0)
+
+
+def _image_on(image, device) -> torch.Tensor:
+    if not isinstance(image, torch.Tensor):
+        image = torch.as_tensor(np.asarray(image))
+    return image.to(device)
+
+
+def _host_image(image) -> np.ndarray:
+    if isinstance(image, torch.Tensor):
+        return image.cpu().numpy()
+    return np.asarray(image)
 
 
 def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="turbo",
             config: SegmentationConfig | None = None, device=None):
     """Segment an (H, W, 3) image (NumPy array or tensor); returns (H, W)
-    int32 canonical labels (min member pixel id) on `device`. Quality
-    mode: pass a `config` with `weight_buckets > 0` (16 is the reference's
-    quality setting).
+    int32 labels on `device`: canonical min-pixel ids on the turbo route,
+    root vertex ids on the others, as in the reference (compare partitions
+    with `utils.labels.canonical_min_labels_np`). Quality mode: pass a
+    `config` with `weight_buckets > 0` (turbo and boruvka_cpu only).
 
     device: default cuda:0, whatever device the image is on; without a
     CUDA device this raises RuntimeError. Pass device="cpu" to run on the
-    CPU (the kernels' plain PyTorch versions)."""
-    from .models import turbo
+    CPU (the kernels' plain PyTorch versions). The boruvka_cpu and
+    kruskal_cpu oracles run on the host and return their labels on
+    `device`."""
+    cfg = _config(config, sigma=sigma, k=k, min_size=min_size,
+                  algorithm=algorithm)
+    device = _device(device)
+    if cfg.algorithm == "turbo":
+        from .models.turbo import segment_turbo
 
-    cfg = config or SegmentationConfig(
-        sigma=sigma, k=k, min_size=min_size, algorithm=algorithm)
-    if cfg.algorithm != "turbo":
-        raise NotImplementedError(
-            f"algorithm {cfg.algorithm!r} is not ported yet (ROADMAP.md, "
-            "queue 1, items 9-10)")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "gseg_tpu_torch.segment runs on the GPU by default and no "
-                "CUDA device is available; pass device=\"cpu\" to run on "
-                "the CPU")
-        device = torch.device("cuda", 0)
-    if not isinstance(image, torch.Tensor):
-        image = torch.as_tensor(np.asarray(image))
-    return turbo.segment_turbo(image.to(device), cfg)
+        return segment_turbo(_image_on(image, device), cfg)
+    if cfg.algorithm in ("atomic", "atomic_hostsync"):
+        from .models import atomic_boruvka
+
+        fn = (atomic_boruvka.segment_atomic if cfg.algorithm == "atomic"
+              else atomic_boruvka.segment_atomic_hostsync)
+        return fn(_image_on(image, device), cfg)
+    if cfg.algorithm == "boruvka_cpu":
+        from .models.boruvka_cpu import segment_boruvka_np
+
+        labels = segment_boruvka_np(_host_image(image), cfg)
+    elif cfg.algorithm == "kruskal_cpu":
+        from .models.felzenszwalb_cpu import segment_kruskal_np
+
+        labels = segment_kruskal_np(_host_image(image), cfg)
+    else:
+        raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
+    return torch.from_numpy(labels).to(device)
+
+
+def segment_hierarchy(image, sigma=0.8, k=300.0, min_size=100,
+                      algorithm="turbo",
+                      config: SegmentationConfig | None = None, device=None):
+    """Segment and return the per-round hierarchy: (levels, labels),
+    levels (L, H, W) int32 one label map per Boruvka round (the
+    reference's segmentation-hierarchy output), labels (H, W) the final
+    map after the min-size rounds, both on `device` (as `segment`)."""
+    cfg = _config(config, hierarchy=True, sigma=sigma, k=k,
+                  min_size=min_size, algorithm=algorithm)
+    device = _device(device)
+    if cfg.algorithm == "turbo":
+        from .models.turbo import segment_turbo_hierarchy
+
+        return segment_turbo_hierarchy(_image_on(image, device), cfg)
+    if cfg.algorithm in ("atomic", "atomic_hostsync"):
+        from .models.atomic_boruvka import segment_atomic_hierarchy
+
+        return segment_atomic_hierarchy(_image_on(image, device), cfg)
+    if cfg.algorithm == "boruvka_cpu":
+        from .models.boruvka_cpu import segment_boruvka_np
+
+        labels, levels = segment_boruvka_np(_host_image(image), cfg,
+                                            return_levels=True)
+        return (torch.from_numpy(levels).to(device),
+                torch.from_numpy(labels).to(device))
+    raise ValueError(f"no hierarchy mode for algorithm {cfg.algorithm!r}")

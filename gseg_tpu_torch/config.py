@@ -3,8 +3,9 @@
 The same frozen dataclass with the same fields and validation, so a
 reference configuration converts with
 `SegmentationConfig(**dataclasses.asdict(reference_cfg))`. One default
-differs: `algorithm` is "turbo", the port's only algorithm so far (the
-reference's is "atomic"), as `gseg_tpu_torch.segment` defaults to it.
+differs: `algorithm` is "turbo" (the reference's is "atomic"), as
+`gseg_tpu_torch.segment` defaults to it: the port's default path is the
+one that runs its hand-written kernels.
 """
 
 from __future__ import annotations
@@ -13,15 +14,15 @@ import dataclasses
 
 
 ALGORITHMS = (
-    "turbo",            # staged gossip + compact-graph path (ported)
-    "atomic",           # scatter-min Boruvka-Felzenszwalb (not ported yet)
-    "atomic_hostsync",  # same, host-synced convergence flag (not ported yet)
+    "turbo",            # staged gossip + compact-graph path (ported; the
+                        # port's default)
+    "atomic",           # scatter-min Boruvka-Felzenszwalb (ported)
+    "atomic_hostsync",  # same, host-synced convergence flag (ported: the
+                        # same host loop as "atomic")
     "fastmst",          # DPP/FastMST path (not ported yet)
     "superpixel",       # superpixel hierarchy (not ported yet)
-    "kruskal_cpu",      # sequential Felzenszwalb oracle (not ported yet)
-    "boruvka_cpu",      # sequential Boruvka oracle: ported as
-                        # models.boruvka_cpu; segment() does not dispatch
-                        # to it yet
+    "kruskal_cpu",      # sequential Felzenszwalb oracle (ported, NumPy)
+    "boruvka_cpu",      # sequential Boruvka oracle (ported, NumPy)
     "kruskal_native",   # C++ Felzenszwalb baseline (not ported yet)
 )
 

@@ -38,6 +38,13 @@ mode (`weight_buckets > 0`, scan closures on):
   FINAL — each component's final root is placed on its root pixel and
   value-flooded over the stage-G components (`value_flood`).
 
+  HIERARCHY — `segment_turbo_hierarchy` records one label map per felz
+  round: stage-G rounds (count-peel sizes) capture their label plane,
+  stage-2 rounds their compact root map, rendered as the final map is (one
+  value flood per distinct map). Levels stay on the device. Its overflow
+  fallback (the fastmst hierarchy) is not ported yet; `segment_turbo`'s
+  (the atomic path) is.
+
 Every `lax.while_loop` of the reference is a host loop that reads a device
 value each iteration, and every `lax.cond` a host `if`. Capacities are the
 reference's at its default handoff gate (V/128); overflows raise FLAG_* bits
@@ -384,14 +391,18 @@ def _rlist_loop(gcond, gbody, gst, rlist, vid, cap: int):
 
 
 def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
-             weights_override=None):
+             weights_override=None, capture=None):
     """Smoothing + implicit graph + gossip rounds; returns (state, weights,
     thresholds): the bucket caps in quality mode, else None.
 
     weights_override: optional (4, H, W) float32 planes that replace the
     smoothing + edge-weight computation (parity-testing hook: feeding both
     packages the same weights isolates the partition logic from float drift
-    in the filter chain)."""
+    in the filter chain).
+    capture: the hierarchy's stage G (the reference's `_stage_g_capture`):
+    called as capture(round index, labels) after every round; the peel
+    rounds then size by the counting scatter, and the root list gets the
+    hierarchy's capacity."""
     h, w = image.shape[0], image.shape[1]
     v = h * w
     dev = image.device
@@ -427,16 +438,24 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
         merged=True, it=0, bucket=0,
         flags=torch.zeros((), dtype=torch.int32, device=dev))
 
+    def captured(it, s):
+        if capture is not None:
+            capture(it, s.L)
+        return s
+
     # two peel rounds (quality mode: count sizes, closures on).
     while gst.merged and gst.it < 2:
-        gst = advance(gst, _ground(
+        gst = captured(gst.it, advance(gst, _ground(
             gst, w8, eid8, cfg.k, max_sweeps,
-            sizes="count" if quality else _PEEL_SIZES,
-            idle_compmin=gst.it == 0, tau=tau(gst), closures=quality))
+            sizes="count" if quality or capture is not None else _PEEL_SIZES,
+            idle_compmin=gst.it == 0, tau=tau(gst), closures=quality)))
     # quality mode: the bucket ramp merges slowly, so the root list gets
-    # full pixel capacity.
-    rlist, rovf = _build_rlist(gst.L, v if quality
-                               else max(v // 4, _CAP_FLOOR))
+    # full pixel capacity (the hierarchy's: up to 2^20 pixels too).
+    if capture is not None:
+        rcap = v if quality or v <= 1 << 20 else max(v // 2, _CAP_FLOOR)
+    else:
+        rcap = v if quality else max(v // 4, _CAP_FLOOR)
+    rlist, rovf = _build_rlist(gst.L, rcap)
     gst = gst._replace(flags=_raise_flag(gst.flags, rovf, FLAG_COMP_OVERFLOW))
 
     gate_c = v // (_GATE_DIV_Q if quality else _GATE_DIV)
@@ -448,7 +467,7 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
     def gbody(s, rl):
         s2, rl2 = _ground(s, w8, eid8, cfg.k, max_sweeps, rlist=rl,
                           sizes="rlist", tau=tau(s), closures=quality)
-        return advance(s, s2), rl2
+        return captured(s.it, advance(s, s2)), rl2
 
     gst = _rlist_loop(gcond, gbody, gst, rlist, vid,
                       max(v // (16 if quality else 32), _RLIST_FLOOR))
@@ -626,11 +645,14 @@ def _s2_round(st: CompactState, v, comp_cap, k, min_size,
 
 
 def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
-              thresholds, with_minsize: bool, flag_exhaustion: bool = True):
+              thresholds, with_minsize: bool, flag_exhaustion: bool = True,
+              capture=None):
     """Felz rounds to convergence, then (optionally) min-size rounds; the
     phase flips 0 -> 1 when a felz round merges nothing with every bucket
     open. thresholds: the bucket caps (quality mode) or None.
-    flag_exhaustion=False for deliberately round-capped warm-up phases."""
+    flag_exhaustion=False for deliberately round-capped warm-up phases.
+    capture: called with the root map `fin` after each felz round (the
+    hierarchy's levels; min-size rounds refine the last level)."""
     nb = 1 if thresholds is None else thresholds.numel()
     st = st._replace(merged=True, it=0)
     while st.merged and st.it < max_iters:
@@ -642,6 +664,8 @@ def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
             # bucket ramp: the cap rises one bucket per felz round.
             s2 = s2._replace(bucket=min(st.bucket + 1, nb - 1),
                              merged=s2.merged or st.bucket + 1 < nb)
+            if capture is not None:
+                capture(s2.fin)
         if with_minsize and is_felz and not s2.merged:
             s2 = s2._replace(phase=1, merged=True)
         st = s2
@@ -776,6 +800,100 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
 segment_turbo_flagged = segment_turbo_impl
 
 
+# ---------------------------------------------------------------------------
+# Hierarchy mode: a label capture per felz round (the reference's segment-
+# ation-hierarchy output). Stage-G rounds capture the label plane; stage-2
+# rounds capture the compact root map `fin`, rendered as the final map is:
+# the root pixels seeded, then a value flood.
+# ---------------------------------------------------------------------------
+
+
+def segment_turbo_hierarchy_impl(image: torch.Tensor, cfg: SegmentationConfig,
+                                 gossip_rounds: int = 2,
+                                 n_levels: int | None = None):
+    """(H, W, 3) tensor -> (levels, labels, flags): levels (n_levels + 1,
+    H, W) int32 on the image's device, level 0 the trivial partition, level
+    i the partition after felz round i, levels past convergence repeating
+    the last felz partition; labels the final map after the min-size
+    rounds; flags an int FLAG_* mask. Labels are canonical min-vertex ids.
+    n_levels: default cfg.max_iters."""
+    h, w = image.shape[0], image.shape[1]
+    v = h * w
+    if n_levels is None:
+        n_levels = cfg.max_iters
+    quality = cfg.weight_buckets > 0
+    max_sweeps = 4 * (h + w)
+
+    glevels = [None] * n_levels
+
+    def on_round(it, L):
+        glevels[min(it, n_levels - 1)] = L
+
+    gst, weights, thresholds = _stage_g(image, cfg, gossip_rounds,
+                                        capture=on_round)
+    g_count = min(gst.it, n_levels)
+    st, rm, r0 = _extract_stage(gst, weights, cfg)
+
+    comp_cap = v if v <= 1 << 20 else max(v // (24 if quality else 96),
+                                          _CAP_FLOOR)
+    fins, cur = [None] * n_levels, 0
+
+    def on_felz(fin):
+        nonlocal cur
+        fins[min(cur, n_levels - 1)] = fin
+        cur += 1
+
+    st = _s2_phase(st, v, comp_cap, cfg.k, cfg.min_size, 2 if quality else 1,
+                   thresholds, with_minsize=False, flag_exhaustion=False,
+                   capture=on_felz)
+    st, rec_ovf = _recompact_edges(
+        st, max(v // (16 if quality else 64), _CAP_FLOOR))
+    st = st._replace(flags=_raise_flag(st.flags, rec_ovf,
+                                       FLAG_RECOMPACT_OVERFLOW))
+    st = _s2_phase(st, v, comp_cap, cfg.k, cfg.min_size,
+                   2 * cfg.max_iters + max(cfg.weight_buckets, 1),
+                   thresholds, with_minsize=cfg.min_size > 1,
+                   capture=on_felz)
+    # unwritten slots repeat the last captured felz root map (the warm-up
+    # phase always runs a felz round, so one was captured).
+    last = fins[min(cur, n_levels) - 1]
+    fins = [f if i < cur else last for i, f in enumerate(fins)]
+
+    vid2d = torch.arange(v, dtype=torch.int32,
+                         device=gst.L.device).reshape(h, w)
+    seed_base = torch.where(gst.L == vid2d, gst.L, INT32_MAX).reshape(-1)
+    rendered = {}  # a root map repeated past convergence renders once
+
+    def render_fin(fin):
+        if id(fin) not in rendered:
+            seed = _scatter(seed_base, r0, fin)  # r0 holds v where ~rm
+            rendered[id(fin)] = kg.value_flood(gst.L, seed.reshape(h, w),
+                                               max_sweeps, closures=quality)
+        return rendered[id(fin)]
+
+    levels = torch.empty((n_levels + 1, h, w), dtype=torch.int32,
+                         device=gst.L.device)
+    levels[0] = vid2d
+    unconv = False
+    for j in range(n_levels):
+        if j < g_count:
+            levels[j + 1] = glevels[j]
+        else:
+            lab, lv_unconv = render_fin(fins[min(j - g_count, n_levels - 1)])
+            levels[j + 1] = lab
+            unconv = unconv or lv_unconv
+    # the reference's final map here takes the hybrid route in speed mode
+    # too; the results are the same either way.
+    labels, fm_unconv = _final_map(gst, st, rm, r0, max_sweeps,
+                                   closures=True)
+    flags = _raise_flag(st.flags, unconv or fm_unconv,
+                        FLAG_GOSSIP_UNCONVERGED)
+    return levels, labels, int(flags)
+
+
+segment_turbo_hierarchy_flagged = segment_turbo_hierarchy_impl
+
+
 def describe_flags(flags: int) -> str:
     names = {
         FLAG_GOSSIP_UNCONVERGED: "gossip sweep cap exhausted",
@@ -788,22 +906,44 @@ def describe_flags(flags: int) -> str:
     return "; ".join(hits) if hits else "ok"
 
 
+def segment_turbo_hierarchy(image: torch.Tensor, cfg: SegmentationConfig,
+                            gossip_rounds: int = 2):
+    """Checked hierarchy entry: (H, W, 3) -> (levels (L + 1, H, W), labels).
+
+    On a nonzero flag mask: per cfg.on_overflow this raises RuntimeError
+    ("raise"), returns anyway ("ignore"), or would route to the fastmst
+    hierarchy ("fallback", which raises NotImplementedError until fastmst
+    is ported)."""
+    levels, labels, flags = segment_turbo_hierarchy_flagged(
+        image, cfg, gossip_rounds)
+    if flags == 0 or cfg.on_overflow == "ignore":
+        return levels, labels
+    msg = f"turbo capacity/budget violation: {describe_flags(flags)}"
+    if cfg.on_overflow == "fallback":
+        raise NotImplementedError(
+            msg + " — the fastmst hierarchy fallback is not ported yet "
+            "(ROADMAP.md, queue 1, item 6)")
+    raise RuntimeError(
+        msg + " — rerun with SegmentationConfig(on_overflow='fallback'), "
+        "or use a larger-capacity config")
+
+
 def segment_turbo(image: torch.Tensor, cfg: SegmentationConfig,
                   gossip_rounds: int = 2) -> torch.Tensor:
     """Checked turbo entry: (H, W, 3) -> (H, W) int32 labels.
 
     On a nonzero flag mask the result is not a valid segmentation: per
     cfg.on_overflow this raises RuntimeError ("raise"), returns anyway
-    ("ignore"), or would route to the atomic path ("fallback", which
-    raises NotImplementedError until that path is ported)."""
+    ("ignore"), or falls back to the capacity-unbounded atomic path
+    ("fallback", whose labels are root vertex ids)."""
     labels, flags = segment_turbo_flagged(image, cfg, gossip_rounds)
     if flags == 0 or cfg.on_overflow == "ignore":
         return labels
-    msg = f"turbo capacity/budget violation: {describe_flags(flags)}"
     if cfg.on_overflow == "fallback":
-        raise NotImplementedError(
-            msg + " — the atomic fallback path is not ported yet "
-            "(ROADMAP.md, queue 1, item 9)")
+        from .atomic_boruvka import segment_atomic
+
+        return segment_atomic(image, cfg)
     raise RuntimeError(
-        msg + " — use a larger-capacity config (the atomic fallback is "
-        "not ported yet)")
+        f"turbo capacity/budget violation: {describe_flags(flags)} — rerun "
+        "with SegmentationConfig(on_overflow='fallback') to route to the "
+        "atomic path, or use a larger-capacity config")

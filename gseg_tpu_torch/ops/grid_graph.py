@@ -20,6 +20,11 @@ DIRS8 = DIRS4 + tuple((-dy, -dx) for dy, dx in DIRS4)
 INT32_MAX = int(np.iinfo(np.int32).max)
 
 
+def flat_offsets(width: int) -> tuple[int, int, int, int]:
+    """Flat-index offset of the second endpoint per canonical direction."""
+    return tuple(dy * width + dx for dy, dx in DIRS4)
+
+
 def shift_plane(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
     """out[y, x] = x[y+dy, x+dx] where in-bounds, else `fill` (leading two
     axes are the image axes)."""
@@ -106,3 +111,31 @@ def incident_views(weights: torch.Tensor):
         eid8.append(torch.where(torch.isfinite(wt), anchor * 4 + d,
                                 INT32_MAX))
     return torch.stack(w8), torch.stack(eid8)
+
+
+def edge_endpoints(eid: torch.Tensor, width: int):
+    """Decode canonical edge ids into (endpoint_a, endpoint_b) flat int32
+    indices. Invalid ids (INT32_MAX) decode to in-range dummies; callers
+    mask on validity themselves."""
+    offs = torch.tensor(flat_offsets(width), dtype=torch.int32,
+                        device=eid.device)
+    safe = torch.where(eid == INT32_MAX, 0, eid)
+    a = torch.div(safe, 4, rounding_mode="floor")
+    d = safe - 4 * a
+    return a, a + offs[d.to(torch.int64)]
+
+
+def edge_list(weights: torch.Tensor, valid: torch.Tensor):
+    """The static-size edge list: (src, dst, w, valid_flat), each (4*H*W,),
+    where edge i has canonical id i (src*4 + d). Invalid slots get w = +inf
+    and src = dst = 0."""
+    _, h, w = weights.shape
+    vid = torch.arange(h * w, dtype=torch.int32,
+                       device=weights.device).reshape(h, w)
+    offs = flat_offsets(w)
+    src = torch.stack([torch.where(valid[d], vid, 0) for d in range(4)], -1)
+    dst = torch.stack([torch.where(valid[d], vid + offs[d], 0)
+                       for d in range(4)], -1)
+    return (src.reshape(-1), dst.reshape(-1),
+            torch.stack([weights[d] for d in range(4)], -1).reshape(-1),
+            torch.stack([valid[d] for d in range(4)], -1).reshape(-1))

@@ -2,8 +2,10 @@
 
 Port of `gseg_tpu/ops/pallas/extract.py:run_extract`, with:
 
-  - the kernel: `csrc/runs.cu` (run tails walk to their heads and claim
-    output slots with one atomic counter);
+  - the kernel: `csrc/runs.cu` (one block per image row: a max-scan of
+    head positions gives each run's length at its tail, a block claims the
+    slots of a tile's pairs with one atomic and writes them coalesced; the
+    same C entry then writes the sentinels past the count);
   - the plain PyTorch version: run tails from a row-wise comparison, run
     heads from a row-wise `cummax` of head positions.
 
@@ -22,6 +24,7 @@ counts.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -57,11 +60,13 @@ def run_extract_plain(L, cap: int):
 
 
 def _kernel():
-    fn = _build.load("runs").gseg_run_extract
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _build.load("runs")
+    fn = lib.gseg_run_extract
+    if not getattr(lib, "gseg_bound", False):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int] + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
+        lib.gseg_bound = True
     return fn
 
 
@@ -78,15 +83,19 @@ def run_extract(L, cap: int):
     if not L.is_contiguous():
         raise ValueError("run_extract: the kernel takes a contiguous plane")
     h, w = L.shape
-    lab, cnt = _empty_pool(cap, L.device)
-    count = torch.zeros((), dtype=torch.int32, device=L.device)
-    fn = _kernel()
-    with torch.cuda.device(L.device):
-        err = fn(L.data_ptr(), h, w, cap, lab.data_ptr(), cnt.data_ptr(),
-                 count.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    # one allocation: the two pools, then the count and overflow words,
+    # all written by the kernel's C entry.
+    buf = torch.empty(2 * cap + 2, dtype=torch.int32, device=L.device)
+    dev = L.get_device()
+    with (contextlib.nullcontext() if dev == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        err = _kernel()(L.data_ptr(), h, w, cap, buf.data_ptr(),
+                        buf[cap:].data_ptr(), buf[2 * cap:].data_ptr(),
+                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gseg_run_extract")
     _WRAPPER.launches += 1
-    return lab, cnt, count, count > cap
+    overflow = buf[2 * cap + 1:].view(torch.uint8)[0].view(torch.bool)
+    return buf[:cap], buf[cap:2 * cap], buf[2 * cap], overflow
 
 
 # the launch count lives on the wrapper object (bound here, so a caller that

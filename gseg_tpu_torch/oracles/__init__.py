@@ -8,10 +8,19 @@ min_size 100, max_iters 32, `blobs_image(h, w, max(8, h * w // 65536), 8.0,
 
 Remake the committed files (about 75 s each at 4K on one CPU core):
     python -m gseg_tpu_torch.oracles
+
+Level oracles hold, for each level of a segmentation hierarchy, the
+component count and the sha256 of the canonical map (int32, C order), as
+JSON. They come from the reference's own turbo and atomic hierarchies, run
+with jax on the CPU with the filter chain op by op, bit-equal to the NumPy
+spec's and the port's weights (`tests/make_level_oracles.py` remakes
+them; under jit the reference's weights drift in the last bits and its
+early levels differ, PERF.md §7).
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -20,6 +29,28 @@ import numpy as np
 ORACLES = {
     "blobs_2160x3840_wb16": (2160, 3840, 16),
 }
+
+
+# name -> the hierarchy run it records
+LEVEL_ORACLES = {
+    "levels_blobs_1080x1920_wb0": {
+        "image": (1080, 1920, 31),  # blobs_image(h, w, blobs, 8.0, 0)
+        "config": dict(sigma=0.8, k=300.0, min_size=100, max_iters=32),
+        "gossip_rounds": 2,
+        "oracle": "bench_out/oracle_bench_1080x1920_wb0.npy",
+    },
+}
+
+
+def level_oracle_path(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        f"{name}.json")
+
+
+def load_level_oracle(name: str) -> dict:
+    """{"levels": [{"components", "sha256"}, ...], "final": {...}, ...}"""
+    with open(level_oracle_path(name)) as f:
+        return json.load(f)
 
 
 def oracle_path(name: str) -> str:

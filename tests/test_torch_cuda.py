@@ -462,6 +462,85 @@ def test_run_extract_kernel_equals_plain(dev, shape):
     assert kr.run_extract.launches == n0 + 2
 
 
+def _run_pool(res):
+    """(sorted pairs below the count, count, overflow) of a run pool; the
+    slots past the count must hold the sentinels."""
+    lab, cnt, count, ovf = (x.cpu() for x in res)
+    n = min(int(count), lab.numel())
+    if not bool(ovf):
+        assert bool((lab[n:] == kr.INT32_MAX).all())
+        assert bool((cnt[n:] == 0).all())
+    k = torch.stack([lab[:n], cnt[:n]], 1).numpy()
+    return k[np.lexsort(k.T[::-1])], int(count), bool(ovf)
+
+
+@pytest.mark.parametrize("w", [1, 2, 31, 32, 33, 255, 256, 257, 1920, 2047,
+                               2048, 2049, 3840])
+@pytest.mark.parametrize("kind", ["one-run rows", "alternating",
+                                  "identity"])
+def test_run_extract_widths_and_caps(dev, w, kind):
+    """Rows of one run, of runs of one pixel, and the identity labeling
+    (every pixel a run of its own label), at widths across a warp, a block
+    and a tile of csrc/runs.cu, at caps 0, 1, count - 1 and count: equal
+    to the plain version as sorted multisets with the exact count; at
+    overflow, every slot filled with pairs of the plane."""
+    h = 7
+    if kind == "one-run rows":
+        L = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(
+            h, w).contiguous()
+    elif kind == "alternating":
+        L = (torch.arange(h * w, device=dev).reshape(h, w) % 2).int()
+    else:
+        L = torch.arange(h * w, dtype=torch.int32, device=dev).reshape(h, w)
+    count = int(kr.run_extract_plain(L, h * w)[2])
+    full = _run_pool(kr.run_extract_plain(L, h * w))[0]
+    for cap in sorted({0, 1, max(count - 1, 0), count}):
+        n0 = kr.run_extract.launches
+        got = _run_pool(kr.run_extract(L, cap))
+        ref = _run_pool(kr.run_extract_plain(L, cap))
+        assert kr.run_extract.launches == n0 + 1
+        assert got[1:] == ref[1:] == (count, count > cap)
+        if count <= cap:
+            assert np.array_equal(got[0], ref[0])
+        else:
+            assert len(got[0]) == cap
+            have = {tuple(p) for p in full.tolist()}
+            assert all(tuple(p) in have for p in got[0].tolist())
+
+
+def test_segment_atomic_on_card_equals_cpu(dev):
+    """The atomic path on the card gives the CPU run's root ids at 96x128,
+    and launches none of the kernels."""
+    from gseg_tpu_torch.models import atomic_boruvka
+
+    cfg = SegmentationConfig(k=200.0, min_size=20, algorithm="atomic")
+    img = torch.from_numpy(blobs_image(96, 128, 6, 6.0, 11))
+    n0 = (kg.compmin_gossip.launches, kx.boundary_extract.launches,
+          kr.run_extract.launches)
+    got = atomic_boruvka.segment_atomic(img.to(dev), cfg)
+    assert got.device.type == "cuda"
+    assert n0 == (kg.compmin_gossip.launches, kx.boundary_extract.launches,
+                  kr.run_extract.launches)
+    assert torch.equal(got.cpu(), atomic_boruvka.segment_atomic(img, cfg))
+    levels, labels = gseg_tpu_torch.segment_hierarchy(img, config=cfg)
+    cpu_levels, cpu_labels = atomic_boruvka.segment_atomic_hierarchy(img, cfg)
+    assert torch.equal(levels.cpu(), cpu_levels)
+    assert torch.equal(labels.cpu(), cpu_labels)
+
+
+def test_turbo_hierarchy_on_card_equals_cpu(dev):
+    """The turbo hierarchy on the card gives the CPU run's levels, labels
+    and flags at the multi-tile 96x56 shape."""
+    cfg = SegmentationConfig(k=200.0, min_size=20)
+    img = torch.from_numpy(blobs_image(96, 56, 6, 6.0, 11))
+    cpu = turbo.segment_turbo_hierarchy_flagged(img, cfg)
+    got = turbo.segment_turbo_hierarchy_flagged(img.to(dev), cfg)
+    assert got[0].device.type == "cuda"
+    assert got[2] == cpu[2] == 0
+    assert torch.equal(got[0].cpu(), cpu[0])
+    assert torch.equal(got[1].cpu(), cpu[1])
+
+
 @pytest.mark.parametrize("case", [
     dict(h=48, w=64, k=30.0, min_size=10, wb=16, seed=1, warm=None),
     dict(h=48, w=64, k=30.0, min_size=10, wb=8, seed=1, warm=0),

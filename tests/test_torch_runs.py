@@ -1,5 +1,9 @@
 """PyTorch port's row-run extraction and the `runs` peel vs references.
 
+- A NumPy mirror of the CUDA kernel's decomposition (tiles, per-thread
+  pixels, warp scans of run heads and tail counts, the carry across
+  tiles, one slot claim per block and tile, the fill past the count)
+  against `run_extract_plain`, slot for slot, at every cap.
 - `run_extract_plain` against an independent NumPy run scan (the pool as a
   sorted multiset, the exact count, the overflow flag) and against the
   reference's `run_extract` in Mosaic's TPU interpret mode (sums by label
@@ -155,3 +159,98 @@ def test_runs_peel_matches_default_peel(monkeypatch, seed):
     assert outs["runs"][1] == outs["subsum"][1] == outs["count"][1] == 0
     assert np.array_equal(outs["runs"][0], outs["subsum"][0])
     assert np.array_equal(outs["runs"][0], outs["count"][0])
+
+
+def _kernel_mirror(L, cap, threads, k, lanes):
+    """The decomposition of csrc/runs.cu in NumPy, at a small block: one
+    block per row in row order, tiles of threads * k pixels, k consecutive
+    pixels per thread, warps of `lanes` threads. Per tile: each thread's
+    head and tail bits and last head; inclusive warp scans (max of the last
+    heads, sum of the tails), the warps' totals combined across the block;
+    the carry of the previous tiles' last head; the block's slots claimed
+    at once (blocks claim in row order here); pairs staged in row order and
+    written below cap. Returns the pool, the count and overflow, and the
+    sentinel fill past the count."""
+    h, w = L.shape
+    tile = threads * k
+    lab = np.full(cap, -7, np.int64)  # -7: never written
+    cnt = np.full(cap, -7, np.int64)
+    count = 0
+    for y in range(h):
+        row = L[y]
+        carry = 0
+        for x0 in range(0, w, tile):
+            last_head, ntails, staged = [], [], []
+            heads, tails = [], []
+            for t in range(threads):
+                x = x0 + k * t
+                hb, tb = [], []
+                for i in range(k):
+                    p = x + i
+                    hb.append(p < w and (p == 0 or row[p] != row[p - 1]))
+                    tb.append(p < w and (p + 1 == w or row[p] != row[p + 1]))
+                heads.append(hb)
+                tails.append(tb)
+                last_head.append(max([x + i for i in range(k) if hb[i]],
+                                     default=-1))
+                ntails.append(sum(tb))
+            # inclusive scans inside each warp, then across the warps
+            incl_h, incl_n = list(last_head), list(ntails)
+            for t in range(threads):
+                if t % lanes:
+                    incl_h[t] = max(incl_h[t], incl_h[t - 1])
+                    incl_n[t] += incl_n[t - 1]
+            warp_h = [incl_h[min(s + lanes, threads) - 1]
+                      for s in range(0, threads, lanes)]
+            warp_n = [incl_n[min(s + lanes, threads) - 1]
+                      for s in range(0, threads, lanes)]
+            total = sum(warp_n)
+            base, count = count, count + total
+            for t in range(threads):
+                wp, lane = divmod(t, lanes)
+                before = incl_h[t - 1] if lane else -1
+                before = max([before] + warp_h[:wp])
+                off = incl_n[t] - ntails[t] + sum(warp_n[:wp])
+                run_head = max(carry, before)
+                for i in range(k):
+                    if heads[t][i]:
+                        run_head = x0 + k * t + i
+                    if tails[t][i]:
+                        staged.append((off, row[x0 + k * t + i],
+                                       x0 + k * t + i - run_head + 1))
+                        off += 1
+            carry = max([carry] + warp_h)
+            assert sorted(o for o, _, _ in staged) == list(range(total))
+            for off, label, length in staged:
+                if base + off < cap:
+                    lab[base + off], cnt[base + off] = label, length
+    lab[count:] = INT32_MAX  # the fill: only past the count
+    cnt[count:] = 0
+    return lab, cnt, count, count > cap
+
+
+@pytest.mark.parametrize("w", [1, 5, 12, 13, 40])
+@pytest.mark.parametrize("kind", ["equal", "alternating", "random"])
+def test_kernel_decomposition_equals_plain(w, kind):
+    """The mirror of the kernel's tiles, warp scans and carries gives the
+    plain version's pool slot for slot (blocks claiming in row order place
+    pairs in row-major tail order, as the plain version does), at every
+    cap; tiles of 12 pixels (3 threads x 4 or 6 x 2, warps of 2 lanes)
+    make runs cross threads, warps and tiles."""
+    h = 4
+    if kind == "equal":
+        L = np.full((h, w), 3, np.int32)
+    elif kind == "alternating":
+        L = (np.arange(h * w).reshape(h, w) % 2).astype(np.int32)
+    else:
+        L = np.random.default_rng(w).integers(0, 2, (h, w)).astype(np.int32)
+        L[1] = 9  # a row of one run
+    n = len(_np_runs(L))
+    for cap in sorted({0, 1, max(n - 1, 0), n, h * w}):
+        want = [x.numpy() for x in kr.run_extract_plain(torch.from_numpy(L),
+                                                        cap)]
+        for threads, k, lanes in ((3, 4, 2), (6, 2, 2)):
+            lab, cnt, count, ovf = _kernel_mirror(L, cap, threads, k, lanes)
+            assert count == int(want[2]) == n and ovf == bool(want[3])
+            assert np.array_equal(lab, want[0])
+            assert np.array_equal(cnt, want[1])

@@ -130,8 +130,9 @@ def test_extract_large_count_takes_full_dedup(monkeypatch):
 
 def test_capacity_overflow_detected_not_silent():
     """Low-k noise keeps C ~ V into stage 2 and overflows the capacities:
-    the flags say so, the checked entry raises, and the atomic fallback is
-    refused until it is ported."""
+    the flags say so, the checked entry raises, and the fallback returns
+    the atomic path's labels, byte-equal to the reference's fallback (k ~ 0
+    on continuous noise: every pixel stays its own component)."""
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (192, 384, 3)).astype(np.float32)
     cfg = SegmentationConfig(k=1e-3, min_size=1, sigma=0.0)
@@ -140,9 +141,12 @@ def test_capacity_overflow_detected_not_silent():
     assert "capacity" in turbo.describe_flags(flags)
     with pytest.raises(RuntimeError, match="capacity|budget"):
         turbo.segment_turbo(torch.from_numpy(img), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        turbo.segment_turbo(torch.from_numpy(img),
-                            dataclasses.replace(cfg, on_overflow="fallback"))
+    fb = dataclasses.replace(cfg, on_overflow="fallback")
+    got = turbo.segment_turbo(torch.from_numpy(img), fb)
+    want = ref_turbo.segment_turbo(jnp.asarray(img),
+                                   RefConfig(**dataclasses.asdict(fb)))
+    assert np.array_equal(np.asarray(want), got.numpy())
+    assert num_components(got.numpy()) == img.shape[0] * img.shape[1]
     ignored = turbo.segment_turbo(
         torch.from_numpy(img), dataclasses.replace(cfg, on_overflow="ignore"))
     assert ignored.shape == img.shape[:2]
@@ -209,7 +213,12 @@ def test_segment_api():
     assert np.array_equal(labels.numpy(),
                           canonical_min_labels_np(labels.numpy()))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gseg_tpu_torch.segment(img, algorithm="atomic")
+        gseg_tpu_torch.segment(img, algorithm="fastmst", device="cpu")
+    # the atomic path is ported: root vertex ids, the oracle partition.
+    labels = gseg_tpu_torch.segment(img, k=100.0, min_size=8,
+                                    algorithm="atomic", device="cpu")
+    assert np.array_equal(canonical_min_labels_np(labels.numpy()),
+                          _oracle(img, cfg))
     # quality mode is ported: weight_buckets=8 gives the bucketed oracle.
     qcfg = dataclasses.replace(cfg, weight_buckets=8)
     labels = gseg_tpu_torch.segment(img, config=qcfg, device="cpu")
