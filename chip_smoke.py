@@ -5,7 +5,8 @@ arguments). It
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from `gseg_tpu_torch/csrc/` (one nvcc per
-     source, all started together; sm_90a);
+     source, all started together; sm_90a): the TPU kernels' counterparts
+     and the superpixel path's colour-sum helper;
   3. holds every kernel against its plain PyTorch version on the same CUDA
      tensors: random fields at odd multi-tile shapes and at wide shapes
      (w >= 2560: the padded fixpoint route), both closure orientations,
@@ -79,7 +80,26 @@ arguments). It
      image: final labels 0 pixels off the 1080p oracle, every level's
      canonical sha256 equal to the committed level oracle
      (gseg_tpu_torch/oracles/levels_blobs_1080x1920_wb0.json) and the two
-     hierarchies equal level by level; each timed by CUDA-event reps.
+     hierarchies equal level by level; each timed by CUDA-event reps;
+  7. drives the DPP paths (`models.fastmst`, `models.superpixel`) on the
+     same 1080p image, and fastmst on the 4K one: `1080p_fastmst` and
+     `4k_fastmst` (`segment_fastmst_flagged`: flags 0, 0 pixels off the
+     1080p / 4K oracle, at 1080p root ids byte-equal to `segment_atomic`'s
+     and to the level oracle's raw sha256), `1080p_fastmst_hierarchy`
+     (level 0 the identity, levels nested, final labels those of
+     `1080p_fastmst`, every one of its 34 planes equal to the level oracle
+     gseg_tpu_torch/oracles/levels_dpp_blobs_1080x1920.json),
+     `1080p_superpixel` (level 4 equal to the oracle's plane 4) and
+     `1080p_superpixel_hierarchy` (33 planes equal to the oracle, down to
+     one component, two runs bit-equal); each with the launch counts set
+     to 0 just before it and read just after (RECORDED_LAUNCHES: the value
+     flood, pad/unpad at 4K, the colour-sum helper on superpixel), its
+     host reads, peak memory, median ms of CUDA-event reps, the value
+     flood's device ms and the split of round 1, extraction, compact
+     rounds and final map or render; the colour-sum helper
+     (`kernels.scatter.ordered_scatter_add`, `csrc/scatter.cu`) is held
+     against its plain version at the random shapes and timed at the
+     superpixel path's round-1 call.
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -91,6 +111,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -106,7 +127,7 @@ import numpy as np
 import torch
 
 from gseg_tpu_torch.config import SegmentationConfig
-from gseg_tpu_torch.models import atomic_boruvka, turbo
+from gseg_tpu_torch.models import atomic_boruvka, fastmst, superpixel, turbo
 from gseg_tpu_torch.ops import filters
 from gseg_tpu_torch.ops import grid_graph as gg
 from gseg_tpu_torch.ops.kernels import _build
@@ -114,6 +135,7 @@ from gseg_tpu_torch.ops.kernels import extract as kx
 from gseg_tpu_torch.ops.kernels import gossip as kg
 from gseg_tpu_torch.ops.kernels import pad as kp
 from gseg_tpu_torch.ops.kernels import runs as kr
+from gseg_tpu_torch.ops.kernels import scatter as ks
 from gseg_tpu_torch.oracles import (load_level_oracle, load_oracle,
                                     oracle_path)
 from gseg_tpu_torch.utils.labels import canonical_min_labels_np
@@ -188,6 +210,20 @@ TURBO_HIERARCHY = "1080p_turbo_hierarchy"
 LEVEL_ORACLE = "levels_blobs_1080x1920_wb0"
 ALL = set(PATHS) | {TURBO_HIERARCHY}
 SPEED_SUBSUM = {"1080p_subsum", "4k_subsum"}
+# step 7: the DPP paths (gseg_tpu_torch.models.fastmst / superpixel), each
+# with the launch counts set to 0 just before it and read just after.
+DPP_ORACLE = "levels_dpp_blobs_1080x1920"
+FASTMST = ("1080p_fastmst", "4k_fastmst", "1080p_fastmst_hierarchy")
+SUPERPIXEL = ("1080p_superpixel", "1080p_superpixel_hierarchy")
+DPP = set(FASTMST + SUPERPIXEL)
+# the reference CUDA code's total ms on a GTX 1080 Ti (BASELINE.md:53, :55)
+GTX1080TI_MS = {
+    "1080p_fastmst": ("DPP Segment. Hier. at 1080p", 71.1),
+    "1080p_fastmst_hierarchy": ("DPP Segment. Hier. at 1080p", 71.1),
+    "4k_fastmst": ("DPP Segment. Hier. at 4K", 242.2),
+    "1080p_superpixel": ("DPP Superpix. Hier. at 1080p", 75.2),
+    "1080p_superpixel_hierarchy": ("DPP Superpix. Hier. at 1080p", 75.2),
+}
 KERNELS = {
     "gossip_compmin": Kernel(
         kg, "compmin_gossip", kg.compmin_gossip_plain,
@@ -205,7 +241,7 @@ KERNELS = {
     "gossip_value": Kernel(
         kg, "value_flood", kg.value_flood_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_value_step :1120)",
-        ALL, set(), 12, 16, (r"\bfixpoint_pass<.*\bValueOp>",)),
+        ALL | DPP, set(), 12, 16, (r"\bfixpoint_pass<.*\bValueOp>",)),
     "gossip_subsum": Kernel(
         kg, "subtree_sums", kg.subtree_sums_plain,
         "gseg_tpu_torch/csrc/gossip.cu",
@@ -215,13 +251,13 @@ KERNELS = {
         kp, "fast_pad_fields", kp.fast_pad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:703 (_fast_pad_fields, call :781)",
-        {"4k_subsum", "4k_wb16"}, set(), None, 0,
+        {"4k_subsum", "4k_wb16", "4k_fastmst"}, set(), None, 0,
         (r"\bpad_fields_(bulk|regs)\b",)),
     "unpad_fields": Kernel(
         kp, "fast_unpad_fields", kp.fast_unpad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:799 (_fast_unpad_fields, call :826)",
-        {"4k_subsum", "4k_wb16"}, set(), None, 0,
+        {"4k_subsum", "4k_wb16", "4k_fastmst"}, set(), None, 0,
         (r"\bunpad_fields_(bulk|regs)\b",)),
     "boundary_extract": Kernel(
         kx, "boundary_extract", kx.boundary_extract_plain,
@@ -254,6 +290,14 @@ KERNELS = {
         "gseg_tpu/ops/pallas/extract.py:191 (_runs_kernel, via run_extract "
         ":293, call :315)",
         {"1080p_runs"}, set(), None, 4, (r"\bruns_(rows|fill)\b",)),
+    # a helper with no TPU kernel: the superpixel path's colour sums, added
+    # in index order as the reference's XLA scatter adds them
+    "ordered_scatter_add": Kernel(
+        ks, "ordered_scatter_add", ks.ordered_scatter_add_plain,
+        "gseg_tpu_torch/csrc/scatter.cu",
+        "none: a helper for the XLA scatter-adds of "
+        "gseg_tpu/models/superpixel.py:95 and :209",
+        set(SUPERPIXEL), set(), None, 1, (r"\brun_sums\b",)),
 }
 PADS = ("pad_fields", "unpad_fields")
 # the step kernel's wrappers -> their variant in ops/kernels/gossip.py
@@ -296,6 +340,16 @@ RECORDED_LAUNCHES = {
     TURBO_HIERARCHY: ("7b", dict(
         gossip_compmin=16, gossip_labelnd=31, gossip_value=153,
         boundary_extract=1)),
+    # the DPP paths: value floods over round-1 components (2-3 step passes
+    # each, no closure), one per distinct level on the hierarchies; pad and
+    # unpad once for the 4K flood; the colour sums once for round 1 and
+    # once per compact round that merges
+    "1080p_fastmst": ("8a", dict(gossip_value=2)),
+    "4k_fastmst": ("8a", dict(gossip_value=3, pad_fields=1, unpad_fields=1)),
+    "1080p_fastmst_hierarchy": ("8a", dict(gossip_value=24)),
+    "1080p_superpixel": ("8a", dict(gossip_value=3, ordered_scatter_add=4)),
+    "1080p_superpixel_hierarchy": ("8a", dict(gossip_value=30,
+                                              ordered_scatter_add=11)),
 }
 CLOSURES = ("closure_compmin", "closure_labelnd", "closure_value")
 # closure kernel -> the fixpoint whose fields it is checked and timed at
@@ -523,6 +577,8 @@ def _compare(name, args, kwargs=None):
                             _runs_multiset(plain_out, args[1]))
     if name in PADS:
         return _max_abs_err(kernel_out, plain_out)
+    if name == "ordered_scatter_add":
+        return _max_abs_err((kernel_out,), (plain_out,))
     if kernel_out[-1] or plain_out[-1]:
         raise AssertionError(f"{name}: a fixpoint hit its sweep cap")
     return _max_abs_err(kernel_out[:-1], plain_out[:-1])
@@ -568,6 +624,14 @@ def _library_call(name, args):
         L = args[0]
         return lambda: torch.bincount(L.reshape(-1).long(),
                                       minlength=L.numel())
+    if name == "ordered_scatter_add":
+        # index_add_ (atomics, in no fixed order) into a base one row
+        # longer, the dropped targets sent to that row
+        base, idx, vals = args
+        v = base.shape[0]
+        ext = torch.cat([base, base.new_zeros(1, base.shape[1])])
+        safe = torch.where((idx >= 0) & (idx < v), idx, v).long()
+        return lambda: ext.clone().index_add_(0, safe, vals)
     return None
 
 
@@ -588,6 +652,11 @@ def _bound(name, args):
         L, cap = args
         npx = L.numel()
         nbytes = 4 * npx + 8 * min(int(kr.run_extract_plain(L, cap)[2]), cap)
+    elif name == "ordered_scatter_add":
+        base, idx, vals = args  # one add per float of every update
+        npx = vals.numel()
+        nbytes = (idx.element_size() * idx.numel() + 4 * vals.numel()
+                  + 2 * 4 * base.numel())
     else:
         npx = args[0].numel()
         nbytes = k.bytes_px * npx
@@ -652,7 +721,21 @@ def _random_args(h, w, dev, seed):
         "closure_labelnd": (allow, be, bw),
         "closure_value": (L, be),
         "run_extract": (L, h * w),
+        "ordered_scatter_add": _scatter_args(rng, h * w, dev),
     }
+
+
+def _scatter_args(rng, n, dev):
+    """n row updates of 3 floats into n // 4 + 1 slots: a third of them
+    into 1% of the slots (long runs), some dropped (past the end or
+    negative)."""
+    v = n // 4 + 1
+    idx = rng.integers(-2, v + 3, n).astype(np.int32)
+    idx[: n // 3] = rng.integers(0, max(v // 100, 1), n // 3)
+    return (torch.from_numpy(rng.uniform(0, 255, (v, 3)).astype(
+        np.float32)).to(dev), torch.from_numpy(idx).to(dev),
+        torch.from_numpy(rng.uniform(0, 1e4, (n, 3)).astype(
+            np.float32)).to(dev))
 
 
 def _serpentine(h, w, lanes=3, thick=3, margin=100):
@@ -1327,7 +1410,7 @@ def _pad_checks(dev, card):
 
 def _build_all():
     """One nvcc per source, all started together."""
-    srcs = ("gossip", "closure", "extract", "runs", "pad")
+    srcs = ("gossip", "closure", "extract", "runs", "pad", "scatter")
     with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
         futs = {s: pool.submit(_build.load, s, True) for s in srcs}
         for s, fut in futs.items():
@@ -1612,6 +1695,239 @@ def _new_paths(images, card):
     return out
 
 
+@contextlib.contextmanager
+def _host_reads():
+    """Counts the reads of CUDA tensors into host values (item, bool, int,
+    float, tolist) while open: the host syncs of a path."""
+    count = [0]
+    names = ("item", "__bool__", "__int__", "__float__", "tolist")
+    orig = {n: getattr(torch.Tensor, n) for n in names}
+
+    def counted(fn):
+        def read(self, *args, **kwargs):
+            if self.is_cuda:
+                count[0] += 1
+            return fn(self, *args, **kwargs)
+        return read
+
+    for n, fn in orig.items():
+        setattr(torch.Tensor, n, counted(fn))
+    try:
+        yield count
+    finally:
+        for n, fn in orig.items():
+            setattr(torch.Tensor, n, fn)
+
+
+def _first_call(name, run):
+    """The arguments of the first call of one kernel wrapper in run()."""
+    k = KERNELS[name]
+    fn, got = getattr(k.mod, k.attr), []
+
+    def rec(*args, **kwargs):
+        if not got:
+            got.append(_clone(args))
+        return fn(*args, **kwargs)
+
+    setattr(k.mod, k.attr, rec)
+    try:
+        run()
+    finally:
+        setattr(k.mod, k.attr, fn)
+    return got[0]
+
+
+def _dpp_split(path, image, cfg, reps=3):
+    """Median ms of the DPP stages, run in sequence as the path runs them:
+    round 1, extraction, compact rounds, final map (fastmst) or render of
+    the level (superpixel, level 4)."""
+    h, w = image.shape[:2]
+    v = h * w
+    if path in FASTMST:
+        gst, weights = fastmst._round1_dense(image, cfg)
+        st, rm, r0 = fastmst._extract_compact(gst, weights, v)
+        st2 = fastmst._compact_rounds(st, v, cfg)
+        return {
+            "round1": _cuda_ms(lambda: fastmst._round1_dense(image, cfg),
+                               reps),
+            "extract": _cuda_ms(
+                lambda: fastmst._extract_compact(gst, weights, v), reps),
+            "compact_rounds": _cuda_ms(
+                lambda: fastmst._compact_rounds(st, v, cfg), reps),
+            "final_map": _cuda_ms(lambda: turbo._final_map(
+                gst, st2, rm, r0, 4 * (h + w), closures=True), reps)}
+    L1, size1, csum1, strength, merged1 = superpixel._round1_dense(image,
+                                                                   cfg)
+    x = superpixel._extract_compact(L1, strength, v)
+    st = superpixel.SPCompact(esrc=x[0], edst=x[1], estr=x[2], eeid=x[3],
+                              SZf=size1, CSf=csum1, fin=x[4], merged=merged1,
+                              it=0, flags=x[7])
+    st2, _ = superpixel._rounds(st, v, 3)
+    return {
+        "round1": _cuda_ms(lambda: superpixel._round1_dense(image, cfg),
+                           reps),
+        "extract": _cuda_ms(
+            lambda: superpixel._extract_compact(L1, strength, v), reps),
+        "compact_rounds_3": _cuda_ms(lambda: superpixel._rounds(st, v, 3),
+                                     reps),
+        "render": _cuda_ms(
+            lambda: superpixel._render(L1, st2.fin, x[5], x[6]), reps)}
+
+
+def _dpp_check_levels(path, canon, ref):
+    """Each plane's component count and canonical sha256 against the level
+    oracle's; prints each mismatch and raises after all are printed.
+    Returns the components per plane."""
+    if len(ref) != len(canon):
+        raise AssertionError(f"{path}: {len(canon)} planes, the level "
+                             f"oracle {len(ref)}")
+    bad, counts = [], []
+    for i, (r, c) in enumerate(zip(ref, canon)):
+        n, sha = _level_stats(c)
+        counts.append(n)
+        if sha != r["sha256"]:
+            bad.append(i)
+            print(f"  {path} plane {i} differs: {n} components, the "
+                  f"oracle {r['components']}", flush=True)
+    print(f"check levels {path}: {len(ref) - len(bad)} of {len(ref)} planes "
+          f"equal to the level oracle (gseg_tpu_torch/oracles/"
+          f"{DPP_ORACLE}.json); components {counts}", flush=True)
+    if bad:
+        raise AssertionError(f"{path}: planes {bad} differ")
+    return counts
+
+
+def _dpp_path(path, image, card, run):
+    """The counted run of one DPP path (launch counts 0 just before, read
+    just after; host reads; peak memory), its launch checks, then its
+    median ms of 5 CUDA-event reps after a warm-up, the value flood's
+    device ms in one run (profiler) and its stage split. Returns (out,
+    record)."""
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _host_reads() as reads:
+        out = run()
+        torch.cuda.synchronize()
+    launches = _counts()
+    hybrid = list(kg.HYBRID_LOG)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    flags = out[-1]
+    print(f"main path {path}: flags {flags} ({turbo.describe_flags(flags)}),"
+          f" launches {launches}, host reads {reads[0]}, {len(hybrid)} "
+          f"hybrid fixpoints (variant, step passes, pairs) {hybrid}, peak "
+          f"memory {peak:.1f} MiB", flush=True)
+    if flags != 0:
+        raise AssertionError(f"{path}: raised flags {flags}")
+    _check_path_launches(path, launches)
+    reps = 5
+    ms = _cuda_ms(run, reps)
+    value_ms = _device_ms(run, "gossip_value", 1)
+    cfg = dataclasses.replace(CFG, algorithm="superpixel"
+                              if path in SUPERPIXEL else "fastmst")
+    split = _dpp_split(path, image, cfg)
+    what, ti = GTX1080TI_MS[path]
+    print(f"  {path}: median {ms:.3f} ms of {reps} reps = "
+          f"{image.shape[0] * image.shape[1] / 1e3 / ms:.2f} MPix/s; value "
+          f"flood on the device {value_ms:.4f} ms in "
+          f"{launches['gossip_value']} launches; stage split (median ms of "
+          "3): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f" ({card}); GTX 1080 Ti {what}: {ti} ms", flush=True)
+    return out, {"launches": launches, "peak_mib": peak, "main_ms": ms,
+                 "host_reads": reads[0], "value_device_ms": value_ms,
+                 "stages_ms": split, "hybrid_variant_steps_pairs": hybrid,
+                 "gtx1080ti_ms": ti}
+
+
+def _dpp_paths(images, card):
+    """Step 7: fastmst at 1080p and 4K, its hierarchy, superpixel level 4
+    and the superpixel hierarchy at 1080p. Returns (path -> record, the
+    colour-sum helper's timing record at the superpixel path's round-1
+    call)."""
+    image = images[1080, 1920]
+    oracle = load_level_oracle(DPP_ORACLE)
+    cfg = dataclasses.replace(CFG, algorithm="fastmst")
+    out = {}
+
+    (labels, _), out["1080p_fastmst"] = _dpp_path(
+        "1080p_fastmst", image, card,
+        lambda: fastmst.segment_fastmst_flagged(image, cfg))
+    atomic = atomic_boruvka.segment_atomic(
+        image, dataclasses.replace(CFG, algorithm="atomic"))
+    raw = hashlib.sha256(labels.cpu().numpy().tobytes()).hexdigest()
+    ndiff = _oracle_diff(labels, _WB0)
+    same = torch.equal(labels, atomic)
+    print(f"  1080p_fastmst: oracle partition ({_WB0.relative_to(ROOT)}): "
+          f"{ndiff} pixels differ; root ids byte-equal to segment_atomic's:"
+          f" {same}; raw sha256 equal to the level oracle's: "
+          f"{raw == oracle['fastmst']['final_raw_sha256']}", flush=True)
+    if ndiff or not same or raw != oracle["fastmst"]["final_raw_sha256"]:
+        raise AssertionError("1080p_fastmst: labels differ")
+
+    image4k = images[2160, 3840]
+    (labels4k, _), out["4k_fastmst"] = _dpp_path(
+        "4k_fastmst", image4k, card,
+        lambda: fastmst.segment_fastmst_flagged(image4k, cfg))
+    oracle4k = PATHS["4k_subsum"].oracle
+    ndiff = _oracle_diff(labels4k, oracle4k)
+    print(f"  4k_fastmst: oracle partition ({oracle4k.relative_to(ROOT)}): "
+          f"{ndiff} pixels differ", flush=True)
+    if ndiff:
+        raise AssertionError("4k_fastmst: partition differs from the oracle")
+
+    (levels, hlabels, _), out["1080p_fastmst_hierarchy"] = _dpp_path(
+        "1080p_fastmst_hierarchy", image, card,
+        lambda: fastmst.segment_fastmst_hierarchy_flagged(image, cfg))
+    canon = [_canonical(lv) for lv in levels]
+    vid = torch.arange(labels.numel(), dtype=torch.int32,
+                       device=labels.device).reshape(labels.shape)
+    loose = [i for i in range(len(canon) - 1)
+             if not _nested(canon[i], canon[i + 1])]
+    if not torch.equal(levels[0], vid) or loose:
+        raise AssertionError(f"1080p_fastmst_hierarchy: level 0 the "
+                             f"identity: {torch.equal(levels[0], vid)}; "
+                             f"levels {loose} do not nest in the next")
+    if not torch.equal(hlabels, labels):
+        raise AssertionError("1080p_fastmst_hierarchy: final labels differ "
+                             "from 1080p_fastmst's")
+    out["1080p_fastmst_hierarchy"]["level_components"] = _dpp_check_levels(
+        "1080p_fastmst_hierarchy", canon, oracle["fastmst"]["levels"])
+
+    scfg = dataclasses.replace(CFG, algorithm="superpixel")
+    (lvl4, _), out["1080p_superpixel"] = _dpp_path(
+        "1080p_superpixel", image, card,
+        lambda: superpixel.segment_superpixel_flagged(image, scfg))
+    n, sha = _level_stats(_canonical(lvl4))
+    ref4 = oracle["superpixel"]["levels"][4]
+    print(f"  1080p_superpixel: level 4, {n} components, canonical sha256 "
+          f"equal to the level oracle's plane 4 ({ref4['components']} "
+          f"components): {sha == ref4['sha256']}", flush=True)
+    if sha != ref4["sha256"]:
+        raise AssertionError("1080p_superpixel: level 4 differs")
+
+    def sp_hierarchy():
+        return superpixel.segment_superpixel_hierarchy_flagged(image, scfg)
+
+    (slevels, _, _), out["1080p_superpixel_hierarchy"] = _dpp_path(
+        "1080p_superpixel_hierarchy", image, card, sp_hierarchy)
+    counts = _dpp_check_levels("1080p_superpixel_hierarchy",
+                               [_canonical(lv) for lv in slevels],
+                               oracle["superpixel"]["levels"])
+    again = sp_hierarchy()[0]
+    print(f"  1080p_superpixel_hierarchy: components collapse to "
+          f"{counts[-1]}; two runs bit-equal: {torch.equal(again, slevels)}"
+          f"; level 4 equal to segment_superpixel's: "
+          f"{torch.equal(slevels[4], lvl4)}", flush=True)
+    if counts[-1] != 1 or not torch.equal(again, slevels) \
+            or not torch.equal(slevels[4], lvl4):
+        raise AssertionError("1080p_superpixel_hierarchy: runs differ")
+    out["1080p_superpixel_hierarchy"]["level_components"] = counts
+
+    args = _first_call("ordered_scatter_add", sp_hierarchy)
+    timed = _time_kernels({"ordered_scatter_add": (args, {})},
+                          "1080p_superpixel round-1 colour sums", card, 3)
+    return out, timed
+
+
 # per-kernel keys of the kernels line beyond the contract's, where measured
 _EXTRA_KEYS = ("library_device_ms", "device_ms_rows", "device_ms_cols",
                "device_ms_fill", "device_ms_bulk", "device_ms_regs", "ms_regs",
@@ -1725,13 +2041,20 @@ def main() -> None:
     ab = _peel_ab(images[P.h, P.w], card)
     runs |= _new_paths(images, card)
     print(f"new paths done at {time.perf_counter() - t0:.1f} s", flush=True)
+    dpp, timed["1080p_superpixel"] = _dpp_paths(images, card)
+    runs |= dpp
+    errs["ordered_scatter_add"] = max(
+        errs["ordered_scatter_add"],
+        timed["1080p_superpixel"]["ordered_scatter_add"]["max_abs_err"])
+    print(f"DPP paths done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
                                    for m in sys.modules):
         raise AssertionError("the port imported jax or gseg_tpu")
     timed_on = ({n: "4k_subsum" for n in PADS}
                 | {n: "1080p_wb16_closures" for n in CLOSURES}
-                | {"run_extract": "1080p_runs"})
+                | {"run_extract": "1080p_runs",
+                   "ordered_scatter_add": "1080p_superpixel"})
     kernels = []
     shares = {}
     for name in STEP:

@@ -13,10 +13,15 @@ imports torch and never jax. It ports:
   - the atomic path (`models.atomic_boruvka`: scatter-min Boruvka rounds in
     plain torch ops on the device, as in the reference, which has no Pallas
     kernel there), with its hierarchy;
+  - the fastmst (DPP) path (`models.fastmst`: a dense round 1, chunked
+    pair extraction, the compact rounds in plain torch ops) and the
+    superpixel hierarchy (`models.superpixel`: the same schedule with the
+    weights recomputed every round from colour sums, which a hand-written
+    CUDA helper adds in the reference's order), both with their
+    hierarchies, their maps rendered by the step kernel's value flood;
   - the NumPy oracles `models.boruvka_cpu`, `models.felzenszwalb_cpu` and
     `models.fastmst_np` (committed oracle data in `oracles/`).
-The fastmst and superpixel algorithms and the native Kruskal baseline are
-not ported yet.
+The native Kruskal baseline is not ported yet.
 
 Public API:
     segment(image, sigma=.8, k=300, min_size=100, algorithm="turbo",
@@ -40,8 +45,6 @@ __all__ = ["ALGORITHMS", "SegmentationConfig", "segment",
 
 # ROADMAP.md items of the algorithms that are not ported yet.
 _NOT_PORTED = {
-    "fastmst": "queue 1, item 6",
-    "superpixel": "queue 1, item 6",
     "kruskal_native": "queue 1, item 7",
 }
 
@@ -109,7 +112,8 @@ def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="turbo",
     CUDA device this raises RuntimeError. Pass device="cpu" to run on the
     CPU (the kernels' plain PyTorch versions). The boruvka_cpu and
     kruskal_cpu oracles run on the host and return their labels on
-    `device`."""
+    `device`. The superpixel route returns one level of its hierarchy
+    (cfg.hierarchy_levels, default 4)."""
     cfg = _config(config, sigma=sigma, k=k, min_size=min_size,
                   algorithm=algorithm)
     device = _device(device)
@@ -123,6 +127,14 @@ def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="turbo",
         fn = (atomic_boruvka.segment_atomic if cfg.algorithm == "atomic"
               else atomic_boruvka.segment_atomic_hostsync)
         return fn(_image_on(image, device), cfg)
+    if cfg.algorithm == "fastmst":
+        from .models.fastmst import segment_fastmst
+
+        return segment_fastmst(_image_on(image, device), cfg)
+    if cfg.algorithm == "superpixel":
+        from .models.superpixel import segment_superpixel
+
+        return segment_superpixel(_image_on(image, device), cfg)
     if cfg.algorithm == "boruvka_cpu":
         from .models.boruvka_cpu import segment_boruvka_np
 
@@ -154,6 +166,14 @@ def segment_hierarchy(image, sigma=0.8, k=300.0, min_size=100,
         from .models.atomic_boruvka import segment_atomic_hierarchy
 
         return segment_atomic_hierarchy(_image_on(image, device), cfg)
+    if cfg.algorithm == "fastmst":
+        from .models.fastmst import segment_fastmst_hierarchy
+
+        return segment_fastmst_hierarchy(_image_on(image, device), cfg)
+    if cfg.algorithm == "superpixel":
+        from .models.superpixel import segment_superpixel_hierarchy
+
+        return segment_superpixel_hierarchy(_image_on(image, device), cfg)
     if cfg.algorithm == "boruvka_cpu":
         from .models.boruvka_cpu import segment_boruvka_np
 

@@ -19,8 +19,8 @@ ALGORITHMS = (
     "atomic",           # scatter-min Boruvka-Felzenszwalb (ported)
     "atomic_hostsync",  # same, host-synced convergence flag (ported: the
                         # same host loop as "atomic")
-    "fastmst",          # DPP/FastMST path (not ported yet)
-    "superpixel",       # superpixel hierarchy (not ported yet)
+    "fastmst",          # DPP/FastMST path (ported)
+    "superpixel",       # superpixel hierarchy (ported)
     "kruskal_cpu",      # sequential Felzenszwalb oracle (ported, NumPy)
     "boruvka_cpu",      # sequential Boruvka oracle (ported, NumPy)
     "kruskal_native",   # C++ Felzenszwalb baseline (not ported yet)

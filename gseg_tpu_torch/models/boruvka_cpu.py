@@ -31,20 +31,63 @@ def gaussian_smooth_np(img: np.ndarray, sigma: float) -> np.ndarray:
     x = np.arange(-radius, radius + 1, dtype=np.float32)
     k = np.exp(-0.5 * (x / sigma) ** 2).astype(np.float32)
     k = (k / np.sum(k)).astype(np.float32)
+    return _shift_sum_np(_shift_sum_np(img, k, 0), k, 1)
 
-    def conv(a, axis):
-        pad = [(0, 0)] * a.ndim
-        pad[axis] = (radius, radius)
-        p = np.pad(a, pad, mode="edge")
-        n = a.shape[axis]
-        out = np.zeros_like(a)
-        for i, t in enumerate(k):
-            sl = [slice(None)] * a.ndim
-            sl[axis] = slice(i, i + n)
-            out = out + np.float32(t) * p[tuple(sl)]
-        return out
 
-    return conv(conv(img, 0), 1)
+def _shift_sum_np(a: np.ndarray, taps, axis: int) -> np.ndarray:
+    """Convolve along `axis` with edge padding as a sum of shifted, scaled
+    copies, taps in order (the float32 evaluation order of the filters)."""
+    radius = (len(taps) - 1) // 2
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (radius, radius)
+    p = np.pad(a, pad, mode="edge")
+    n = a.shape[axis]
+    out = np.zeros_like(a)
+    for i, t in enumerate(taps):
+        sl = [slice(None)] * a.ndim
+        sl[axis] = slice(i, i + n)
+        out = out + np.float32(t) * p[tuple(sl)]
+    return out
+
+
+def sobel_magnitude_np(img: np.ndarray) -> np.ndarray:
+    """NumPy mirror of ops.filters.sobel_magnitude (luma, then the
+    separable derivative and smoothing taps with edge padding, in the same
+    evaluation order; float32 throughout, correctly rounded root)."""
+    img = img.astype(np.float32)
+    if img.ndim == 3:
+        if img.shape[-1] == 3:
+            gray = (np.float32(0.299) * img[..., 0]
+                    + np.float32(0.587) * img[..., 1]
+                    + np.float32(0.114) * img[..., 2])
+        else:
+            gray = img[..., 0]
+            for c in range(1, img.shape[-1]):
+                gray = gray + img[..., c]
+            gray = gray / np.float32(img.shape[-1])
+    else:
+        gray = img
+    d, s = (1.0, 0.0, -1.0), (1.0, 2.0, 1.0)
+    gx = _shift_sum_np(_shift_sum_np(gray, d, 1), s, 0)
+    gy = _shift_sum_np(_shift_sum_np(gray, d, 0), s, 1)
+    return np.sqrt(gx * gx + gy * gy)
+
+
+def strength_planes_np(smoothed: np.ndarray) -> np.ndarray:
+    """NumPy mirror of the superpixel path's edge strength: per canonical
+    edge plane, the mean of its endpoints' Sobel magnitudes of the
+    smoothed image (0 past the border), (4, H, W) float32."""
+    sob = sobel_magnitude_np(smoothed)
+    h, w = sob.shape
+    out = np.empty((4, h, w), dtype=np.float32)
+    for d, (dy, dx) in enumerate(_DIRS4):
+        nb = np.zeros_like(sob)
+        ys, yd = slice(dy, h), slice(0, h - dy)
+        xs, xd = ((slice(dx, w), slice(0, w - dx)) if dx >= 0
+                  else (slice(0, w + dx), slice(-dx, w)))
+        nb[yd, xd] = sob[ys, xs]
+        out[d] = np.float32(0.5) * (sob + nb)
+    return out
 
 
 def edge_weight_planes_np(img: np.ndarray, connectivity: int = 8,

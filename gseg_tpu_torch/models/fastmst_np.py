@@ -9,10 +9,14 @@ jax.
                       pointer jumping, relabel)
   segment_fastmst_np  the pipeline, with the per-round hierarchy capture
                       (return_levels=True)
+  superpixel_hierarchy_np
+                      pure Boruvka rounds with the weights recomputed every
+                      round from float64 colour sums (the superpixel spec)
 
-Labels are byte-equal to the reference's. `superpixel_hierarchy_np` is not
-copied: its weights come from the superpixel model, which is not ported
-yet (ROADMAP.md, queue 1, item 6).
+Labels are byte-equal to the reference's. The superpixel spec's edge
+strength comes from `boruvka_cpu.strength_planes_np` (the reference takes
+it from its JAX model); its colour sums are float64 where the model's are
+float32, so its partitions may differ from the model's on near-ties.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import SegmentationConfig
-from .boruvka_cpu import _edge_arrays, edge_weight_planes_np, gaussian_smooth_np
+from .boruvka_cpu import (_edge_arrays, edge_weight_planes_np,
+                          gaussian_smooth_np, strength_planes_np)
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -119,3 +124,67 @@ def segment_fastmst_np(image, cfg: SegmentationConfig, return_levels=False):
     if return_levels:
         return np.stack(levels).reshape(-1, h, w), labels
     return labels
+
+
+def superpixel_hierarchy_np(image, cfg: SegmentationConfig):
+    """NumPy superpixel-hierarchy prototype: pure Boruvka rounds with
+    weights recomputed each round as strength x ||avg colour diff||.
+    Returns (levels (L, H, W), final labels)."""
+    h, w = image.shape[0], image.shape[1]
+    v = h * w
+    sm = gaussian_smooth_np(image, cfg.sigma)
+    weights, _ = edge_weight_planes_np(sm, cfg.connectivity)
+    valid = np.isfinite(weights)
+    ea, eb, _, ev = _edge_arrays(weights, valid, w)
+    live = np.nonzero(ev)[0]
+    ea, eb, eid = ea[live], eb[live], live.astype(np.int64)
+    strength = strength_planes_np(sm).transpose(1, 2, 0).reshape(-1)[live]
+
+    parent = np.arange(v, dtype=np.int64)
+    size = np.ones(v, dtype=np.int64)
+    colorsum = sm.reshape(v, -1).astype(np.float64).copy()
+    levels = [parent.astype(np.int32).copy()]
+    for _ in range(cfg.max_iters):
+        avg = colorsum / np.maximum(size, 1)[:, None]
+        diff = avg[parent[ea]] - avg[parent[eb]]
+        ew = (strength * np.sqrt((diff * diff).sum(axis=1))).astype(np.float32)
+        parent, size, colorsum, merged = _always_round(
+            parent, size, colorsum, ea, eb, ew, eid)
+        levels.append(parent.astype(np.int32).copy())
+        if not merged:
+            break
+    return (np.stack(levels).reshape(-1, h, w),
+            parent.astype(np.int32).reshape(h, w))
+
+
+def _always_round(parent, size, colorsum, ea, eb, ew, eid):
+    """Pure-Boruvka round (always merge) maintaining sizes and colour
+    sums; returns (parent', size', colorsum', merged)."""
+    v = parent.shape[0]
+    idx = np.arange(v, dtype=np.int64)
+    src = np.concatenate([parent[ea], parent[eb]])
+    dst = np.concatenate([parent[eb], parent[ea]])
+    w2 = np.concatenate([ew, ew])
+    e2 = np.concatenate([eid, eid])
+    live = src != dst
+    key_src = np.where(live, src, np.int64(v))
+    order = np.lexsort((e2, w2, key_src))
+    s_src, s_dst = key_src[order], dst[order]
+    head = np.r_[True, s_src[1:] != s_src[:-1]] & (s_src < v)
+    comp, other = s_src[head], s_dst[head]
+
+    succ = idx.copy()
+    succ[comp] = other
+    mutual = (succ[succ] == idx) & (succ != idx)
+    succ = np.where(mutual & (idx < succ), idx, succ)
+    if not (succ != idx).any():
+        return parent, size, colorsum, False
+    root = _pointer_jump(succ)
+    parent_new = root[parent]
+    is_root = parent == idx
+    size_new = np.zeros(v, dtype=np.int64)
+    np.add.at(size_new, parent_new[is_root], size[is_root])
+    cs_new = np.zeros_like(colorsum)
+    np.add.at(cs_new, parent_new[is_root], colorsum[is_root])
+    colorsum[:] = cs_new
+    return parent_new, size_new, colorsum, True

@@ -42,8 +42,7 @@ mode (`weight_buckets > 0`, scan closures on):
   round: stage-G rounds (count-peel sizes) capture their label plane,
   stage-2 rounds their compact root map, rendered as the final map is (one
   value flood per distinct map). Levels stay on the device. Its overflow
-  fallback (the fastmst hierarchy) is not ported yet; `segment_turbo`'s
-  (the atomic path) is.
+  fallback is the fastmst hierarchy; `segment_turbo`'s the atomic path.
 
 Every `lax.while_loop` of the reference is a host loop that reads a device
 value each iteration, and every `lax.cond` a host `if`. Capacities are the
@@ -532,45 +531,128 @@ def _extract_stage(gst: GossipState, weights, cfg: SegmentationConfig):
     head &= s_lo != INT32_MAX
     pm, (plo, phi, pw, pe), pair_ovf = _select_compact(
         head, [s_lo, s_hi, s_w, s_e], pair_cap)
+    comp_cap = max(v // (24 if quality else 96), _CAP_FLOOR)
     return _pools_to_state(pm, plo, phi, pw, pe, pair_ovf | extract_ovf, v,
-                           quality, gst.S.reshape(-1), gst.ID.reshape(-1),
+                           comp_cap, gst.S.reshape(-1), gst.ID.reshape(-1),
                            gst.bucket, gst.flags)
 
 
-def _pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v, quality, SZf, IDf,
-                    bucket, base_flags):
-    """Deduped pair pool -> two-orientation edge pool + stage-2 entry state,
-    plus the initial-root list (rm, r0) for the final map. The state
-    carries stage G's bucket: the ramp goes on where stage G left it."""
+def _pool_roots(pm, plo, phi, pw, pe, v, comp_cap):
+    """Deduped pair pool -> two-orientation edge pool (esrc, edst, ew,
+    eeid) and the initial-root list: every component with a live edge (the
+    others never merge in the compact rounds), front-compacted to comp_cap.
+    Returns (pool, rm, r0, root_ovf), r0 holding v (the dropped slot of a
+    scatter) past the roots."""
     plo = torch.where(pm, plo, 0)
     phi = torch.where(pm, phi, 0)
     pw = torch.where(pm, pw, torch.inf)
-    esrc = torch.cat([plo, phi])
-    edst = torch.cat([phi, plo])
     ew = torch.cat([pw, pw])
-    eeid = torch.cat([pe, pe])
-
-    # every component with a live edge; the others never merge in stage 2.
-    comp_cap = max(v // (24 if quality else 96), _CAP_FLOOR)
-    srt_src = torch.sort(torch.where(torch.isfinite(ew), esrc,
+    pool = (torch.cat([plo, phi]), torch.cat([phi, plo]), ew,
+            torch.cat([pe, pe]))
+    srt_src = torch.sort(torch.where(torch.isfinite(ew), pool[0],
                                      INT32_MAX)).values
     rhead = _run_heads(srt_src) & (srt_src != INT32_MAX)
-    rm, (r0_arr,), root_ovf = _select_compact(rhead, [srt_src], comp_cap)
-    r0 = torch.where(rm, r0_arr, v)  # v = dropped slot in scatters
+    rm, (r0,), root_ovf = _select_compact(rhead, [srt_src], comp_cap)
+    return pool, rm, torch.where(rm, r0, v), root_ovf
 
+
+def _pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v, comp_cap, SZf, IDf,
+                    bucket, base_flags):
+    """Deduped pair pool -> stage-2 entry state, plus the initial-root list
+    (rm, r0) for the final map. The state carries stage G's bucket: the
+    ramp goes on where stage G left it."""
+    (esrc, edst, ew, eeid), rm, r0, root_ovf = _pool_roots(
+        pm, plo, phi, pw, pe, v, comp_cap)
     flags0 = _raise_flag(_raise_flag(base_flags, pair_ovf, FLAG_PAIR_OVERFLOW),
                          root_ovf, FLAG_COMP_OVERFLOW)
     st = CompactState(esrc=esrc, edst=edst, ew=ew, eeid=eeid, SZf=SZf,
-                      IDf=IDf, fin=torch.where(rm, r0_arr, 0), merged=True,
+                      IDf=IDf, fin=torch.where(rm, r0, 0), merged=True,
                       it=0, bucket=bucket, phase=0, flags=flags0)
     return st, rm, r0
 
 
+def _chunked_pair_extract(lo, hi, w4, eid4, pair_cap, chunk=131072):
+    """Extract the live boundary edges and dedup them per pair, chunk by
+    chunk (the fastmst and superpixel handoff): each chunk of `chunk`
+    slots is sorted by (lo, hi, w, eid) on its own, its pair heads move to
+    its front (a second, stable sort), and the chunk fronts are joined by
+    an output-space scan. A pair whose edges span several chunks survives
+    once per chunk, as in the reference: stage 2 treats the list as a
+    multigraph, so that costs capacity, not labels. Returns (mask, lo, hi,
+    w, eid, overflow), arrays of size pair_cap; on overflow the output is
+    invalid."""
+    dev = lo.device
+    n = lo.shape[0]
+    nch = -(-n // chunk)
+    pad = nch * chunk - n
+    if pad:
+        lo = torch.cat([lo, lo.new_full((pad,), INT32_MAX)])
+        hi = torch.cat([hi, hi.new_full((pad,), INT32_MAX)])
+        w4 = torch.cat([w4, w4.new_full((pad,), torch.inf)])
+        eid4 = torch.cat([eid4, eid4.new_zeros(pad)])
+    ka = _key64(lo, hi).reshape(nch, chunk)
+    kb = _key64(w4, eid4).reshape(nch, chunk)
+    perm = torch.sort(kb, dim=1, stable=True).indices
+    perm = perm.gather(1, torch.sort(ka.gather(1, perm), dim=1,
+                                     stable=True).indices)
+    s_lo, s_hi = (x.reshape(nch, chunk).gather(1, perm) for x in (lo, hi))
+    head = torch.ones((nch, chunk), dtype=torch.bool, device=dev)
+    head[:, 1:] = (s_lo[:, 1:] != s_lo[:, :-1]) | (s_hi[:, 1:] != s_hi[:, :-1])
+    head &= s_lo != INT32_MAX
+    # heads to each chunk's front, in order
+    perm = perm.gather(1, torch.sort((~head).to(torch.uint8), dim=1,
+                                     stable=True).indices)
+    counts = head.sum(1)
+    offsets = torch.cumsum(counts, 0) - counts
+    total = counts.sum()
+    # output-space scan: the chunk that owns output slot j
+    marks = _scatter(torch.zeros(pair_cap, dtype=torch.int64, device=dev),
+                     offsets.clamp(0, pair_cap - 1),
+                     torch.arange(nch, device=dev), "amax")
+    chunk_of = torch.cummax(marks, 0).values
+    j = torch.arange(pair_cap, device=dev)
+    src = (chunk_of * chunk + j - offsets[chunk_of]).clamp(0, nch * chunk - 1)
+    src = (perm + torch.arange(nch, device=dev)[:, None] * chunk).reshape(
+        -1)[src]
+    return ((j < total), lo[src], hi[src], w4[src], eid4[src],
+            total > pair_cap)
+
+
+def _hook_roots(hm, hsrc, succ, v):
+    """Resolve one round's hooks in compact index space: hm marks the
+    component heads, hsrc their labels, succ the label each hooks to (its
+    own where it does not hook). Of each mutual pair the smaller label
+    stays a root; hook chains resolve by pointer doubling, a fixed step
+    count equal to the reference's cap (once converged, further steps
+    leave the pointers unchanged, so the result is the same without a
+    device->host read per step). Returns (succ without the mutual hooks,
+    nr: the hook-chain sink of each head)."""
+    dev = hsrc.device
+    hsrc_safe = torch.where(hm, hsrc, v)
+    iota = torch.arange(v, dtype=torch.int32, device=dev)
+    s2 = _gather(_scatter(iota, hsrc_safe, succ), succ)
+    mutual = (s2 == hsrc) & (succ != hsrc)
+    succ = torch.where(mutual & (hsrc < succ), hsrc, succ)
+    cap = hsrc.numel()
+    cidx = torch.arange(cap, dtype=torch.int32, device=dev)
+    hidx = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
+                               device=dev), hsrc_safe, cidx)
+    csucc_raw = _gather(hidx, torch.where(hm, succ, 0))
+    croot = torch.where(hm & (succ != hsrc) & (csucc_raw != INT32_MAX),
+                        csucc_raw, cidx).to(torch.int64)
+    for _ in range(max(int(cap).bit_length() + 1, 4)):
+        croot = croot[croot]
+    return succ, hsrc[croot]
+
+
 def _s2_round(st: CompactState, v, comp_cap, k, min_size,
-              is_felz: bool, tau=None) -> CompactState:
-    """One compact round (canonical min-member relabel). is_felz: the
-    predicate-gated felz round vs a min-size round. tau: the felz round's
-    weight cap (quality mode; None: no cap)."""
+              is_felz: bool, tau=None, canonical: bool = True
+              ) -> CompactState:
+    """One compact round. is_felz: the predicate-gated felz round vs a
+    min-size round. tau: the felz round's weight cap (quality mode; None:
+    no cap). canonical: relabel each merged cluster to its min member root
+    (turbo's labels), else keep the hook-chain sink root (the root-id
+    labels of the atomic path and the oracles, which fastmst gives)."""
     esrc, edst, ew = st.esrc, st.edst, st.ew
     dev = esrc.device
     live = (esrc != edst) & torch.isfinite(ew)
@@ -591,37 +673,19 @@ def _s2_round(st: CompactState, v, comp_cap, k, min_size,
         ok = (lhs_s <= kf) & (lhs_d <= kf)
     else:
         ok = _gather(st.SZf, hsrc) < min_size
-    hook = hm & ok
-
-    succ = torch.where(hook, hdst, hsrc)
+    succ, nr = _hook_roots(hm, hsrc, torch.where(hm & ok, hdst, hsrc), v)
     hsrc_safe = torch.where(hm, hsrc, v)
     iota = torch.arange(v, dtype=torch.int32, device=dev)
-    S = _scatter(iota, hsrc_safe, succ)
-    s2 = _gather(S, succ)
-    mutual = (s2 == hsrc) & (succ != hsrc)
-    succ = torch.where(mutual & (hsrc < succ), hsrc, succ)
 
-    # Hook chains resolve by pointer doubling in compact index space. A
-    # fixed step count equal to the reference's cap: once converged,
-    # further steps leave the pointers unchanged, so the result is the same
-    # without a device->host read per step.
-    cap = hsrc.numel()
-    cidx = torch.arange(cap, dtype=torch.int32, device=dev)
-    hidx = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
-                               device=dev), hsrc_safe, cidx)
-    csucc_raw = _gather(hidx, torch.where(hm, succ, 0))
-    croot = torch.where(hm & (succ != hsrc) & (csucc_raw != INT32_MAX),
-                        csucc_raw, cidx).to(torch.int64)
-    for _ in range(max(int(cap).bit_length() + 1, 4)):
-        croot = croot[croot]
-    nr = hsrc[croot]
-
-    # relabel each cluster to its min member root.
-    canon = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
-                                device=dev),
-                     torch.where(hm, nr, v),
-                     torch.where(hm, hsrc, INT32_MAX), "amin")
-    nr_canon = torch.where(hm, _gather(canon, nr), hsrc)
+    if canonical:
+        # relabel each cluster to its min member root.
+        canon = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
+                                    device=dev),
+                         torch.where(hm, nr, v),
+                         torch.where(hm, hsrc, INT32_MAX), "amin")
+        nr_canon = torch.where(hm, _gather(canon, nr), hsrc)
+    else:
+        nr_canon = nr
     changed = hm & (nr_canon != hsrc)
 
     M = _scatter(iota, hsrc_safe, nr_canon)
@@ -646,20 +710,22 @@ def _s2_round(st: CompactState, v, comp_cap, k, min_size,
 
 def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
               thresholds, with_minsize: bool, flag_exhaustion: bool = True,
-              capture=None):
+              capture=None, canonical: bool = True):
     """Felz rounds to convergence, then (optionally) min-size rounds; the
     phase flips 0 -> 1 when a felz round merges nothing with every bucket
     open. thresholds: the bucket caps (quality mode) or None.
     flag_exhaustion=False for deliberately round-capped warm-up phases.
     capture: called with the root map `fin` after each felz round (the
-    hierarchy's levels; min-size rounds refine the last level)."""
+    hierarchy's levels; min-size rounds refine the last level).
+    canonical: see _s2_round."""
     nb = 1 if thresholds is None else thresholds.numel()
     st = st._replace(merged=True, it=0)
     while st.merged and st.it < max_iters:
         is_felz = st.phase == 0
         tau = (thresholds[st.bucket]
                if is_felz and thresholds is not None else None)
-        s2 = _s2_round(st, v, comp_cap, k, min_size, is_felz, tau)
+        s2 = _s2_round(st, v, comp_cap, k, min_size, is_felz, tau,
+                       canonical)
         if is_felz:
             # bucket ramp: the cap rises one bucket per felz round.
             s2 = s2._replace(bucket=min(st.bucket + 1, nb - 1),
@@ -911,21 +977,21 @@ def segment_turbo_hierarchy(image: torch.Tensor, cfg: SegmentationConfig,
     """Checked hierarchy entry: (H, W, 3) -> (levels (L + 1, H, W), labels).
 
     On a nonzero flag mask: per cfg.on_overflow this raises RuntimeError
-    ("raise"), returns anyway ("ignore"), or would route to the fastmst
-    hierarchy ("fallback", which raises NotImplementedError until fastmst
-    is ported)."""
+    ("raise"), returns anyway ("ignore"), or routes to the fastmst
+    hierarchy ("fallback", whose labels are root vertex ids and whose
+    levels are n_levels + 2)."""
     levels, labels, flags = segment_turbo_hierarchy_flagged(
         image, cfg, gossip_rounds)
     if flags == 0 or cfg.on_overflow == "ignore":
         return levels, labels
-    msg = f"turbo capacity/budget violation: {describe_flags(flags)}"
     if cfg.on_overflow == "fallback":
-        raise NotImplementedError(
-            msg + " — the fastmst hierarchy fallback is not ported yet "
-            "(ROADMAP.md, queue 1, item 6)")
+        from .fastmst import segment_fastmst_hierarchy
+
+        return segment_fastmst_hierarchy(image, cfg)
     raise RuntimeError(
-        msg + " — rerun with SegmentationConfig(on_overflow='fallback'), "
-        "or use a larger-capacity config")
+        f"turbo capacity/budget violation: {describe_flags(flags)} — rerun "
+        "with SegmentationConfig(on_overflow='fallback') to route to the "
+        "fastmst hierarchy, or use a larger-capacity config")
 
 
 def segment_turbo(image: torch.Tensor, cfg: SegmentationConfig,

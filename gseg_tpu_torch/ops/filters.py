@@ -1,4 +1,5 @@
-"""Gaussian pre-smoothing (port of `gseg_tpu.ops.filters`).
+"""Gaussian pre-smoothing and Sobel gradients (port of
+`gseg_tpu.ops.filters`).
 
 Separable convolution as a sum of shifted, scaled planes with replicate
 ("edge") padding, taps applied in the reference's order so that the float32
@@ -43,3 +44,37 @@ def gaussian_smooth(img: torch.Tensor, sigma: float) -> torch.Tensor:
             for t in gaussian_kernel_1d(sigma)]
     out = _shift_sum_1d(img, taps, axis=0)
     return _shift_sum_1d(out, taps, axis=1)
+
+
+_SOBEL_D = (1.0, 0.0, -1.0)   # derivative taps
+_SOBEL_S = (1.0, 2.0, 1.0)    # smoothing taps
+
+
+def sobel_magnitude(img: torch.Tensor) -> torch.Tensor:
+    """Sobel gradient magnitude of an (H, W, C) or (H, W) image -> (H, W)
+    float32 (the superpixel path's edge strength). Colour images are
+    reduced to luma first, with float32 constants in the reference's
+    order; the root is the float64 one rounded once (torch's CPU float32
+    `sqrt` is not correctly rounded, see `grid_graph.edge_weight_planes`)."""
+    img = img.to(torch.float32)
+    if img.ndim == 3:
+        if img.shape[-1] == 3:
+            gray = (0.299 * img[..., 0] + 0.587 * img[..., 1]
+                    + 0.114 * img[..., 2])
+        else:
+            gray = img[..., 0]
+            for c in range(1, img.shape[-1]):
+                gray = gray + img[..., c]
+            gray = gray / img.shape[-1]
+    else:
+        gray = img
+
+    def taps(t):
+        return [torch.tensor(x, dtype=torch.float32, device=img.device)
+                for x in t]
+
+    gx = _shift_sum_1d(_shift_sum_1d(gray, taps(_SOBEL_D), axis=1),
+                       taps(_SOBEL_S), axis=0)
+    gy = _shift_sum_1d(_shift_sum_1d(gray, taps(_SOBEL_D), axis=0),
+                       taps(_SOBEL_S), axis=1)
+    return torch.sqrt((gx * gx + gy * gy).double()).float()

@@ -10,10 +10,10 @@ The reference's XLA scatters and gathers become torch's:
     pointers as they are, so the result is the same without a
     device-to-host read per step).
 Every primitive is deterministic: min and max scatters do not depend on
-the order of the updates, and ties resolve by canonical edge id.
-
-`block_compact`, `sparse_select` and `compact_indices` belong to the
-fastmst path and are not ported yet.
+the order of the updates, and ties resolve by canonical edge id. The three
+stream compactions (`block_compact`, `sparse_select`, `compact_indices`)
+have no caller in either package's models; they are ported so the module
+is whole.
 """
 
 from __future__ import annotations
@@ -98,3 +98,69 @@ def segment_max(values: torch.Tensor, seg: torch.Tensor, num_slots: int,
     out = torch.full((num_slots,), fill, dtype=values.dtype,
                      device=values.device)
     return scatter_drop(out, seg, values, "amax")
+
+
+def block_compact(mask: torch.Tensor, arrays, out_elems: int,
+                  block: int = 64):
+    """Stream compaction at `block`-lane granularity: every window of
+    `block` lanes that holds a live element moves whole, in order, to the
+    front of (out_elems,) buffers (a multiple of `block`); dead lanes stay
+    as they are, masked. Windows past the capacity are dropped and flagged.
+    Returns (out_mask (out_elems,), outs (same dtypes), overflow)."""
+    n = mask.shape[0]
+    pad = (-n) % block
+    if pad:
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+        arrays = [torch.cat([a, a.new_zeros(pad)]) for a in arrays]
+    nb = (n + pad) // block
+    out_rows = out_elems // block
+    m2 = mask.reshape(nb, block)
+    win = m2.any(1)
+    pos = torch.cumsum(win.to(torch.int32), 0) - 1
+    slot = torch.where(win, pos, out_rows)
+    widx = scatter_set(torch.full((out_rows,), nb, dtype=torch.int64,
+                                  device=mask.device), slot,
+                       torch.arange(nb, device=mask.device))
+    overflow = win.sum() > out_rows
+    outs = [torch.cat([a.reshape(nb, block), a.new_zeros(1, block)])[widx]
+            .reshape(-1) for a in arrays]
+    m3 = torch.cat([m2, m2.new_zeros(1, block)])[widx]
+    return m3.reshape(-1), outs, overflow
+
+
+def sparse_select(mask: torch.Tensor, arrays, cap: int):
+    """Compact a sparse mask's elements, in order, to the front of
+    (cap,) buffers (zero past the count) by a running count and a binary
+    search per output slot. Returns (out_mask (cap,), outs, overflow)."""
+    counts = torch.cumsum(mask.to(torch.int32), 0)
+    total = counts[-1]
+    ranks = torch.arange(1, cap + 1, dtype=torch.int32, device=mask.device)
+    pos = torch.searchsorted(counts, ranks, side="left")
+    valid = ranks <= total
+    pos_safe = torch.where(valid, pos, 0)
+    outs = [torch.where(valid, a[pos_safe], 0).to(a.dtype) for a in arrays]
+    return valid, outs, total > cap
+
+
+def compact_indices(mask: torch.Tensor, capacity: int):
+    """Indices of the True entries in order, in a (capacity,) int32 buffer
+    holding INT32_MAX past them, and their count (0-d int32)."""
+    m = mask.to(torch.int32)
+    pos = torch.cumsum(m, 0, dtype=torch.int32) - m
+    slot = torch.where(mask, pos, capacity)
+    out = scatter_set(torch.full((capacity,), INT32_MAX, dtype=torch.int32,
+                                 device=mask.device), slot,
+                      torch.arange(mask.shape[0], dtype=torch.int32,
+                                   device=mask.device))
+    return out, m.sum(dtype=torch.int32)
+
+
+def scatter_set(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor):
+    """base.at[idx].set(vals, mode="drop") for a 1-D base, for indices that
+    are unique within [0, len(base)) (the others are dropped)."""
+    n = base.numel()
+    idx = idx.to(torch.int64)
+    ext = torch.cat([base, base.new_zeros(1)])
+    ext.scatter_(0, torch.where((idx >= 0) & (idx < n), idx, n),
+                 vals.to(base.dtype))
+    return ext[:n]

@@ -11,11 +11,12 @@ Remake the committed files (about 75 s each at 4K on one CPU core):
 
 Level oracles hold, for each level of a segmentation hierarchy, the
 component count and the sha256 of the canonical map (int32, C order), as
-JSON. They come from the reference's own turbo and atomic hierarchies, run
-with jax on the CPU with the filter chain op by op, bit-equal to the NumPy
-spec's and the port's weights (`tests/make_level_oracles.py` remakes
-them; under jit the reference's weights drift in the last bits and its
-early levels differ, PERF.md §7).
+JSON. They come from the reference's own hierarchies (turbo and atomic;
+with `--dpp`, fastmst and superpixel, one record each), run with jax on
+the CPU without their outer jit, so the filter chain runs op by op,
+bit-equal to the NumPy spec's and the port's weights
+(`tests/make_level_oracles.py` remakes them; under jit the reference's
+weights drift in the last bits and its early levels differ, PERF.md §7).
 """
 
 from __future__ import annotations
@@ -39,6 +40,13 @@ LEVEL_ORACLES = {
         "gossip_rounds": 2,
         "oracle": "bench_out/oracle_bench_1080x1920_wb0.npy",
     },
+    # {"fastmst": {"levels", "final", "final_raw_sha256"},
+    #  "superpixel": {"levels"}}
+    "levels_dpp_blobs_1080x1920": {
+        "image": (1080, 1920, 31),
+        "config": dict(sigma=0.8, k=300.0, min_size=100, max_iters=32),
+        "oracle": "bench_out/oracle_bench_1080x1920_wb0.npy",
+    },
 }
 
 
@@ -48,7 +56,9 @@ def level_oracle_path(name: str) -> str:
 
 
 def load_level_oracle(name: str) -> dict:
-    """{"levels": [{"components", "sha256"}, ...], "final": {...}, ...}"""
+    """The JSON record of a level oracle: {"levels": [{"components",
+    "sha256"}, ...], "final": {...}, ...}, or for the DPP paths one such
+    record per path (LEVEL_ORACLES)."""
     with open(level_oracle_path(name)) as f:
         return json.load(f)
 

@@ -25,6 +25,23 @@ and near-tie merges of the early rounds come out otherwise. With
 `--numpy-specs` (about 2 more minutes) it also holds the levels of the
 reference's NumPy specs (`segment_boruvka_np` and `segment_fastmst_np`,
 return_levels=True) against the ones it wrote.
+
+With `--dpp` (about 4 minutes) it makes the level oracle of the two DPP
+paths instead, and leaves the file above as it is:
+
+    JAX_PLATFORMS=cpu python tests/make_level_oracles.py --dpp
+
+It runs `gseg_tpu`'s `segment_fastmst_hierarchy_impl` and
+`segment_superpixel_hierarchy_impl` without their outer `jax.jit` on the
+same image and configuration (the compact rounds inside their loops are
+compiled, as in any run of the reference), requires flags 0 from both and
+the fastmst final partition equal to the committed oracle, and writes each
+plane's component count and canonical sha256 (34 fastmst planes, 33
+superpixel planes) and the fastmst final labels' raw sha256 (hook-sink
+root ids, int32, C order) to
+`gseg_tpu_torch/oracles/levels_dpp_blobs_1080x1920.json`. It reports,
+without failing on it, how the planes of the reference's NumPy spec
+`superpixel_hierarchy_np` (float64 colour sums) differ from the model's.
 """
 
 import hashlib
@@ -45,7 +62,11 @@ from gseg_tpu.config import SegmentationConfig  # noqa: E402
 from gseg_tpu.models.atomic_boruvka import segment_atomic_hierarchy  # noqa: E402,E501
 from gseg_tpu.models.boruvka_cpu import (  # noqa: E402
     edge_weight_planes_np, gaussian_smooth_np, segment_boruvka_np)
-from gseg_tpu.models.fastmst_np import segment_fastmst_np  # noqa: E402
+from gseg_tpu.models.fastmst import segment_fastmst_hierarchy_impl  # noqa: E402,E501
+from gseg_tpu.models.fastmst_np import (  # noqa: E402
+    segment_fastmst_np, superpixel_hierarchy_np)
+from gseg_tpu.models.superpixel import (  # noqa: E402
+    segment_superpixel_hierarchy_impl)
 from gseg_tpu.models.turbo import (  # noqa: E402
     segment_turbo_hierarchy_flagged, segment_turbo_hierarchy_impl)
 from gseg_tpu.ops import filters, grid_graph  # noqa: E402
@@ -54,6 +75,7 @@ from gseg_tpu.utils.synthetic import blobs_image  # noqa: E402
 from gseg_tpu_torch.oracles import LEVEL_ORACLES, level_oracle_path  # noqa: E402,E501
 
 NAME = "levels_blobs_1080x1920_wb0"
+DPP = "levels_dpp_blobs_1080x1920"
 
 
 def _entry(canonical):
@@ -74,7 +96,67 @@ def _differ(a, b):
     return int((~((a == b) | (np.isinf(a) & np.isinf(b)))).sum())
 
 
+def _write(name, record):
+    path = pathlib.Path(level_oracle_path(name))
+    path.write_text(json.dumps(record, indent=1) + "\n")
+    digest = hashlib.sha256(path.read_bytes()).hexdigest()
+    print(f"{path.relative_to(ROOT)}: file sha256 {digest}", flush=True)
+
+
+def dpp_main() -> int:
+    """The --dpp mode (module note)."""
+    spec = LEVEL_ORACLES[DPP]
+    h, w, blobs = spec["image"]
+    cfg = SegmentationConfig(**spec["config"])
+    img_np = blobs_image(h, w, blobs, 8.0, 0)
+    img = jnp.asarray(img_np)
+    ok = True
+    t0 = time.perf_counter()
+    f_levels, f_labels, f_flags = segment_fastmst_hierarchy_impl(img, cfg)
+    f_levels, f_labels = np.asarray(f_levels), np.asarray(f_labels)
+    print(f"fastmst hierarchy {time.perf_counter() - t0:.1f} s (flags "
+          f"{int(f_flags)}), {f_levels.shape[0]} planes", flush=True)
+    t0 = time.perf_counter()
+    s_levels, _, s_flags = segment_superpixel_hierarchy_impl(img, cfg)
+    s_levels = np.asarray(s_levels)
+    print(f"superpixel hierarchy {time.perf_counter() - t0:.1f} s (flags "
+          f"{int(s_flags)}), {s_levels.shape[0]} planes", flush=True)
+    oracle = np.load(ROOT / spec["oracle"])
+    nd = int((canonical_min_labels_np(f_labels) != oracle).sum())
+    print(f"fastmst final labels: {nd} pixels off the oracle", flush=True)
+    ok = int(f_flags) == 0 and int(s_flags) == 0 and nd == 0
+    fast = [_entry(canonical_min_labels_np(lv)) for lv in f_levels]
+    sp = [_entry(canonical_min_labels_np(lv)) for lv in s_levels]
+    print(f"components: fastmst {[e['components'] for e in fast]}, "
+          f"superpixel {[e['components'] for e in sp]}", flush=True)
+    if not ok:
+        return 1
+    _write(DPP, {
+        "image": f"blobs_image({h}, {w}, {blobs}, 8.0, 0)",
+        "config": spec["config"],
+        "canonical": "canonical_min_labels_np, int32, C order",
+        "fastmst": {"levels": fast, "final": _entry(oracle),
+                    "final_raw_sha256": hashlib.sha256(
+                        np.ascontiguousarray(f_labels, np.int32).tobytes()
+                    ).hexdigest()},
+        "superpixel": {"levels": sp}})
+
+    t0 = time.perf_counter()
+    np_levels, _ = superpixel_hierarchy_np(img_np, cfg)
+    print(f"superpixel_hierarchy_np {time.perf_counter() - t0:.1f} s, "
+          f"{np_levels.shape[0]} planes", flush=True)
+    for i in range(min(len(np_levels), len(s_levels))):
+        a = canonical_min_labels_np(np_levels[i])
+        b = canonical_min_labels_np(s_levels[i])
+        print(f"  plane {i}: NumPy spec {np.unique(a).size} components, "
+              f"model {np.unique(b).size}, {int((a != b).sum())} pixels "
+              "differ", flush=True)
+    return 0
+
+
 def main() -> int:
+    if "--dpp" in sys.argv[1:]:
+        return dpp_main()
     spec = LEVEL_ORACLES[NAME]
     h, w, blobs = spec["image"]
     cfg = SegmentationConfig(**spec["config"])

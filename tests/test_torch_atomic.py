@@ -10,9 +10,10 @@ sigma 0.1 (subnormal weights, see the test) against the reference's NumPy
 oracle, and canonically against its jax path. The same labels equal the
 port's NumPy Boruvka oracle's. `segment` routes
 turbo, atomic, atomic_hostsync, boruvka_cpu and kruskal_cpu to labels
-byte-equal to the reference's `segment`, refuses weight_buckets where the
-reference does, and raises NotImplementedError naming the ROADMAP item for
-the routes not ported yet.
+byte-equal to the reference's `segment` (fastmst and superpixel too),
+refuses weight_buckets where the reference does, and raises
+NotImplementedError naming the ROADMAP item for kruskal_native, the one
+route not ported yet.
 """
 
 import dataclasses
@@ -157,9 +158,17 @@ def test_weight_buckets_refused_where_ignored(algorithm):
 
 
 @pytest.mark.parametrize("algorithm,item", [
-    ("fastmst", "queue 1, item 6"), ("superpixel", "queue 1, item 6"),
+    ("fastmst", None), ("superpixel", None),
     ("kruskal_native", "queue 1, item 7")])
 def test_unported_routes_cite_their_roadmap_item(algorithm, item):
+    """Only kruskal_native is left unported; fastmst and superpixel route
+    to labels byte-equal to the reference's."""
     img = blobs_image(8, 8, 2, 6.0, 0)
+    if item is None:
+        want = gseg_tpu.segment(img, algorithm=algorithm)
+        got = gseg_tpu_torch.segment(img, algorithm=algorithm, device="cpu")
+        assert got.dtype == torch.int32
+        assert np.array_equal(np.asarray(want), got.numpy())
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
         gseg_tpu_torch.segment(img, algorithm=algorithm, device="cpu")

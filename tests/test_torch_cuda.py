@@ -677,3 +677,68 @@ def test_label_flood_seed_mask_changes_nothing(dev, monkeypatch):
         labels, flags = turbo.segment_turbo_impl(img, cfg, 2)
         assert flags == 0
     assert seen
+
+
+def test_fastmst_on_card_equals_cpu(dev):
+    """fastmst on the card gives the CPU run's root ids, flags and
+    hierarchy at the multi-chunk 260x300 shape (several 131072-slot chunks,
+    the V/16 run-out slice), through the value-flood kernel."""
+    from gseg_tpu_torch.models import fastmst
+
+    cfg = SegmentationConfig(k=150.0, min_size=20, algorithm="fastmst")
+    img = torch.from_numpy(blobs_image(260, 300, 8, 8.0, 5))
+    n0 = kg.value_flood.launches
+    got, flags = fastmst.segment_fastmst_flagged(img.to(dev), cfg)
+    assert kg.value_flood.launches > n0 and got.device.type == "cuda"
+    want, wflags = fastmst.segment_fastmst_flagged(img, cfg)
+    assert flags == wflags == 0 and torch.equal(got.cpu(), want)
+    got = fastmst.segment_fastmst_hierarchy_flagged(img.to(dev), cfg)
+    want = fastmst.segment_fastmst_hierarchy_flagged(img, cfg)
+    assert got[2] == want[2] == 0
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_superpixel_on_card_equals_cpu_and_repeats(dev):
+    """The superpixel hierarchy on the card gives the CPU run's levels at
+    260x300, and two runs on the card are bit-equal (the colour sums go
+    through the ordered scatter-add kernel, not atomics)."""
+    from gseg_tpu_torch.models import superpixel
+    from gseg_tpu_torch.ops.kernels import scatter as ks
+
+    cfg = SegmentationConfig(k=150.0, min_size=1, max_iters=12,
+                             algorithm="superpixel")
+    img = torch.from_numpy(blobs_image(260, 300, 8, 8.0, 5))
+    n0 = ks.ordered_scatter_add.launches
+    a = superpixel.segment_superpixel_hierarchy_flagged(img.to(dev), cfg)
+    assert ks.ordered_scatter_add.launches > n0
+    b = superpixel.segment_superpixel_hierarchy_flagged(img.to(dev), cfg)
+    want = superpixel.segment_superpixel_hierarchy_flagged(img, cfg)
+    assert a[2] == b[2] == want[2] == 0
+    assert torch.equal(a[0], b[0]) and torch.equal(a[0].cpu(), want[0])
+    lvl, flags = superpixel.segment_superpixel_flagged(img.to(dev), cfg)
+    assert flags == 0 and torch.equal(lvl.cpu(), want[0][4])
+
+
+@pytest.mark.parametrize("n,v,c", [(1, 1, 3), (5000, 200, 3),
+                                   (100_000, 3000, 1), (70_000, 50, 4),
+                                   (2_000_000, 500_000, 3)])
+def test_ordered_scatter_add_kernel_equals_plain(dev, n, v, c):
+    """The kernel equals the plain version bit for bit: targets with long
+    runs, dropped targets (negative and past the end), 1-4 floats a row."""
+    from gseg_tpu_torch.ops.kernels import scatter as ks
+
+    rng = np.random.default_rng(n + v + c)
+    base = torch.from_numpy(rng.uniform(0, 255, (v, c)).astype(np.float32))
+    idx = rng.integers(-3, v + 5, n).astype(np.int32)
+    idx[: n // 3] = rng.integers(0, max(v // 50, 1), n // 3)
+    idx = torch.from_numpy(idx)
+    vals = torch.from_numpy(rng.uniform(0, 1e4, (n, c)).astype(np.float32))
+    n0 = ks.ordered_scatter_add.launches
+    got = ks.ordered_scatter_add(base.to(dev), idx.to(dev), vals.to(dev))
+    assert ks.ordered_scatter_add.launches == n0 + 1
+    plain = ks.ordered_scatter_add_plain(base.to(dev), idx.to(dev),
+                                         vals.to(dev))
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), ks.ordered_scatter_add_plain(base, idx,
+                                                               vals))

@@ -8,8 +8,8 @@ quality mode (weight_buckets=16), and with fewer levels than stage-G
 rounds (only gossip levels, the last slot overwritten). Level 0 is the
 identity and every level nests in the next. `segment_hierarchy` routes
 turbo, atomic, atomic_hostsync and boruvka_cpu to the reference's results,
-byte for byte; the checked entry's overflow fallback raises
-NotImplementedError citing the fastmst item of ROADMAP.md.
+byte for byte (fastmst and superpixel too); the checked entry's overflow
+fallback returns the fastmst hierarchy, byte-equal to the reference's.
 """
 
 import dataclasses
@@ -101,12 +101,15 @@ def test_segment_hierarchy_dispatch_byte_equal(algorithm):
 
 
 def test_segment_hierarchy_refuses_what_the_reference_refuses():
+    """The Kruskal routes have no hierarchy mode; fastmst and superpixel
+    route to hierarchies byte-equal to the reference's."""
     img = blobs_image(8, 8, 2, 6.0, 0)
     for algorithm in ("fastmst", "superpixel"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, queue 1, item 6"):
-            gseg_tpu_torch.segment_hierarchy(img, algorithm=algorithm,
-                                             device="cpu")
+        want = gseg_tpu.segment_hierarchy(img, algorithm=algorithm)
+        got = gseg_tpu_torch.segment_hierarchy(img, algorithm=algorithm,
+                                               device="cpu")
+        for w, g in zip(want, got, strict=True):
+            assert np.array_equal(np.asarray(w), g.numpy())
     for algorithm in ("kruskal_cpu", "kruskal_native"):
         with pytest.raises(ValueError, match="no hierarchy mode"):
             gseg_tpu_torch.segment_hierarchy(img, algorithm=algorithm,
@@ -114,22 +117,28 @@ def test_segment_hierarchy_refuses_what_the_reference_refuses():
 
 
 def test_turbo_hierarchy_overflow_routes(monkeypatch):
-    """A flagged hierarchy raises, returns anyway under "ignore", and its
-    fallback (the fastmst hierarchy) is refused until fastmst is
-    ported."""
+    """A flagged hierarchy raises, returns anyway under "ignore", and falls
+    back to the fastmst hierarchy (n_levels + 2 planes, root ids),
+    byte-equal to the reference's fallback."""
     img, cfg = CASES["20x28-max_iters12"]
     levels, labels, _ = turbo.segment_turbo_hierarchy_flagged(
         torch.from_numpy(img), cfg)
+    ref_flagged = ref_turbo.segment_turbo_hierarchy_flagged
     monkeypatch.setattr(turbo, "segment_turbo_hierarchy_flagged",
                         lambda *a: (levels, labels,
                                     turbo.FLAG_PAIR_OVERFLOW))
+    monkeypatch.setattr(ref_turbo, "segment_turbo_hierarchy_flagged",
+                        lambda *a: (*ref_flagged(*a)[:2],
+                                    ref_turbo.FLAG_PAIR_OVERFLOW))
     x = torch.from_numpy(img)
     with pytest.raises(RuntimeError, match="pair-extraction"):
         turbo.segment_turbo_hierarchy(x, cfg)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1, item 6"):
-        turbo.segment_turbo_hierarchy(
-            x, dataclasses.replace(cfg, on_overflow="fallback"))
+    fb = dataclasses.replace(cfg, on_overflow="fallback")
+    want = ref_turbo.segment_turbo_hierarchy(jnp.asarray(img), _ref(fb))
+    got = turbo.segment_turbo_hierarchy(x, fb)
+    assert got[0].shape == (cfg.max_iters + 2, *img.shape[:2])
+    for w, g in zip(want, got, strict=True):
+        assert np.array_equal(np.asarray(w), g.numpy())
     got = turbo.segment_turbo_hierarchy(
         x, dataclasses.replace(cfg, on_overflow="ignore"))
     assert got[0] is levels and got[1] is labels

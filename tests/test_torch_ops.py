@@ -1,5 +1,6 @@
-"""PyTorch port (gseg_tpu_torch) vs the JAX reference: filters, edge-weight
-planes, incident views, synthetic images, label helpers and the config.
+"""PyTorch port (gseg_tpu_torch) vs the JAX reference: filters (Gaussian
+smoothing, Sobel magnitude), edge-weight planes, incident views, synthetic
+images, label helpers and the config.
 
 All comparisons are exact: the port's float32 filter chain is bit-equal to
 the reference's on the CPU."""
@@ -64,6 +65,21 @@ def test_edge_weight_planes_and_incident_views_bit_equal(connectivity, qbits):
     assert np.array_equal(np.asarray(re8), ge8.numpy())
 
 
+@pytest.mark.parametrize("shape", [(37, 53, 3), (1, 29, 3), (12, 14, 2),
+                                   (16, 9)])
+@pytest.mark.parametrize("smooth", [False, True])
+def test_sobel_magnitude_bit_equal(shape, smooth):
+    """Luma (or the channel mean), both separable Sobel passes and the root
+    equal the reference's op by op, on raw and on smoothed images."""
+    img = np.random.default_rng(sum(shape)).integers(0, 256, shape).astype(
+        np.uint8)
+    if smooth:
+        img = np.array(jfilters.gaussian_smooth(jnp.asarray(img), 0.8))
+    ref = np.asarray(jfilters.sobel_magnitude(jnp.asarray(img)))
+    got = tfilters.sobel_magnitude(torch.from_numpy(img))
+    assert got.dtype == torch.float32 and np.array_equal(ref, got.numpy())
+
+
 @pytest.mark.parametrize("dy,dx", list(jgg.DIRS8))
 def test_shift_and_valid_planes_equal(dy, dx):
     x = np.arange(7 * 9, dtype=np.int32).reshape(7, 9)
@@ -118,6 +134,9 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import gseg_tpu_torch, gseg_tpu_torch.models.turbo\n"
+        "import gseg_tpu_torch.models.fastmst\n"
+        "import gseg_tpu_torch.models.superpixel\n"
+        "import gseg_tpu_torch.models.fastmst_np\n"
         "import gseg_tpu_torch.ops.kernels.gossip\n"
         "import gseg_tpu_torch.ops.kernels.extract\n"
         "import gseg_tpu_torch.utils.synthetic, gseg_tpu_torch.utils.labels\n"

@@ -6,7 +6,10 @@ are mins, maxes or exact copies of their inputs): `pointer_double`,
 `component_min_edge` (weights drawn from a few values, so many vertices
 tie and phase 2's edge-id rule decides), `remove_mutual_hooks`,
 `segment_sum` / `segment_max` with indices out of range (dropped),
-`flat_offsets`, `edge_endpoints` (INT32_MAX ids included) and `edge_list`.
+`flat_offsets`, `edge_endpoints` (INT32_MAX ids included) and `edge_list`;
+the stream compactions `block_compact`, `sparse_select` and
+`compact_indices`, at sparse, dense and empty masks, with and without
+overflow.
 """
 
 import numpy as np
@@ -132,3 +135,46 @@ def test_edge_endpoints_and_edge_list(h, w):
     a, b = tgg.edge_endpoints(torch.from_numpy(ids), w)
     assert np.array_equal(a.numpy(), src[ids])
     assert np.array_equal(b.numpy(), dst[ids])
+
+
+MASKS = [(1000, 0.05, 128), (777, 0.3, 64), (640, 0.9, 256), (50, 0.0, 64)]
+
+
+def _mask_and_payload(n, p):
+    rng = np.random.default_rng(n)
+    mask = rng.random(n) < p
+    return (mask, rng.integers(-5, 1000, n).astype(np.int32),
+            rng.random(n).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,p,cap", MASKS)
+def test_block_compact_matches_reference(n, p, cap):
+    mask, a, b = _mask_and_payload(n, p)
+    rm, routs, rovf = jp.block_compact(jnp.asarray(mask),
+                                       [jnp.asarray(a), jnp.asarray(b)], cap)
+    gm, gouts, govf = tp.block_compact(torch.from_numpy(mask),
+                                       [torch.from_numpy(a),
+                                        torch.from_numpy(b)], cap)
+    _same(rm, gm)
+    for r, g in zip(routs, gouts, strict=True):
+        _same(r, g)
+    assert bool(rovf) == bool(govf)
+
+
+@pytest.mark.parametrize("n,p,cap", MASKS)
+def test_sparse_select_and_compact_indices_match_reference(n, p, cap):
+    mask, a, b = _mask_and_payload(n, p)
+    for c in (cap, 5):  # 5: overflow unless the mask is nearly empty
+        rm, routs, rovf = jp.sparse_select(
+            jnp.asarray(mask), [jnp.asarray(a), jnp.asarray(b)], c)
+        gm, gouts, govf = tp.sparse_select(
+            torch.from_numpy(mask), [torch.from_numpy(a),
+                                     torch.from_numpy(b)], c)
+        _same(rm, gm)
+        for r, g in zip(routs, gouts, strict=True):
+            _same(r, g)
+        assert bool(rovf) == bool(govf)
+        ri, rc = jp.compact_indices(jnp.asarray(mask), c)
+        gi, gc = tp.compact_indices(torch.from_numpy(mask), c)
+        _same(ri, gi)
+        _same(rc, gc)

@@ -213,12 +213,14 @@ def test_segment_api():
     assert np.array_equal(labels.numpy(),
                           canonical_min_labels_np(labels.numpy()))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gseg_tpu_torch.segment(img, algorithm="fastmst", device="cpu")
-    # the atomic path is ported: root vertex ids, the oracle partition.
-    labels = gseg_tpu_torch.segment(img, k=100.0, min_size=8,
-                                    algorithm="atomic", device="cpu")
-    assert np.array_equal(canonical_min_labels_np(labels.numpy()),
-                          _oracle(img, cfg))
+        gseg_tpu_torch.segment(img, algorithm="kruskal_native", device="cpu")
+    # the atomic and fastmst paths are ported: root vertex ids, the oracle
+    # partition.
+    for algorithm in ("atomic", "fastmst"):
+        labels = gseg_tpu_torch.segment(img, k=100.0, min_size=8,
+                                        algorithm=algorithm, device="cpu")
+        assert np.array_equal(canonical_min_labels_np(labels.numpy()),
+                              _oracle(img, cfg))
     # quality mode is ported: weight_buckets=8 gives the bucketed oracle.
     qcfg = dataclasses.replace(cfg, weight_buckets=8)
     labels = gseg_tpu_torch.segment(img, config=qcfg, device="cpu")

@@ -117,19 +117,21 @@ def test_quality_mode_matches_pallas_closure_path(monkeypatch):
 def test_segment_api_quality_mode():
     """A config's default algorithm is the port's "turbo": quality mode runs
     from the config alone; a config naming "atomic" with weight buckets is
-    refused as the reference refuses it (that path ignores them), and one
-    naming "fastmst" (not ported) raises NotImplementedError."""
+    refused as the reference refuses it (that path ignores them), as is one
+    naming "fastmst", and one naming "kruskal_native" (not ported) raises
+    NotImplementedError."""
     img = blobs_image(48, 64, 5, 4.0, 1)
     cfg = SegmentationConfig(k=30.0, min_size=10, weight_buckets=16)
     labels = gseg_tpu_torch.segment(img, config=cfg, device="cpu")
     assert labels.dtype == torch.int32 and labels.device.type == "cpu"
     assert np.array_equal(labels.numpy(), _oracle(img, cfg))
-    with pytest.raises(ValueError, match="weight_buckets=16"):
-        gseg_tpu_torch.segment(img, config=dataclasses.replace(
-            cfg, algorithm="atomic"), device="cpu")
+    for algorithm in ("atomic", "fastmst"):
+        with pytest.raises(ValueError, match="weight_buckets=16"):
+            gseg_tpu_torch.segment(img, config=dataclasses.replace(
+                cfg, algorithm=algorithm), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gseg_tpu_torch.segment(img, config=dataclasses.replace(
-            cfg, algorithm="fastmst", weight_buckets=0), device="cpu")
+            cfg, algorithm="kruskal_native", weight_buckets=0), device="cpu")
 
 
 @pytest.mark.parametrize("gossip_rounds", [1, 4])
