@@ -99,7 +99,33 @@ arguments). It
      rounds and final map or render; the colour-sum helper
      (`kernels.scatter.ordered_scatter_add`, `csrc/scatter.cu`) is held
      against its plain version at the random shapes and timed at the
-     superpixel path's round-1 call.
+     superpixel path's round-1 call;
+  8. drives the CLI (`gseg_tpu_torch.cli.main`, in this process, on the
+     default device) on the 1080p image written as a PPM: `1080p_cli`
+     (the default turbo path: labels 0 pixels off the 1080p oracle,
+     launches those of `1080p_subsum`, out.ppm one colour per component
+     and as many colours as components), the same command as `python -m
+     gseg_tpu_torch` in a subprocess (labels equal), `1080p_cli_level4`
+     (`--hierarchy-level 4`: the level oracle's level 4, the turbo
+     hierarchy's launches) and `1080p_cli_kruskal_native` (the C++
+     baseline on the host, built with g++: no launch, every component at
+     least min_size; its time beside the host CPU's name and the
+     reference's CPU baseline on its own machine);
+  9. runs the reference's quality protocol (scripts/run_evidence.py:
+     241-300) over `bsds_like_quality_set(n=20)` (321x481, 5
+     pseudo-ground-truths each) at K=80, min_size 100, on_overflow
+     "fallback": turbo, fastmst and superpixel at hierarchy level 4
+     (`bench.harness.segment_level_fn`), turbo_wb16's final map, atomic,
+     kruskal_native and boruvka_cpu (`segment_fn`), each algorithm with
+     the launch counts set to 0 just before its 20 images and read just
+     after (RECORDED_LAUNCHES), its host reads, median ms per image and
+     hybrid fixpoints; after holding every kernel of the turbo paths
+     against its plain version at image 0's fields, and the value flood
+     (and superpixel's colour-sum helper) at every call that the fastmst
+     and superpixel rows make on image 0. Every row is scored
+     with `asa_ue_best_gt` on the host and with `asa_ue_torch` on the
+     card (equal), and must equal the committed record
+     (bench_out/bsds_quality.jsonl) exactly.
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -114,11 +140,14 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path as FsPath
 from typing import NamedTuple
@@ -127,6 +156,7 @@ import numpy as np
 import torch
 
 from gseg_tpu_torch.config import SegmentationConfig
+from gseg_tpu_torch.metrics.compare import asa_ue_best_gt, asa_ue_torch
 from gseg_tpu_torch.models import atomic_boruvka, fastmst, superpixel, turbo
 from gseg_tpu_torch.ops import filters
 from gseg_tpu_torch.ops import grid_graph as gg
@@ -138,7 +168,8 @@ from gseg_tpu_torch.ops.kernels import runs as kr
 from gseg_tpu_torch.ops.kernels import scatter as ks
 from gseg_tpu_torch.oracles import (load_level_oracle, load_oracle,
                                     oracle_path)
-from gseg_tpu_torch.utils.labels import canonical_min_labels_np
+from gseg_tpu_torch.utils.labels import (canonical_min_labels_np,
+                                         compact_labels_np)
 from gseg_tpu_torch.utils.synthetic import blobs_image
 
 ROOT = FsPath(__file__).resolve().parent
@@ -208,8 +239,25 @@ class Kernel(NamedTuple):
 # 1080p_atomic_hierarchy (no kernel) and the turbo hierarchy.
 TURBO_HIERARCHY = "1080p_turbo_hierarchy"
 LEVEL_ORACLE = "levels_blobs_1080x1920_wb0"
-ALL = set(PATHS) | {TURBO_HIERARCHY}
-SPEED_SUBSUM = {"1080p_subsum", "4k_subsum"}
+# step 8: the CLI (`gseg_tpu_torch.cli`) at 1080p: the default turbo path,
+# its hierarchy's level 4, and the C++ kruskal_native baseline on the host
+CLI = "1080p_cli"
+CLI_LEVEL4 = "1080p_cli_level4"
+CLI_NATIVE = "1080p_cli_kruskal_native"
+# the reference's CPU baseline (official Felzenszwalb C++) at 1080p, total,
+# on the reference's machine (BASELINE.md:49)
+REFERENCE_CPU_1080P_S = 2.60
+# step 9: the reference's quality protocol (scripts/run_evidence.py:69-77,
+# :241-300): K=80, min_size 100, on_overflow "fallback", hierarchy level
+# 4 (turbo_wb16: the final map) over bsds_like_quality_set(n=20)
+QUALITY_ALGOS = (("turbo", {}), ("turbo_wb16", {"weight_buckets": 16}),
+                 ("fastmst", {}), ("atomic", {}), ("superpixel", {}),
+                 ("kruskal_native", {}), ("boruvka_cpu", {}))
+BSDS = {name: f"bsds_like_quality_{name}" for name, _ in QUALITY_ALGOS}
+QUALITY_RECORD = ROOT / "bench_out/bsds_quality.jsonl"
+ALL = set(PATHS) | {TURBO_HIERARCHY, CLI, CLI_LEVEL4, BSDS["turbo"],
+                    BSDS["turbo_wb16"]}
+SPEED_SUBSUM = {"1080p_subsum", "4k_subsum", CLI}
 # step 7: the DPP paths (gseg_tpu_torch.models.fastmst / superpixel), each
 # with the launch counts set to 0 just before it and read just after.
 DPP_ORACLE = "levels_dpp_blobs_1080x1920"
@@ -241,7 +289,8 @@ KERNELS = {
     "gossip_value": Kernel(
         kg, "value_flood", kg.value_flood_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_value_step :1120)",
-        ALL | DPP, set(), 12, 16, (r"\bfixpoint_pass<.*\bValueOp>",)),
+        ALL | DPP | {BSDS["fastmst"], BSDS["superpixel"]}, set(), 12, 16,
+        (r"\bfixpoint_pass<.*\bValueOp>",)),
     "gossip_subsum": Kernel(
         kg, "subtree_sums", kg.subtree_sums_plain,
         "gseg_tpu_torch/csrc/gossip.cu",
@@ -282,7 +331,8 @@ KERNELS = {
         kg, "value_closure", kg.value_closure_plain,
         "gseg_tpu_torch/csrc/closure.cu",
         _CLOSURE + "_value_closure :1141, combine :1135)",
-        {"1080p_wb16_closures"}, {"1080p_wb16", "4k_wb16", TURBO_HIERARCHY},
+        {"1080p_wb16_closures"}, {"1080p_wb16", "4k_wb16", TURBO_HIERARCHY,
+                                  CLI_LEVEL4},
         2 * 12, 2 * 8, (r"\bclosure_(rows|cols)<.*\bValueOp\b",)),
     "run_extract": Kernel(
         kr, "run_extract", kr.run_extract_plain,
@@ -297,7 +347,8 @@ KERNELS = {
         "gseg_tpu_torch/csrc/scatter.cu",
         "none: a helper for the XLA scatter-adds of "
         "gseg_tpu/models/superpixel.py:95 and :209",
-        set(SUPERPIXEL), set(), None, 1, (r"\brun_sums\b",)),
+        set(SUPERPIXEL) | {BSDS["superpixel"]}, set(), None, 1,
+        (r"\brun_sums\b",)),
 }
 PADS = ("pad_fields", "unpad_fields")
 # the step kernel's wrappers -> their variant in ops/kernels/gossip.py
@@ -350,6 +401,26 @@ RECORDED_LAUNCHES = {
     "1080p_superpixel": ("8a", dict(gossip_value=3, ordered_scatter_add=4)),
     "1080p_superpixel_hierarchy": ("8a", dict(gossip_value=30,
                                               ordered_scatter_add=11)),
+}
+# the CLI runs the 1080p default path and the turbo hierarchy; the host
+# baseline launches nothing
+RECORDED_LAUNCHES[CLI] = RECORDED_LAUNCHES["1080p_subsum"]
+RECORDED_LAUNCHES[CLI_LEVEL4] = RECORDED_LAUNCHES[TURBO_HIERARCHY]
+RECORDED_LAUNCHES[CLI_NATIVE] = ("9a", {})
+# the quality protocol, summed over its 20 images: the turbo hierarchy and
+# the quality-mode final map (no hybrid fixpoint reaches the closures),
+# the DPP hierarchies' floods and colour sums; the rest launch nothing
+RECORDED_LAUNCHES |= {
+    BSDS["turbo"]: ("9a", dict(gossip_compmin=294, gossip_labelnd=500,
+                               gossip_value=1306, boundary_extract=20)),
+    BSDS["turbo_wb16"]: ("9a", dict(gossip_compmin=3184, gossip_labelnd=3758,
+                                    gossip_value=347, boundary_extract=20)),
+    BSDS["fastmst"]: ("9a", dict(gossip_value=472)),
+    BSDS["atomic"]: ("9a", {}),
+    BSDS["superpixel"]: ("9a", dict(gossip_value=502,
+                                    ordered_scatter_add=196)),
+    BSDS["kruskal_native"]: ("9a", {}),
+    BSDS["boruvka_cpu"]: ("9a", {}),
 }
 CLOSURES = ("closure_compmin", "closure_labelnd", "closure_value")
 # closure kernel -> the fixpoint whose fields it is checked and timed at
@@ -824,32 +895,43 @@ def _clone(a):
     return a
 
 
-def _capture_main_path_fields(image, cfg):
-    """Run the main path once, recording each wrapper's first real call
-    (compmin's first non-idle one). Returns name -> (args, kwargs)."""
-    captured = {}
-    names = [n for n in KERNELS if n not in CLOSURES]
+def _wrapper_calls(names, run, first_only=False):
+    """Run run() once, recording every real call (idle ones left out) of
+    each named kernel wrapper, or with `first_only` its first one. Returns
+    name -> [(args, kwargs), ...]."""
+    calls = {name: [] for name in names}
     originals = {name: _wrapper(name) for name in names}
 
     def recorder(name):
         fn = originals[name]
 
         def rec(*args, **kwargs):
-            if name not in captured and not kwargs.get("idle", False):
-                captured[name] = (_clone(args),
-                                  {k: v for k, v in kwargs.items()
-                                   if k != "idle"})
+            if not kwargs.get("idle", False) and not (first_only
+                                                      and calls[name]):
+                calls[name].append((_clone(args),
+                                    {k: v for k, v in kwargs.items()
+                                     if k != "idle"}))
             return fn(*args, **kwargs)
         return rec
 
     for name in names:
         setattr(KERNELS[name].mod, KERNELS[name].attr, recorder(name))
     try:
-        turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)
+        run()
     finally:
         for name, fn in originals.items():
             setattr(KERNELS[name].mod, KERNELS[name].attr, fn)
-    return captured
+    return calls
+
+
+def _capture_main_path_fields(image, cfg):
+    """Run the turbo main path once, recording each wrapper's first real
+    call (compmin's first non-idle one). Returns name -> (args, kwargs)."""
+    calls = _wrapper_calls(
+        [n for n in KERNELS if n not in CLOSURES],
+        lambda: turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS),
+        first_only=True)
+    return {name: c[0] for name, c in calls.items() if c}
 
 
 def _stage_split(image, cfg, reps):
@@ -1719,24 +1801,6 @@ def _host_reads():
             setattr(torch.Tensor, n, fn)
 
 
-def _first_call(name, run):
-    """The arguments of the first call of one kernel wrapper in run()."""
-    k = KERNELS[name]
-    fn, got = getattr(k.mod, k.attr), []
-
-    def rec(*args, **kwargs):
-        if not got:
-            got.append(_clone(args))
-        return fn(*args, **kwargs)
-
-    setattr(k.mod, k.attr, rec)
-    try:
-        run()
-    finally:
-        setattr(k.mod, k.attr, fn)
-    return got[0]
-
-
 def _dpp_split(path, image, cfg, reps=3):
     """Median ms of the DPP stages, run in sequence as the path runs them:
     round 1, extraction, compact rounds, final map (fastmst) or render of
@@ -1922,10 +1986,286 @@ def _dpp_paths(images, card):
         raise AssertionError("1080p_superpixel_hierarchy: runs differ")
     out["1080p_superpixel_hierarchy"]["level_components"] = counts
 
-    args = _first_call("ordered_scatter_add", sp_hierarchy)
+    args = _wrapper_calls(["ordered_scatter_add"], sp_hierarchy,
+                          first_only=True)["ordered_scatter_add"][0][0]
     timed = _time_kernels({"ordered_scatter_add": (args, {})},
                           "1080p_superpixel round-1 colour sums", card, 3)
     return out, timed
+
+
+def _cli(argv):
+    """`gseg_tpu_torch.cli.main(argv)` in this process: (its --time record,
+    wall seconds). The CLI's JSON line is printed as it comes."""
+    from gseg_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main{argv} returned {rc}")
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"  cli: {line}", flush=True)
+    return json.loads(line), wall
+
+
+def _check_render(render, labels, what, distinct):
+    """Every component of `labels` painted in one colour; with `distinct`,
+    as many colours as components (random colours of many components may
+    coincide: 8,154 of 226^3 share ~3 by chance)."""
+    code = (render[..., 0].astype(np.int64) << 16
+            | render[..., 1].astype(np.int64) << 8 | render[..., 2])
+    n = np.unique(labels).size
+    pairs = np.unique(labels.astype(np.int64) << 24 | code).size
+    colours = np.unique(code).size
+    print(f"  {what}: {n} components, {pairs} (component, colour) pairs, "
+          f"{colours} colours", flush=True)
+    if pairs != n or (distinct and colours != n):
+        raise AssertionError(f"{what}: the rendering does not paint one "
+                             "colour per component")
+
+
+def _cli_paths(image, card):
+    """Step 8: the CLI at 1080p on the card, each run with the launch counts
+    set to 0 just before it and read just after. Returns name -> record."""
+    from gseg_tpu_torch.utils import image_io
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = FsPath(tmp)
+        src = str(tmp / "in.ppm")
+        image_io.write_ppm(src, image.cpu().numpy())
+
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rec, wall = _cli([src, str(tmp / "out.ppm"), "--labels-out",
+                          str(tmp / "l.npy"), "--time"])
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        _check_path_launches(CLI, launches)
+        labels = np.load(tmp / "l.npy")
+        oracle = load_oracle(_WB0)
+        ndiff = int((canonical_min_labels_np(labels) != oracle).sum())
+        print(f"main path {CLI}: launches {launches} (equal to "
+              f"1080p_subsum's, run {RECORDED_LAUNCHES[CLI][0]}); oracle "
+              f"partition ({_WB0.relative_to(ROOT)}): {ndiff} pixels "
+              f"differ; segment_s {rec['segment_s']}, whole run "
+              f"{wall:.3f} s; peak memory {peak:.1f} MiB ({card})",
+              flush=True)
+        if ndiff:
+            raise AssertionError(f"{CLI}: partition differs from the oracle")
+        _check_render(image_io.read_image(str(tmp / "out.ppm")), labels,
+                      f"{CLI} out.ppm", distinct=True)
+        out[CLI] = {"launches": launches, "segment_s": rec["segment_s"],
+                    "whole_run_s": wall, "peak_mib": peak,
+                    "oracle_pixels_differ": ndiff}
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gseg_tpu_torch", src,
+             str(tmp / "sub.ppm"), "--labels-out", str(tmp / "sub.npy"),
+             "--time"], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        sub_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError("python -m gseg_tpu_torch exited "
+                                 f"{proc.returncode}:\n{proc.stderr}")
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        same = np.array_equal(np.load(tmp / "sub.npy"), labels)
+        print(f"  {CLI} as `python -m gseg_tpu_torch`: {proc.stdout.strip()}"
+              f"; process {sub_wall:.3f} s; labels equal to the in-process "
+              f"run's: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{CLI}: the subprocess's labels differ")
+        out[CLI] |= {"subprocess_s": sub_wall,
+                     "subprocess_segment_s": sub["segment_s"]}
+
+        _reset_counts()
+        rec, wall = _cli([src, str(tmp / "l4.ppm"), "--hierarchy-level", "4",
+                          "--labels-out", str(tmp / "l4.npy"), "--time"])
+        launches = _counts()
+        _check_path_launches(CLI_LEVEL4, launches)
+        l4 = np.load(tmp / "l4.npy")
+        n, sha = _level_stats(torch.from_numpy(canonical_min_labels_np(l4)))
+        ref = load_level_oracle(LEVEL_ORACLE)["levels"][4]
+        print(f"main path {CLI_LEVEL4}: launches {launches} (equal to "
+              f"{TURBO_HIERARCHY}'s, run {RECORDED_LAUNCHES[CLI_LEVEL4][0]});"
+              f" level 4: {n} components, canonical sha256 equal to the "
+              f"level oracle's ({ref['components']} components): "
+              f"{sha == ref['sha256']}; segment_s {rec['segment_s']}, whole "
+              f"run {wall:.3f} s ({card})", flush=True)
+        if sha != ref["sha256"]:
+            raise AssertionError(f"{CLI_LEVEL4}: level 4 differs")
+        _check_render(image_io.read_image(str(tmp / "l4.ppm")), l4,
+                      f"{CLI_LEVEL4} l4.ppm", distinct=False)
+        out[CLI_LEVEL4] = {"launches": launches,
+                           "segment_s": rec["segment_s"],
+                           "whole_run_s": wall, "level4_components": n}
+
+        _reset_counts()
+        rec, wall = _cli([src, str(tmp / "kn.ppm"), "--algorithm",
+                          "kruskal_native", "--labels-out",
+                          str(tmp / "kn.npy"), "--time"])
+        launches = _counts()
+        _check_path_launches(CLI_NATIVE, launches)
+        sizes = np.bincount(np.load(tmp / "kn.npy").ravel())
+        host = _build.host_cpu()
+        print(f"main path {CLI_NATIVE}: launches none; {sizes.size} "
+              f"components, the smallest {sizes.min()} px (min_size 100); "
+              f"segment_s {rec['segment_s']} on the host ({host}; C++ "
+              "felz.cpp built with g++ -O3 -march=native), whole run "
+              f"{wall:.3f} s; the reference's CPU baseline on its own "
+              f"machine: {REFERENCE_CPU_1080P_S} s total (BASELINE.md:49)",
+              flush=True)
+        if sizes.min() < CFG.min_size:
+            raise AssertionError(f"{CLI_NATIVE}: a component below "
+                                 "min_size")
+        out[CLI_NATIVE] = {"launches": launches,
+                           "segment_s": rec["segment_s"],
+                           "whole_run_s": wall, "host_cpu": host,
+                           "components": int(sizes.size)}
+    return out
+
+
+def _bsds_field_checks(image, errs):
+    """Every kernel of the turbo path against its plain version (and the
+    step kernels pass by pass against step_pass_plain) at the fields that
+    `segment_turbo_flagged` gives them on image 0 of step 9, in speed and
+    quality mode at K=80."""
+    for extra in ({}, {"weight_buckets": 16}):
+        cfg = SegmentationConfig(k=80.0, min_size=100, **extra)
+        label = f"bsds_like 321x481 wb{cfg.weight_buckets}"
+        fields = _capture_main_path_fields(image, cfg)
+        for name in [n for n in STEP if n in fields]:
+            n, err = _gated_passes(name, *fields[name])
+            errs[name] = max(errs[name], err)
+            print(f"check {name} {label} main-path fields gated passes: {n} "
+                  "passes equal to step_pass_plain", flush=True)
+        for name, (args, kwargs) in fields.items():
+            errs[name] = max(errs[name], _compare(name, args, kwargs))
+            print(f"check {name} {label} main-path fields {sorted(kwargs)}:"
+                  " equal to plain", flush=True)
+
+
+def _bsds_dpp_field_checks(image, errs):
+    """The value-flood kernel, and on superpixel the colour-sum helper,
+    against its plain version at every call that the fastmst and
+    superpixel rows of step 9 make on image 0 (`segment_level_fn` at the
+    protocol's configuration)."""
+    from gseg_tpu_torch.bench import harness
+
+    h, w = image.shape[:2]
+    for algo, names in (("fastmst", ["gossip_value"]),
+                        ("superpixel", ["gossip_value",
+                                        "ordered_scatter_add"])):
+        cfg = SegmentationConfig(k=80.0, min_size=100,
+                                 on_overflow="fallback")
+        fn = harness.segment_level_fn(algo, cfg, level=4,
+                                      device=image.device)
+        calls = _wrapper_calls(names, lambda: fn(image))
+        for name in names:
+            for args, kwargs in calls[name]:
+                errs[name] = max(errs[name], _compare(name, args, kwargs))
+            print(f"check {name} bsds_like {h}x{w} {algo} level 4 main-path"
+                  f" fields: all {len(calls[name])} calls equal to plain",
+                  flush=True)
+            if not calls[name]:
+                raise AssertionError(f"{name}: no call on the {algo} row")
+
+
+def _score_on_device(labels, dev_gts):
+    """ASA/UE of `labels` against the ASA-maximizing ground truth (the
+    first on a tie), each with asa_ue_torch on the labels' device."""
+    uniq, seg = torch.unique(labels, return_inverse=True)
+    best = (-1.0, 0.0)
+    for gt, ngt in dev_gts:
+        asa, ue = asa_ue_torch(seg, gt, uniq.numel(), ngt)
+        if float(asa) > best[0]:
+            best = (float(asa), float(ue))
+    return best
+
+
+def _bsds_quality(dev, card, errs):
+    """Step 9: the reference's quality protocol on the card, each algorithm
+    with the launch counts set to 0 just before its 20 images and read just
+    after. Every row is scored with asa_ue_best_gt on the host and with
+    asa_ue_torch on the card, and must equal the committed record's row.
+    Returns name -> record."""
+    from gseg_tpu_torch.bench import harness
+    from gseg_tpu_torch.utils.datasets import bsds_like_quality_set
+
+    samples = list(bsds_like_quality_set(n=20))
+    with open(QUALITY_RECORD) as f:
+        record = {(r["image"], r["algorithm"]): r
+                  for r in map(json.loads, f)}
+    images = [torch.from_numpy(img).to(dev) for _, img, _ in samples]
+    dev_gts = []
+    for _, _, gts in samples:
+        dev_gts.append([])
+        for g in gts:
+            u, inv = torch.unique(torch.from_numpy(g).to(dev),
+                                  return_inverse=True)
+            dev_gts[-1].append((inv, u.numel()))
+    _bsds_field_checks(images[0], errs)
+    _bsds_dpp_field_checks(images[0], errs)
+    out, bad = {}, []
+    for name, extra in QUALITY_ALGOS:
+        path = BSDS[name]
+        base = "turbo" if extra else name
+        cfg = SegmentationConfig(k=80.0, min_size=100,
+                                 on_overflow="fallback", **extra)
+        fn = (harness.segment_fn(base, cfg) if extra
+              else harness.segment_level_fn(base, cfg, level=4))
+        _reset_counts()
+        labels, ms = [], []
+        with _host_reads() as reads:
+            for image in images:
+                t0 = time.perf_counter()
+                labels.append(fn(image))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        launches, axis = _counts(), _axis_counts()
+        hybrid = list(kg.HYBRID_LOG)
+        rows = []
+        for (iname, _, gts), lab, dgts in zip(samples, labels, dev_gts):
+            host = asa_ue_best_gt(compact_labels_np(lab.cpu().numpy()), gts)
+            on_dev = _score_on_device(lab, dgts)
+            ref = record[iname, name]
+            rows.append(host)
+            if on_dev != host or host != (ref["asa"], ref["ue"]):
+                bad.append((name, iname))
+                print(f"  {path} {iname}: host {host}, card {on_dev}, "
+                      f"record {(ref['asa'], ref['ue'])}", flush=True)
+        asa = statistics.median(r[0] for r in rows)
+        ue = statistics.median(r[1] for r in rows)
+        rec_rows = [record[iname, name] for iname, _, _ in samples]
+        engaged = [h for h in hybrid if h[2] > 0]
+        print(f"main path {path}: launches {launches}, host reads "
+              f"{reads[0]}, {len(hybrid)} hybrid fixpoints, {len(engaged)} "
+              f"of them reached the closures (closure launches rows, "
+              f"columns {axis}); ASA median {asa:.4f} (record "
+              f"{statistics.median(r['asa'] for r in rec_rows):.4f}), UE "
+              f"median {ue:.4f} (record "
+              f"{statistics.median(r['ue'] for r in rec_rows):.4f}); median "
+              f"{statistics.median(ms):.3f} ms per image of {len(ms)} ({card}"
+              + (f"; host {_build.host_cpu()}"
+                 if name in ("kruskal_native", "boruvka_cpu") else "")
+              + ")", flush=True)
+        _check_path_launches(path, launches)
+        out[path] = {"launches": launches, "host_reads": reads[0],
+                     "median_ms_per_image": statistics.median(ms),
+                     "asa_median": asa, "ue_median": ue,
+                     "hybrid_fixpoints": len(hybrid),
+                     "hybrid_reached_closures": len(engaged),
+                     "closure_launches_rows_cols": axis}
+    n = len(QUALITY_ALGOS) * len(samples)
+    print(f"check bsds_like_quality: {n - len(bad)} of {n} rows equal to "
+          f"{QUALITY_RECORD.relative_to(ROOT)} and to asa_ue_torch on the "
+          "card", flush=True)
+    if bad:
+        raise AssertionError(f"bsds_like_quality: rows {bad} differ")
+    return out
 
 
 # per-kernel keys of the kernels line beyond the contract's, where measured
@@ -2047,6 +2387,11 @@ def main() -> None:
         errs["ordered_scatter_add"],
         timed["1080p_superpixel"]["ordered_scatter_add"]["max_abs_err"])
     print(f"DPP paths done at {time.perf_counter() - t0:.1f} s", flush=True)
+    runs |= _cli_paths(images[1080, 1920], card)
+    print(f"CLI paths done at {time.perf_counter() - t0:.1f} s", flush=True)
+    runs |= _bsds_quality(dev, card, errs)
+    print(f"bsds_like_quality done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
                                    for m in sys.modules):

@@ -20,14 +20,19 @@ imports torch and never jax. It ports:
     CUDA helper adds in the reference's order), both with their
     hierarchies, their maps rendered by the step kernel's value flood;
   - the NumPy oracles `models.boruvka_cpu`, `models.felzenszwalb_cpu` and
-    `models.fastmst_np` (committed oracle data in `oracles/`).
-The native Kruskal baseline is not ported yet.
+    `models.fastmst_np` (committed oracle data in `oracles/`), and the C++
+    Felzenszwalb baseline `kruskal_native` (`native/`, built with g++ on
+    first use);
+  - the user surface: the CLI (`python -m gseg_tpu_torch`, `cli.py`),
+    image I/O, `colorize`, the ASA/UE metrics (`metrics.compare`), the
+    quality datasets (`utils.datasets`) and the quality benchmark
+    (`python -m gseg_tpu_torch.bench quality`).
 
 Public API:
     segment(image, sigma=.8, k=300, min_size=100, algorithm="turbo",
             device=None) -> (H, W) int32 label tensor
     segment_hierarchy(...) -> (levels (L, H, W), labels (H, W))
-    SegmentationConfig
+    SegmentationConfig, colorize, colorize_hierarchy, compact_labels_np
 Both run on cuda:0 unless device="cpu" is given. The default algorithm is
 "turbo", where the reference's is "atomic": the port's default path is the
 one that runs its hand-written kernels.
@@ -39,14 +44,20 @@ import numpy as np
 import torch
 
 from .config import ALGORITHMS, SegmentationConfig
+from .utils.labels import colorize, colorize_hierarchy, compact_labels_np
 
-__all__ = ["ALGORITHMS", "SegmentationConfig", "segment",
-           "segment_hierarchy"]
+__version__ = "0.1.0"
 
-# ROADMAP.md items of the algorithms that are not ported yet.
-_NOT_PORTED = {
-    "kruskal_native": "queue 1, item 7",
-}
+__all__ = [
+    "ALGORITHMS",
+    "SegmentationConfig",
+    "segment",
+    "segment_hierarchy",
+    "colorize",
+    "colorize_hierarchy",
+    "compact_labels_np",
+    "__version__",
+]
 
 # Paths that honor cfg.weight_buckets (the quality-mode bucket ramp); every
 # other algorithm would silently ignore it.
@@ -66,15 +77,9 @@ def _check_weight_buckets(cfg: SegmentationConfig, route: str) -> None:
         )
 
 
-def _config(config, hierarchy=False, **kw) -> SegmentationConfig:
+def _config(config, **kw) -> SegmentationConfig:
     cfg = config or SegmentationConfig(**kw)
     _check_weight_buckets(cfg, cfg.algorithm)
-    # kruskal_native has no hierarchy mode in the reference either
-    if cfg.algorithm in _NOT_PORTED and not (
-            hierarchy and cfg.algorithm == "kruskal_native"):
-        raise NotImplementedError(
-            f"algorithm {cfg.algorithm!r} is not ported yet (ROADMAP.md, "
-            f"{_NOT_PORTED[cfg.algorithm]})")
     return cfg
 
 
@@ -111,9 +116,10 @@ def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="turbo",
     device: default cuda:0, whatever device the image is on; without a
     CUDA device this raises RuntimeError. Pass device="cpu" to run on the
     CPU (the kernels' plain PyTorch versions). The boruvka_cpu and
-    kruskal_cpu oracles run on the host and return their labels on
-    `device`. The superpixel route returns one level of its hierarchy
-    (cfg.hierarchy_levels, default 4)."""
+    kruskal_cpu oracles and the kruskal_native C++ baseline run on the
+    host and return their labels on `device`. The superpixel route
+    returns one level of its hierarchy (cfg.hierarchy_levels, default
+    4)."""
     cfg = _config(config, sigma=sigma, k=k, min_size=min_size,
                   algorithm=algorithm)
     device = _device(device)
@@ -143,6 +149,10 @@ def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="turbo",
         from .models.felzenszwalb_cpu import segment_kruskal_np
 
         labels = segment_kruskal_np(_host_image(image), cfg)
+    elif cfg.algorithm == "kruskal_native":
+        from .native.bindings import segment_kruskal_native
+
+        labels = segment_kruskal_native(_host_image(image), cfg)
     else:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
     return torch.from_numpy(labels).to(device)
@@ -155,8 +165,8 @@ def segment_hierarchy(image, sigma=0.8, k=300.0, min_size=100,
     levels (L, H, W) int32 one label map per Boruvka round (the
     reference's segmentation-hierarchy output), labels (H, W) the final
     map after the min-size rounds, both on `device` (as `segment`)."""
-    cfg = _config(config, hierarchy=True, sigma=sigma, k=k,
-                  min_size=min_size, algorithm=algorithm)
+    cfg = _config(config, sigma=sigma, k=k, min_size=min_size,
+                  algorithm=algorithm)
     device = _device(device)
     if cfg.algorithm == "turbo":
         from .models.turbo import segment_turbo_hierarchy

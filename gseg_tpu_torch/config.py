@@ -23,7 +23,8 @@ ALGORITHMS = (
     "superpixel",       # superpixel hierarchy (ported)
     "kruskal_cpu",      # sequential Felzenszwalb oracle (ported, NumPy)
     "boruvka_cpu",      # sequential Boruvka oracle (ported, NumPy)
-    "kruskal_native",   # C++ Felzenszwalb baseline (not ported yet)
+    "kruskal_native",   # C++ Felzenszwalb baseline (ported: the
+                        # reference's felz.cpp, built with g++)
 )
 
 

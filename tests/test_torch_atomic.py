@@ -11,9 +11,8 @@ oracle, and canonically against its jax path. The same labels equal the
 port's NumPy Boruvka oracle's. `segment` routes
 turbo, atomic, atomic_hostsync, boruvka_cpu and kruskal_cpu to labels
 byte-equal to the reference's `segment` (fastmst and superpixel too),
-refuses weight_buckets where the reference does, and raises
-NotImplementedError naming the ROADMAP item for kruskal_native, the one
-route not ported yet.
+refuses weight_buckets where the reference does, and routes
+kruskal_native to the port's build of the reference's C++ baseline.
 """
 
 import dataclasses
@@ -157,18 +156,14 @@ def test_weight_buckets_refused_where_ignored(algorithm):
             img, config=dataclasses.replace(cfg, algorithm=ok), device="cpu")
 
 
-@pytest.mark.parametrize("algorithm,item", [
-    ("fastmst", None), ("superpixel", None),
-    ("kruskal_native", "queue 1, item 7")])
-def test_unported_routes_cite_their_roadmap_item(algorithm, item):
-    """Only kruskal_native is left unported; fastmst and superpixel route
-    to labels byte-equal to the reference's."""
+@pytest.mark.parametrize("algorithm", [
+    "fastmst", "superpixel", "kruskal_native"])
+def test_unported_routes_cite_their_roadmap_item(algorithm):
+    """Every route is ported now: fastmst, superpixel and the C++
+    kruskal_native baseline route to labels byte-equal to the
+    reference's."""
     img = blobs_image(8, 8, 2, 6.0, 0)
-    if item is None:
-        want = gseg_tpu.segment(img, algorithm=algorithm)
-        got = gseg_tpu_torch.segment(img, algorithm=algorithm, device="cpu")
-        assert got.dtype == torch.int32
-        assert np.array_equal(np.asarray(want), got.numpy())
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
-        gseg_tpu_torch.segment(img, algorithm=algorithm, device="cpu")
+    want = gseg_tpu.segment(img, algorithm=algorithm)
+    got = gseg_tpu_torch.segment(img, algorithm=algorithm, device="cpu")
+    assert got.dtype == torch.int32
+    assert np.array_equal(np.asarray(want), got.numpy())

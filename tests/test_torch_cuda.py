@@ -742,3 +742,37 @@ def test_ordered_scatter_add_kernel_equals_plain(dev, n, v, c):
     assert torch.equal(got, plain)
     assert torch.equal(got.cpu(), ks.ordered_scatter_add_plain(base, idx,
                                                                vals))
+
+
+@pytest.mark.parametrize("shape,ns,ng", [((321, 481), 800, 90),
+                                         ((37, 53), 5, 3)])
+def test_asa_ue_torch_on_card_equals_numpy(dev, shape, ns, ng):
+    """The dense overlap histogram on the card gives NumPy's floats
+    exactly (integer sums divided once in float64, as NumPy divides), on
+    30 random partitions each."""
+    from gseg_tpu_torch.metrics.compare import asa_ue, asa_ue_torch
+
+    for seed in range(30):
+        rng = np.random.default_rng(seed * 1000 + ns + ng)
+        seg = rng.integers(0, ns, shape).astype(np.int32)
+        gt = rng.integers(0, ng, shape).astype(np.int32)
+        asa, ue = asa_ue_torch(torch.from_numpy(seg).to(dev),
+                               torch.from_numpy(gt).to(dev), ns, ng)
+        assert asa.is_cuda and asa.dtype == torch.float64
+        assert (float(asa), float(ue)) == asa_ue(seg, gt)
+
+
+def test_colorize_on_card_equals_cpu(dev):
+    """The colour table is drawn on the CPU and moved once: the card paints
+    the CPU's colours."""
+    from gseg_tpu_torch.utils.labels import colorize, colorize_hierarchy
+
+    rng = np.random.default_rng(3)
+    labels = torch.from_numpy(rng.integers(0, 60 * 70, (60, 70))
+                              .astype(np.int32))
+    got = colorize(labels.to(dev), seed=5)
+    assert got.is_cuda and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), colorize(labels, seed=5))
+    levels = torch.stack([labels, labels // 7 * 7])
+    assert torch.equal(colorize_hierarchy(levels.to(dev), 5).cpu(),
+                       colorize_hierarchy(levels, 5))

@@ -140,6 +140,11 @@ def test_port_imports_no_jax():
         "import gseg_tpu_torch.ops.kernels.gossip\n"
         "import gseg_tpu_torch.ops.kernels.extract\n"
         "import gseg_tpu_torch.utils.synthetic, gseg_tpu_torch.utils.labels\n"
+        "import gseg_tpu_torch.utils.image_io, gseg_tpu_torch.utils.datasets\n"
+        "import gseg_tpu_torch.metrics.compare\n"
+        "import gseg_tpu_torch.native.bindings\n"
+        "import gseg_tpu_torch.cli, gseg_tpu_torch.__main__\n"
+        "import gseg_tpu_torch.bench.harness, gseg_tpu_torch.bench.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gseg_tpu' or m.startswith('gseg_tpu.')]\n"
         "print(bad)\n"

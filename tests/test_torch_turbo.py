@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from gseg_tpu.config import SegmentationConfig as RefConfig  # noqa: E402
 from gseg_tpu.models import turbo as ref_turbo  # noqa: E402
 from gseg_tpu.models.boruvka_cpu import segment_boruvka_np  # noqa: E402
+from gseg_tpu.native import bindings as ref_native  # noqa: E402
 from gseg_tpu.ops import filters as jfilters  # noqa: E402
 from gseg_tpu.ops import grid_graph as jgg  # noqa: E402
 import gseg_tpu_torch  # noqa: E402
@@ -212,8 +213,13 @@ def test_segment_api():
     assert np.array_equal(labels.numpy(), _oracle(img, cfg))
     assert np.array_equal(labels.numpy(),
                           canonical_min_labels_np(labels.numpy()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gseg_tpu_torch.segment(img, algorithm="kruskal_native", device="cpu")
+    # kruskal_native routes to the port's build of the reference's C++
+    # baseline: root ids byte-equal to the reference library's
+    labels = gseg_tpu_torch.segment(img, k=100.0, min_size=8,
+                                    algorithm="kruskal_native", device="cpu")
+    assert labels.dtype == torch.int32 and labels.device.type == "cpu"
+    assert np.array_equal(labels.numpy(), ref_native.segment_kruskal_native(
+        img, RefConfig(k=100.0, min_size=8)))
     # the atomic and fastmst paths are ported: root vertex ids, the oracle
     # partition.
     for algorithm in ("atomic", "fastmst"):

@@ -26,6 +26,7 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+import gseg_tpu  # noqa: E402
 from gseg_tpu.config import SegmentationConfig as RefConfig  # noqa: E402
 from gseg_tpu.models import turbo as ref_turbo  # noqa: E402
 from gseg_tpu.models.boruvka_cpu import segment_boruvka_np  # noqa: E402
@@ -118,8 +119,9 @@ def test_segment_api_quality_mode():
     """A config's default algorithm is the port's "turbo": quality mode runs
     from the config alone; a config naming "atomic" with weight buckets is
     refused as the reference refuses it (that path ignores them), as is one
-    naming "fastmst", and one naming "kruskal_native" (not ported) raises
-    NotImplementedError."""
+    naming "fastmst"; one naming "kruskal_native" is not (the C++ baseline
+    takes the edges in sorted order, so the ramp is moot) and gives the
+    reference's labels byte for byte."""
     img = blobs_image(48, 64, 5, 4.0, 1)
     cfg = SegmentationConfig(k=30.0, min_size=10, weight_buckets=16)
     labels = gseg_tpu_torch.segment(img, config=cfg, device="cpu")
@@ -129,9 +131,10 @@ def test_segment_api_quality_mode():
         with pytest.raises(ValueError, match="weight_buckets=16"):
             gseg_tpu_torch.segment(img, config=dataclasses.replace(
                 cfg, algorithm=algorithm), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gseg_tpu_torch.segment(img, config=dataclasses.replace(
-            cfg, algorithm="kruskal_native", weight_buckets=0), device="cpu")
+    native = dataclasses.replace(cfg, algorithm="kruskal_native")
+    labels = gseg_tpu_torch.segment(img, config=native, device="cpu")
+    assert np.array_equal(labels.numpy(), np.asarray(
+        gseg_tpu.segment(img, config=_ref_cfg(native))))
 
 
 @pytest.mark.parametrize("gossip_rounds", [1, 4])
