@@ -125,7 +125,24 @@ arguments). It
      and superpixel rows make on image 0. Every row is scored
      with `asa_ue_best_gt` on the host and with `asa_ue_torch` on the
      card (equal), and must equal the committed record
-     (bench_out/bsds_quality.jsonl) exactly.
+     (bench_out/bsds_quality.jsonl) exactly;
+ 10. drives batching and multi-device (`gseg_tpu_torch.parallel`) on
+     cuda:0, the ranks of a mesh as threads taking turns on the one card:
+     `segment_batch` of four 1080p and two 4K images (image 0 0 pixels off
+     its oracle, every image equal to a single call; at 1080p also
+     `segment_batch_sharded` over two ranks), `segment_turbo_spatial` over
+     4 ranks at 1080p (speed and quality mode) and 4K and over 8 ranks of
+     6-row tiles (labels equal to dense, 0 pixels off the oracles), and
+     the row-sharded atomic path (`segment_spatial`, `multichip_step` on a
+     2 x 2 mesh; root ids equal to `segment_atomic`'s). Each with its
+     launches, host reads, peak memory and median ms; no plain sweep may
+     run. On every spatial turbo path, the slab passes of a top, a middle
+     and a bottom rank, for each step variant, are held against
+     `step_pass_plain` (max_abs_err 0).
+
+`python3 chip_smoke.py --cards`, on a machine with several cards, runs
+only the row-sharded paths with one rank on each card (PERF.md: each
+rank's peak memory).
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -136,7 +153,6 @@ There is no CPU path.
 from __future__ import annotations
 
 import collections
-import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
@@ -148,6 +164,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path as FsPath
 from typing import NamedTuple
@@ -166,6 +183,8 @@ from gseg_tpu_torch.ops.kernels import gossip as kg
 from gseg_tpu_torch.ops.kernels import pad as kp
 from gseg_tpu_torch.ops.kernels import runs as kr
 from gseg_tpu_torch.ops.kernels import scatter as ks
+from gseg_tpu_torch.parallel import batching, spatial, turbo_spatial
+from gseg_tpu_torch.parallel.mesh import Mesh, run_ranks
 from gseg_tpu_torch.oracles import (load_level_oracle, load_oracle,
                                     oracle_path)
 from gseg_tpu_torch.utils.labels import (canonical_min_labels_np,
@@ -272,48 +291,61 @@ GTX1080TI_MS = {
     "1080p_superpixel": ("DPP Superpix. Hier. at 1080p", 75.2),
     "1080p_superpixel_hierarchy": ("DPP Superpix. Hier. at 1080p", 75.2),
 }
+# step 10: batching and multi-device (gseg_tpu_torch.parallel) on cuda:0,
+# the ranks of a mesh as threads on the one card
+BATCH = ("1080p_batch4", "4k_batch2")
+SPATIAL_TURBO = ("1080p_spatial4", "1080p_spatial4_wb16", "4k_spatial4",
+                 "spatial8_short_tiles")
+SPATIAL_ATOMIC = ("1080p_spatial_atomic4", "1080p_multichip_2x2")
+TURBO_NEW = set(BATCH + SPATIAL_TURBO)
 KERNELS = {
     "gossip_compmin": Kernel(
         kg, "compmin_gossip", kg.compmin_gossip_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_compmin_step :997)",
-        ALL, set(), 28, 40, (r"\bfixpoint_pass<.*\bCompminOp>",)),
+        ALL | TURBO_NEW, set(), 28, 40,
+        (r"\bfixpoint_pass<.*\bCompminOp>",)),
     "gossip_labeldist": Kernel(
         kg, "label_gossip", kg.label_gossip_plain,
         "gseg_tpu_torch/csrc/gossip.cu",
         _GOSSIP + "_label_step :1057, via label_gossip :1228)",
-        SPEED_SUBSUM, set(), 28, 48, (r"\bfixpoint_pass<.*\bLabelDistOp>",)),
+        SPEED_SUBSUM | TURBO_NEW, set(), 28, 48,
+        (r"\bfixpoint_pass<.*\bLabelDistOp>",)),
     "gossip_labelnd": Kernel(
         kg, "label_flood", kg.label_flood_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_labelnd_step :1086)",
-        ALL, set(), 20, 24, (r"\bfixpoint_pass<.*\bLabelndOp>",)),
+        ALL | set(BATCH), set(), 20, 24,
+        (r"\bfixpoint_pass<.*\bLabelndOp>",)),
     "gossip_value": Kernel(
         kg, "value_flood", kg.value_flood_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_value_step :1120)",
-        ALL | DPP | {BSDS["fastmst"], BSDS["superpixel"]}, set(), 12, 16,
+        ALL | DPP | TURBO_NEW | {BSDS["fastmst"], BSDS["superpixel"]}, set(),
+        12, 16,
         (r"\bfixpoint_pass<.*\bValueOp>",)),
     "gossip_subsum": Kernel(
         kg, "subtree_sums", kg.subtree_sums_plain,
         "gseg_tpu_torch/csrc/gossip.cu",
         _GOSSIP + "_subsum_step :1157, via subtree_sums :1320)",
-        SPEED_SUBSUM, set(), 12, 16, (r"\bfixpoint_pass<.*\bSubsumOp>",)),
+        SPEED_SUBSUM | TURBO_NEW, set(), 12, 16,
+        (r"\bfixpoint_pass<.*\bSubsumOp>",)),
     "pad_fields": Kernel(
         kp, "fast_pad_fields", kp.fast_pad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:703 (_fast_pad_fields, call :781)",
-        {"4k_subsum", "4k_wb16", "4k_fastmst"}, set(), None, 0,
+        {"4k_subsum", "4k_wb16", "4k_fastmst", "4k_batch2"}, set(), None, 0,
         (r"\bpad_fields_(bulk|regs)\b",)),
     "unpad_fields": Kernel(
         kp, "fast_unpad_fields", kp.fast_unpad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:799 (_fast_unpad_fields, call :826)",
-        {"4k_subsum", "4k_wb16", "4k_fastmst"}, set(), None, 0,
+        {"4k_subsum", "4k_wb16", "4k_fastmst", "4k_batch2"}, set(), None, 0,
         (r"\bunpad_fields_(bulk|regs)\b",)),
     "boundary_extract": Kernel(
         kx, "boundary_extract", kx.boundary_extract_plain,
         "gseg_tpu_torch/csrc/extract.cu",
         "gseg_tpu/ops/pallas/extract.py:344 (_extract_kernel, via "
         "boundary_extract :515)",
-        ALL, set(), 20, 16, (r"\bextract_(fill|rows)\b",)),
+        ALL | set(BATCH), set(), 20, 16,
+        (r"\bextract_(fill|rows)\b",)),
     # a closure "call" below is one rows launch and one columns launch.
     "closure_compmin": Kernel(
         kg, "compmin_closure", kg.compmin_closure_plain,
@@ -401,6 +433,34 @@ RECORDED_LAUNCHES = {
     "1080p_superpixel": ("8a", dict(gossip_value=3, ordered_scatter_add=4)),
     "1080p_superpixel_hierarchy": ("8a", dict(gossip_value=30,
                                               ordered_scatter_add=11)),
+}
+# step 10 (run 10a): the batches (summed over their images: image 0's
+# launches are those of 1080p_subsum and 4k_subsum), then the slab passes
+# of the row-sharded turbo path, summed over the ranks (subtree-sum sizes
+# every round, so no label flood; no closure, pad or extract); the
+# row-sharded atomic path launches nothing
+RECORDED_LAUNCHES |= {
+    "1080p_batch4": ("10a", dict(
+        gossip_compmin=65, gossip_labeldist=32, gossip_labelnd=81,
+        gossip_value=54, gossip_subsum=32, boundary_extract=4)),
+    "4k_batch2": ("10a", dict(
+        gossip_compmin=37, gossip_labeldist=17, gossip_labelnd=51,
+        gossip_value=41, gossip_subsum=17, pad_fields=20, unpad_fields=20,
+        boundary_extract=2)),
+    "1080p_spatial4": ("10a", dict(
+        gossip_compmin=64, gossip_labeldist=136, gossip_value=68,
+        gossip_subsum=136)),
+    "1080p_spatial4_wb16": ("10a", dict(
+        gossip_compmin=456, gossip_labeldist=780, gossip_value=184,
+        gossip_subsum=780)),
+    "4k_spatial4": ("10a", dict(
+        gossip_compmin=72, gossip_labeldist=140, gossip_value=68,
+        gossip_subsum=140)),
+    "spatial8_short_tiles": ("10a", dict(
+        gossip_compmin=72, gossip_labeldist=144, gossip_value=40,
+        gossip_subsum=144)),
+    "1080p_spatial_atomic4": ("10a", {}),
+    "1080p_multichip_2x2": ("10a", {}),
 }
 # the CLI runs the 1080p default path and the turbo hierarchy; the host
 # baseline launches nothing
@@ -1492,13 +1552,9 @@ def _pad_checks(dev, card):
 
 def _build_all():
     """One nvcc per source, all started together."""
-    srcs = ("gossip", "closure", "extract", "runs", "pad", "scatter")
-    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
-        futs = {s: pool.submit(_build.load, s, True) for s in srcs}
-        for s, fut in futs.items():
-            fut.result()
-            print(f"build {s}.cu: {_build.build_seconds[s]:.2f} s",
-                  flush=True)
+    _build.load_all(verbose=True)
+    for s, secs in sorted(_build.build_seconds.items()):
+        print(f"build {s}.cu: {secs:.2f} s", flush=True)
 
 
 def _random_checks(dev):
@@ -2268,6 +2324,459 @@ def _bsds_quality(dev, card, errs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# step 10: batching and multi-device
+# ---------------------------------------------------------------------------
+
+_WB0_4K = ROOT / "bench_out/oracle_bench_2160x3840_wb0.npy"
+# variant -> the kernels line's name of its step kernel row
+STEP_OF = {v: n for n, v in STEP.items()}
+_SLAB_STEP = kg._slab_step_kernel  # the unpatched slab pass
+
+
+# the plain versions that the spatial fixpoints sweep with on the CPU
+_SWEEPS = ("compmin_gossip_plain", "label_gossip_plain", "label_flood_plain",
+           "value_flood_plain", "subtree_sums_plain")
+
+
+@contextlib.contextmanager
+def _no_sweeps(path):
+    """Counts the calls of the step kernel's plain versions (the spatial
+    fixpoints' CPU sweeps) while open; raises if one ran (on the card every
+    spatial fixpoint must run the kernel)."""
+    count = [0]
+    orig = {name: getattr(kg, name) for name in _SWEEPS}
+
+    def counted(fn):
+        def call(*args):
+            count[0] += 1
+            return fn(*args)
+        return call
+
+    for name, fn in orig.items():
+        setattr(kg, name, counted(fn))
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(kg, name, fn)
+    if count[0]:
+        raise AssertionError(f"{path}: {count[0]} sweeps of the plain "
+                             "version ran on the card")
+
+
+def _peak_reset(dev=None):
+    """Synchronise, zero the peak statistic of `dev` (default: the current
+    card) and return the bytes allocated now."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _peak_since(base, dev=None):
+    """MiB of the peak allocation of `dev` above `base` bytes."""
+    torch.cuda.synchronize(dev)
+    return (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+
+
+def _parallel_counted(path, run):
+    """The counted run of a step-10 path: launch counts 0 just before and
+    read just after, host reads (every thread's), peak device memory (all
+    ranks of the card together, above what was allocated before the run),
+    step-kernel passes. Returns (out, record)."""
+    _reset_counts()
+    base = _peak_reset()
+    with _no_sweeps(path), _host_reads() as reads:
+        out = run()
+        torch.cuda.synchronize()
+    launches = _counts()
+    peak = _peak_since(base)
+    passes = sum(launches[n] for n in STEP)
+    print(f"main path {path}: launches {launches}, step-kernel passes "
+          f"{passes}, host reads {reads[0]}, peak memory {peak:.1f} MiB",
+          flush=True)
+    _check_path_launches(path, launches)
+    return out, {"launches": launches, "peak_mib": peak,
+                 "step_passes": passes, "host_reads": reads[0]}
+
+
+def _timed(path, run, rec, card, reps=3, what=""):
+    """Median CUDA-event ms of `reps` runs after a warm-up, into rec."""
+    rec["main_ms"] = ms = _cuda_ms(run, reps)
+    print(f"  {path}: median {ms:.3f} ms of {reps} reps{what} ({card})",
+          flush=True)
+
+
+def _batch_path(path, images, oracle, card):
+    """segment_batch of the images, turbo in speed mode: flags 0, image 0
+    0 pixels off the oracle, every image bit-equal to a single
+    segment_turbo_flagged call (at 1080p also segment_batch_sharded over
+    two ranks of the card)."""
+    batch = torch.stack(images)
+    (labels, flags), rec = _parallel_counted(
+        path, lambda: batching.segment_batch_flagged(batch, CFG))
+    if flags:
+        raise AssertionError(f"{path}: flags {flags}")
+    rec["oracle_pixels_differ"] = ndiff = _oracle_diff(labels[0], oracle)
+    singles = [turbo.segment_turbo_flagged(im, CFG, GOSSIP_ROUNDS)
+               for im in images]
+    same = [torch.equal(labels[i], lab) and f == 0
+            for i, (lab, f) in enumerate(singles)]
+    msg = (f"check {path}: image 0 {ndiff} pixels off "
+           f"{oracle.relative_to(ROOT)}; images equal to single calls "
+           f"{same}")
+    if path == "1080p_batch4":
+        blocks = batching.segment_batch_sharded(
+            batch, CFG, batching.data_parallel_mesh(["cuda:0"] * 2))
+        sharded = torch.equal(torch.cat(blocks), labels)
+        msg += f"; segment_batch_sharded over 2 ranks equal: {sharded}"
+        same.append(sharded)
+    print(msg, flush=True)
+    if ndiff or not all(same):
+        raise AssertionError(f"{path}: labels differ")
+    n = len(images)
+    _timed(path, lambda: batching.segment_batch_flagged(batch, CFG), rec,
+           card, what=f" for {n} images")
+    rec["ms_per_image"] = rec["main_ms"] / n
+    print(f"  {path}: {rec['ms_per_image']:.3f} ms per image = "
+          f"{batch[0].numel() / 3 / 1e3 / rec['ms_per_image']:.2f} MPix/s "
+          f"({card})", flush=True)
+    return rec
+
+
+class _SlabCapture:
+    """Records, per (rank, variant), the slab pass number `nth` (1-based)
+    of the spatial fixpoints while open (the pass's read-only slab and
+    input fields), for ranks `ranks`."""
+
+    def __init__(self, ranks, nth=2):
+        self.ranks, self.nth = set(ranks), nth
+        self.got, self._seen = {}, collections.Counter()
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        def rec(variant, ro, src, dst):
+            name = threading.current_thread().name
+            rank = int(name.rsplit("-", 1)[1]) if name.startswith(
+                "gseg-rank-") else -1
+            with self._lock:
+                self._seen[rank, variant] += 1
+                n = self._seen[rank, variant]
+            if rank in self.ranks and n <= self.nth:
+                self.got[rank, variant] = (ro.clone(),
+                                           [x.clone() for x in src])
+            return _SLAB_STEP(variant, ro, src, dst)
+
+        kg._slab_step_kernel = rec
+        return self
+
+    def __exit__(self, *exc):
+        kg._slab_step_kernel = _SLAB_STEP
+
+
+def _slab_checks(got, what, errs, slab):
+    """Each captured slab pass by the kernel and by step_pass_plain from
+    the same input: equal fields (max_abs_err 0)."""
+    for (rank, variant), (ro, src) in sorted(got.items()):
+        dk = [torch.empty_like(x) for x in src]
+        dp = [torch.empty_like(x) for x in src]
+        _SLAB_STEP(variant, ro, src, dk)
+        kg.step_pass_plain(variant, ro, src, dp)
+        name = STEP_OF[variant]
+        errs[name] = max(errs[name], _max_abs_err(dk, dp))
+        rec = slab.setdefault(name, {"checked": 0})
+        rec["checked"] += 1
+        if rank == 1 and f"ms_{what}" not in rec:
+            rec[f"ms_{what}"] = _cuda_ms(
+                lambda: _SLAB_STEP(variant, ro, src, dk), 5)
+            rec[f"plain_ms_{what}"] = _cuda_ms(
+                lambda: kg.step_pass_plain(variant, ro, src, dp), 1)
+            rec[f"slab_{what}"] = list(ro.shape)
+        print(f"check {name} {what} slab pass (rank {rank}, "
+              f"{ro.shape[0]}x{ro.shape[1]}): equal to step_pass_plain",
+              flush=True)
+
+
+def _labelnd_slabs(tiles, ranks, what, errs, slab):
+    """The label flood on the slab route at main-path inputs (the spatial
+    path floods with the BFS dist, so its label+dist inputs, `tiles`, stand
+    in): equal to the dense flood on the card, and its captured passes to
+    step_pass_plain."""
+    dev = tiles[0][0].device
+    ms = 4 * (sum(t[0].shape[0] for t in tiles) + tiles[0][0].shape[1])
+    with _SlabCapture(ranks) as cap:
+        out = run_ranks(
+            [dev] * len(tiles),
+            lambda rank, t: kg.label_flood_spatial(*t, ms, rank), tiles)
+    dense = kg.label_flood(*[torch.cat([t[f] for t in tiles])
+                             for f in range(3)], ms)
+    got = [torch.cat([o[f] for o in out]) for f in range(2)]
+    errs["gossip_labelnd"] = max(errs["gossip_labelnd"],
+                                 _max_abs_err(got, dense[:2]))
+    if out[0][2] or dense[2]:
+        raise AssertionError(f"{what}: label flood unconverged")
+    print(f"check gossip_labelnd {what} slab route at the label+dist "
+          "inputs: equal to the dense flood", flush=True)
+    _slab_checks(cap.got, what, errs, slab)
+
+
+# spatial turbo path -> the name of its slab checks in the kernels line
+_SLAB_WHAT = {"1080p_spatial4": "1080p", "1080p_spatial4_wb16": "1080p_wb16",
+              "4k_spatial4": "4k", "spatial8_short_tiles": "short_tiles"}
+
+
+def _spatial_turbo_path(path, image, cfg, ranks, rounds, oracle, card, errs,
+                        slab):
+    """segment_turbo_spatial over `ranks` ranks of the card: flags 0, labels
+    bit-equal to the dense segment_turbo_flagged (gossip_rounds 2) and 0
+    pixels off the oracle; the slab passes of ranks at the top, middle and
+    bottom against step_pass_plain (label flood: at the label+dist
+    inputs); on the 1080p and 4K speed paths also the peak of a one-rank
+    mesh."""
+    m = spatial.spatial_mesh(["cuda:0"] * ranks)
+
+    def run():
+        return turbo_spatial.segment_turbo_spatial(image, cfg, m,
+                                                   gossip_rounds=rounds)
+
+    (labels, flags), rec = _parallel_counted(path, run)
+    dense, dflags = turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)
+    equal = torch.equal(labels, dense)
+    ndiff = _oracle_diff(labels, oracle) if oracle is not None else 0
+    rec["oracle_pixels_differ"] = ndiff
+    print(f"check {path}: flags {flags}, dense flags {dflags}, labels "
+          f"equal to dense {equal}"
+          + (f", {ndiff} pixels off {oracle.relative_to(ROOT)}"
+             if oracle is not None else ""), flush=True)
+    if flags or dflags or not equal or ndiff:
+        raise AssertionError(f"{path}: spatial labels differ")
+    what = _SLAB_WHAT[path]
+    tiles = {}
+    orig = kg.label_gossip_spatial
+
+    def rec_ld(bits, Lc, idf, dist, *args, **kw):
+        rank = int(threading.current_thread().name.rsplit("-", 1)[1])
+        tiles.setdefault(rank, (bits.clone(), Lc.clone(), idf.clone()))
+        return orig(bits, Lc, idf, dist, *args, **kw)
+
+    kg.label_gossip_spatial = rec_ld
+    try:
+        with _SlabCapture((0, 1, ranks - 1)) as cap:
+            run()
+    finally:
+        kg.label_gossip_spatial = orig
+    _slab_checks(cap.got, what, errs, slab)
+    _labelnd_slabs([tiles[r] for r in range(ranks)], (0, 1, ranks - 1),
+                   what, errs, slab)
+    del cap, tiles
+    if path in ("1080p_spatial4", "4k_spatial4"):
+        base = _peak_reset()
+        one = turbo_spatial.segment_turbo_spatial(
+            image, cfg, spatial.spatial_mesh(["cuda:0"]),
+            gossip_rounds=rounds)
+        rec["peak_mib_one_rank"] = _peak_since(base)
+        if not torch.equal(one[0], dense):
+            raise AssertionError(f"{path}: one-rank mesh differs")
+        print(f"  {path}: peak memory of {ranks} ranks on the card "
+              f"{rec['peak_mib']:.1f} MiB ({rec['peak_mib'] / ranks:.1f} a "
+              f"rank), of one rank over the whole image "
+              f"{rec['peak_mib_one_rank']:.1f} MiB", flush=True)
+    _timed(path, run, rec, card, what=f", {ranks} ranks in turn on one "
+           "card (not a speed-up figure)")
+    return rec
+
+
+def _spatial_atomic_path(path, images, card):
+    """segment_spatial over 4 ranks, or multichip_step on a 2 x 2 mesh over
+    the images: root ids byte-equal to segment_atomic on the card, image 0
+    0 pixels off the 1080p oracle."""
+    cfg = dataclasses.replace(CFG, algorithm="atomic")
+    if path == "1080p_spatial_atomic4":
+        m = spatial.spatial_mesh(["cuda:0"] * 4)
+
+        def run():
+            return spatial.segment_spatial(images[0], cfg, m)[None]
+    else:
+        batch = torch.stack(images)
+        m = Mesh(["cuda:0"] * 4, ("data", "space"), (2, 2))
+
+        def run():
+            return torch.cat(spatial.multichip_step(batch, cfg, m))
+    labels, rec = _parallel_counted(path, run)
+    same = [torch.equal(labels[i], atomic_boruvka.segment_atomic(im, cfg))
+            for i, im in enumerate(images)]
+    rec["oracle_pixels_differ"] = ndiff = _oracle_diff(labels[0], _WB0)
+    print(f"check {path}: root ids equal to segment_atomic {same}; image 0 "
+          f"{ndiff} pixels off {_WB0.relative_to(ROOT)}", flush=True)
+    if ndiff or not all(same):
+        raise AssertionError(f"{path}: labels differ")
+    _timed(path, run, rec, card, what=f" for {len(images)} images, ranks "
+           "in turn on one card (not a speed-up figure)")
+    return rec
+
+
+def _turns_ab(name, run, card, pairs=2, sync=None):
+    """`run` with its mesh's ranks taking turns between collectives (the
+    default) and running free (taking no turn, for the run), in
+    turns (ABBA) after a warm-up of each, host-clock ms after `sync`
+    (default: synchronise cuda:0); equal results. Returns the medians."""
+    import gseg_tpu_torch.parallel.mesh as pm
+
+    group = pm._Group
+    times, outs = {True: [], False: []}, {}
+    sync = sync or torch.cuda.synchronize
+
+    def one(turns):
+        if not turns:
+            pm._Group = type("FreeGroup", (group,), {
+                "take_turn": lambda self: None,
+                "end_turn": lambda self: None})
+        try:
+            t0 = time.perf_counter()
+            outs[turns] = run()
+            sync()
+            return (time.perf_counter() - t0) * 1e3
+        finally:
+            pm._Group = group
+
+    for turns in (True, False):
+        one(turns)
+    for i in range(pairs):
+        for turns in ((True, False) if i % 2 == 0 else (False, True)):
+            times[turns].append(one(turns))
+    a, b = outs[True], outs[False]
+    if not all(torch.equal(x, y) for x, y in zip(
+            a if isinstance(a, (list, tuple)) else [a],
+            b if isinstance(b, (list, tuple)) else [b])
+            if isinstance(x, torch.Tensor)):
+        raise AssertionError(f"{name}: taking turns changed the result")
+    med = {"turns": statistics.median(times[True]),
+           "free": statistics.median(times[False])}
+    print(f"  {name}: ranks taking turns / running free {med['turns']:.3f} "
+          f"/ {med['free']:.3f} ms (medians of {pairs}, ABBA, host clock; "
+          f"runs {times}) ({card})", flush=True)
+    return med
+
+
+def _parallel_paths(images, card, errs):
+    """Step 10: the batch, spatial turbo and spatial atomic paths, each with
+    the launch counts set to 0 just before it and read just after. Returns
+    (path -> record, the slab checks by step-kernel row)."""
+    dev = torch.device("cuda", 0)
+    hd = [images[1080, 1920]] + [
+        torch.from_numpy(blobs_image(1080, 1920, 31, 8.0, s)).to(dev)
+        for s in (1, 2, 3)]
+    k4 = [images[2160, 3840],
+          torch.from_numpy(blobs_image(2160, 3840, 126, 8.0, 1)).to(dev)]
+    small = torch.from_numpy(blobs_image(48, 40, 5, 6.0, 2)).to(dev)
+    wb16 = dataclasses.replace(CFG, weight_buckets=16)
+    out, slab = {}, {}
+    out["1080p_batch4"] = _batch_path("1080p_batch4", hd, _WB0, card)
+    out["4k_batch2"] = _batch_path("4k_batch2", k4, _WB0_4K, card)
+    out["1080p_spatial4"] = _spatial_turbo_path(
+        "1080p_spatial4", hd[0], CFG, 4, 2, _WB0, card, errs, slab)
+    m4 = spatial.spatial_mesh(["cuda:0"] * 4)
+    out["1080p_spatial4"]["turns_free_ms"] = _turns_ab(
+        "1080p_spatial4", lambda: turbo_spatial.segment_turbo_spatial(
+            hd[0], CFG, m4, gossip_rounds=GOSSIP_ROUNDS)[0], card)
+    out["1080p_spatial4_wb16"] = _spatial_turbo_path(
+        "1080p_spatial4_wb16", hd[0], wb16, 4, 2, _WB16, card, errs, slab)
+    out["4k_spatial4"] = _spatial_turbo_path(
+        "4k_spatial4", k4[0], CFG, 4, 2, _WB0_4K, card, errs, slab)
+    out["spatial8_short_tiles"] = _spatial_turbo_path(
+        "spatial8_short_tiles", small,
+        SegmentationConfig(k=120.0, min_size=8), 8, 4, None, card, errs,
+        slab)
+    out["1080p_spatial_atomic4"] = _spatial_atomic_path(
+        "1080p_spatial_atomic4", hd[:1], card)
+    out["1080p_multichip_2x2"] = _spatial_atomic_path(
+        "1080p_multichip_2x2", hd, card)
+    return out, slab
+
+
+def _cross_card(card):
+    """`python3 chip_smoke.py --cards`, on a machine with several cards:
+    the row-sharded paths with one rank on each card (the halos, gathers
+    and reductions then peer copies between cards), each card's peak
+    memory above what it held before (so each rank's), labels equal to the
+    dense paths on cuda:0,
+    and median ms of 3 CUDA-event reps after a warm-up (events on every
+    card). Returns path -> record."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise SystemExit("chip_smoke.py --cards: needs two or more cards")
+    devs = [torch.device("cuda", i) for i in range(n)]
+    dev = devs[0]
+    hd = torch.from_numpy(blobs_image(1080, 1920, 31, 8.0, 0)).to(dev)
+    k4 = torch.from_numpy(blobs_image(2160, 3840, 126, 8.0, 0)).to(dev)
+    atomic = dataclasses.replace(CFG, algorithm="atomic")
+    wb16 = dataclasses.replace(CFG, weight_buckets=16)
+    m = spatial.spatial_mesh(devs)
+    cases = {
+        "1080p_spatial": (hd, CFG, _WB0),
+        "1080p_spatial_wb16": (hd, wb16, _WB16),
+        "4k_spatial": (k4, CFG, _WB0_4K),
+        "1080p_spatial_atomic": (hd, atomic, _WB0),
+    }
+    out = {}
+    for path, (image, cfg, oracle) in cases.items():
+        if cfg.algorithm == "atomic":
+            def run(image=image, cfg=cfg):
+                return spatial.segment_spatial(image, cfg, m), 0
+            dense = atomic_boruvka.segment_atomic(image, cfg), 0
+        else:
+            def run(image=image, cfg=cfg):
+                return turbo_spatial.segment_turbo_spatial(
+                    image, cfg, m, gossip_rounds=GOSSIP_ROUNDS)
+            dense = turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)
+        bases = [_peak_reset(d) for d in devs]
+        labels, flags = run()
+        peaks = [_peak_since(b, d) for b, d in zip(bases, devs)]
+        ndiff = _oracle_diff(labels, oracle)
+        equal = torch.equal(labels, dense[0])
+
+        def timed(run=run):
+            run()
+            for d in devs:
+                torch.cuda.synchronize(d)
+
+        times = []
+        timed()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            timed()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[path] = {"cards": n, "flags": flags, "equal_dense": equal,
+                     "oracle_pixels_differ": ndiff, "peak_mib_by_card": peaks,
+                     "main_ms": statistics.median(times)}
+        print(f"cards {path}: {n} ranks on {n} cards, flags {flags}, labels "
+              f"equal to dense on cuda:0 {equal}, {ndiff} pixels off "
+              f"{oracle.relative_to(ROOT)}; peak memory by card (MiB) "
+              f"{[round(p, 1) for p in peaks]}; median "
+              f"{out[path]['main_ms']:.3f} ms of 3 reps, host clock after "
+              f"synchronising every card ({card})", flush=True)
+        if flags or ndiff or not equal:
+            raise AssertionError(f"--cards {path}: labels differ")
+
+    def sync_all():
+        for d in devs:
+            torch.cuda.synchronize(d)
+
+    out["1080p_spatial"]["turns_free_ms"] = _turns_ab(
+        "cards 1080p_spatial", lambda: turbo_spatial.segment_turbo_spatial(
+            hd, CFG, m, gossip_rounds=GOSSIP_ROUNDS)[0], card,
+        sync=sync_all)
+    batch = torch.stack([hd] + [
+        torch.from_numpy(blobs_image(1080, 1920, 31, 8.0, s)).to(dev)
+        for s in range(1, n)])
+    dm = batching.data_parallel_mesh(devs)
+    out["1080p_batch_sharded"] = {"turns_free_ms": _turns_ab(
+        f"cards 1080p_batch_sharded ({n} images, one a card)",
+        lambda: batching.segment_batch_sharded(batch, CFG, dm), card,
+        sync=sync_all)}
+    return out
+
+
 # per-kernel keys of the kernels line beyond the contract's, where measured
 _EXTRA_KEYS = ("library_device_ms", "device_ms_rows", "device_ms_cols",
                "device_ms_fill", "device_ms_bulk", "device_ms_regs", "ms_regs",
@@ -2293,6 +2802,12 @@ def main() -> None:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     _build_all()
+    if sys.argv[1:] == ["--cards"]:
+        print("cards: " + json.dumps(_cross_card(card)))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     errs = _random_checks(dev)
     errs["run_extract"] = max(errs["run_extract"], _runs_checks(dev))
@@ -2392,6 +2907,10 @@ def main() -> None:
     runs |= _bsds_quality(dev, card, errs)
     print(f"bsds_like_quality done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    parallel, slab = _parallel_paths(images, card, errs)
+    runs |= parallel
+    print(f"parallel paths done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
                                    for m in sys.modules):
@@ -2429,6 +2948,7 @@ def main() -> None:
             | {k: rec[k] for k in _EXTRA_KEYS if k in rec}
             | {f"{k}_4k": rec4k[k] for k in _EXTRA_KEYS if k in rec4k}
             | ({"active_tile_share": shares[name]} if name in STEP else {})
+            | ({"slab_route": slab[name]} if name in slab else {})
             | ({"label_planes": {p: {k: r[k] for k in _KEYS_8K + (
                 "library_device_ms", "bound_by", "device_ms_rows",
                 "device_ms_fill", "pairs", "cap", "fill_bytes")}

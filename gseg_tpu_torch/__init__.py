@@ -26,7 +26,14 @@ imports torch and never jax. It ports:
   - the user surface: the CLI (`python -m gseg_tpu_torch`, `cli.py`),
     image I/O, `colorize`, the ASA/UE metrics (`metrics.compare`), the
     quality datasets (`utils.datasets`) and the quality benchmark
-    (`python -m gseg_tpu_torch.bench quality`).
+    (`python -m gseg_tpu_torch.bench quality`);
+  - batching and multi-device (`parallel`): `segment_batch`,
+    `segment_batch_sharded` over a `data_parallel_mesh`, the row-sharded
+    atomic path (`segment_spatial` over a `spatial_mesh`,
+    `multichip_step` over a data x space mesh) and the row-sharded turbo
+    path (`segment_turbo_spatial`, its fixpoints on the step kernel over
+    each rank's rows with exchanged halos). A mesh is a list of devices
+    driven by one process, one thread per rank; a device may repeat.
 
 Public API:
     segment(image, sigma=.8, k=300, min_size=100, algorithm="turbo",

@@ -54,11 +54,14 @@ class BoruvkaState(NamedTuple):
     it: int
 
 
-def _vertex_min_edge(w8, eid8, roots2d):
+def _vertex_min_edge(w8, eid8, roots2d, nbr=None):
     """Per-vertex min outgoing edge: (vminw (V,), veid (V,)), +inf /
-    INT32_MAX where every neighbour is in the same component."""
-    nbr = torch.stack([gg.shift_plane(roots2d, dy, dx, -1)
-                       for dy, dx in gg.DIRS8])
+    INT32_MAX where every neighbour is in the same component. nbr: the
+    (8, H, W) neighbour roots, where they come from beyond roots2d (a row
+    tile's halo); None: shifts of roots2d."""
+    if nbr is None:
+        nbr = torch.stack([gg.shift_plane(roots2d, dy, dx, -1)
+                           for dy, dx in gg.DIRS8])
     outgoing = torch.where(nbr != roots2d[None], w8, torch.inf)
     vminw = outgoing.amin(0)
     veid = torch.where(outgoing == vminw[None], eid8, INT32_MAX).amin(0)
@@ -71,11 +74,19 @@ def _round(state: BoruvkaState, w8, eid8, shape, k, min_size,
     """One Boruvka round. mode: "felz" (predicate-gated) or "minsize"."""
     h, w = shape
     v = h * w
-    parent, size, intdiff = state.parent, state.size, state.intdiff
-    arange = torch.arange(v, dtype=torch.int32, device=parent.device)
+    vminw, veid = _vertex_min_edge(w8, eid8, state.parent.reshape(h, w))
+    comp_minw, comp_eid = component_min_edge(state.parent, vminw, veid, v)
+    return _hook_round(state, comp_minw, comp_eid, w, k, min_size, mode)
 
-    vminw, veid = _vertex_min_edge(w8, eid8, parent.reshape(h, w))
-    comp_minw, comp_eid = component_min_edge(parent, vminw, veid, v)
+
+def _hook_round(state: BoruvkaState, comp_minw, comp_eid, w, k, min_size,
+                mode: str) -> BoruvkaState:
+    """The rest of a round from each component's min edge (steps 3-4):
+    everything but the per-vertex scan and the component min, which the
+    row-sharded path (`parallel.spatial`) computes over its ranks."""
+    parent, size, intdiff = state.parent, state.size, state.intdiff
+    v = parent.numel()
+    arange = torch.arange(v, dtype=torch.int32, device=parent.device)
     has = comp_eid != INT32_MAX
 
     a, b = gg.edge_endpoints(comp_eid, w)

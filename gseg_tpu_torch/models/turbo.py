@@ -167,6 +167,28 @@ def _shifts8(x, fill):
     return [gg.shift_plane(x, dy, dx, fill) for dy, dx in gg.DIRS8]
 
 
+class Comm(NamedTuple):
+    """Communication hooks of stage G and the final map (the reference's
+    `Comm`). The dense default runs on one device: plain shifts, host reads
+    of local values, the fixpoint wrappers. `parallel.turbo_spatial`
+    substitutes halo-exchange shifts and reductions over the ranks of a
+    row-sharded mesh, and `rank`, whose collectives the spatial fixpoints
+    use (`kernels.gossip.*_spatial`)."""
+    shift: object       # (x, dy, dx, fill) -> plane
+    shifts8: object     # (x, fill) -> 8 planes (DIRS8 order)
+    reduce_any: object  # local bool or 0-d tensor -> global bool
+    reduce_sum: object  # local int or 0-d tensor -> global int
+    rank: object        # parallel.mesh.Rank, or None (dense)
+
+    @property
+    def dense(self) -> bool:
+        return self.rank is None
+
+
+DENSE = Comm(shift=gg.shift_plane, shifts8=_shifts8, reduce_any=bool,
+             reduce_sum=int, rank=None)
+
+
 # ---------------------------------------------------------------------------
 # Stage G: gossip rounds
 # ---------------------------------------------------------------------------
@@ -192,10 +214,10 @@ def bucket_thresholds(weights, num_buckets: int) -> torch.Tensor:
     return out
 
 
-def _vertex_min_outgoing(L, w8, eid8, tau=None):
+def _vertex_min_outgoing(L, w8, eid8, tau=None, comm=DENSE):
     """Per pixel, its min outgoing edge (w, eid) to another label, among
     edges at most tau (None: all)."""
-    nbrL = torch.stack(_shifts8(L, -1))
+    nbrL = torch.stack(comm.shifts8(L, -1))
     outgoing = nbrL != L[None]
     if tau is not None:
         outgoing &= w8 <= tau
@@ -272,11 +294,11 @@ def _runs_sizes(L):
     return _sum_by_label(lab, cnt, h, w)[0], False
 
 
-def _parent_dirs(L, dist):
+def _parent_dirs(L, dist, comm=DENSE):
     """Each pixel's parent in the BFS tree: the first DIRS8 direction whose
     same-label neighbour is one level closer (8 = root / unreached)."""
-    nL = _shifts8(L, -1)
-    nd = _shifts8(dist, BIGDIST)
+    nL = comm.shifts8(L, -1)
+    nd = comm.shifts8(dist, BIGDIST)
     pdir = torch.full_like(L, 8)
     for d in range(7, -1, -1):
         ok = (nL[d] == L) & (nd[d] == dist - 1) & (dist > 0) \
@@ -285,16 +307,20 @@ def _parent_dirs(L, dist):
     return pdir
 
 
-def _subtree_sizes(L, dist, max_sweeps):
+def _subtree_sizes(L, dist, max_sweeps, comm=DENSE):
     """Exact component size at the canonical root pixel, from the converged
     BFS levels: subtree sums over the parent tree give |C| at the root.
     Returns (sizes, unconverged)."""
-    return kg.subtree_sums(_parent_dirs(L, dist), torch.ones_like(L),
-                           max_sweeps)
+    pdir = _parent_dirs(L, dist, comm)
+    if comm.dense:
+        return kg.subtree_sums(pdir, torch.ones_like(L), max_sweeps)
+    return kg.subtree_sums_spatial(pdir, torch.ones_like(L), max_sweeps,
+                                   comm.rank)
 
 
 def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
-            sizes="subsum", idle_compmin=False, tau=None, closures=False):
+            sizes="subsum", idle_compmin=False, tau=None, closures=False,
+            comm=DENSE, vid=None):
     """One gossip Boruvka round (felz predicate).
 
     sizes="subsum": the label flood carries the BFS dist from the new
@@ -306,26 +332,36 @@ def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
     list `rlist`; returns (state, new rlist).
     idle_compmin: True on round 1 (all-singleton labels: the compmin
     fixpoint is the identity). tau: the round's weight cap (quality mode;
-    None: no cap). closures: the fixpoints' hybrid route (quality mode)."""
+    None: no cap). closures: the fixpoints' hybrid route (quality mode).
+    comm: a row tile's halo shifts and reductions (`parallel.turbo_spatial`;
+    sizes "subsum" only, no closures), with vid the tile's global vertex
+    ids (None: the dense plane's)."""
     L, S, ID = state.L, state.S, state.ID
+    if not comm.dense and (sizes != "subsum" or closures):
+        raise ValueError("a spatial round takes sizes='subsum' and no "
+                         "closures")
 
-    vminw, veid, nbrL = _vertex_min_outgoing(L, w8, eid8, tau)
-    cw, ce, SZ, unconv = kg.compmin_gossip(L, vminw, veid, S, max_sweeps,
-                                           idle=idle_compmin,
-                                           closures=closures)
+    vminw, veid, nbrL = _vertex_min_outgoing(L, w8, eid8, tau, comm)
+    if comm.dense:
+        cw, ce, SZ, unconv = kg.compmin_gossip(L, vminw, veid, S, max_sweeps,
+                                               idle=idle_compmin,
+                                               closures=closures)
+    else:
+        cw, ce, SZ, unconv = kg.compmin_gossip_spatial(
+            L, vminw, veid, S, max_sweeps, comm.rank, idle=idle_compmin)
 
     # Multiply-form predicate (w - Int) * |C| <= k, as separate float32 ops.
     kf = torch.tensor(k, dtype=torch.float32, device=L.device)
     SZf = SZ.to(torch.float32)
     my_ok = (cw - ID) * SZf <= kf
-    ID8 = torch.stack(_shifts8(ID, 0.0))
-    SZ8 = torch.stack(_shifts8(SZf, 0.0))
+    ID8 = torch.stack(comm.shifts8(ID, 0.0))
+    SZ8 = torch.stack(comm.shifts8(SZf, 0.0))
     owner8 = (nbrL != L[None]) & (w8 == cw[None]) & (eid8 == ce[None])
     pass8 = owner8 & my_ok[None] & ((cw[None] - ID8) * SZ8 <= kf)
 
-    new_mark4 = [pass8[dc] | gg.shift_plane(pass8[dc + 4], dy, dx, False)
+    new_mark4 = [pass8[dc] | comm.shift(pass8[dc + 4], dy, dx, False)
                  for dc, (dy, dx) in enumerate(gg.DIRS4)]
-    merged = bool(torch.stack(new_mark4).any())
+    merged = comm.reduce_any(torch.stack(new_mark4).any())
 
     allow = []
     for d in range(8):
@@ -333,7 +369,7 @@ def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
             am = new_mark4[d]
         else:
             dy, dx = gg.DIRS4[d - 4]
-            am = gg.shift_plane(new_mark4[d - 4], -dy, -dx, False)
+            am = comm.shift(new_mark4[d - 4], -dy, -dx, False)
         allow.append((nbrL[d] == L) | am)
     allow8 = torch.stack(allow)
 
@@ -347,12 +383,17 @@ def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
         # dist seeded 0 at the old roots: the new cluster root (an old root
         # that keeps its label) keeps 0, absorbed roots take over on
         # adoption.
-        vid = torch.arange(L.numel(), dtype=torch.int32,
-                           device=L.device).reshape(L.shape)
+        if vid is None:
+            vid = torch.arange(L.numel(), dtype=torch.int32,
+                               device=L.device).reshape(L.shape)
         dist0 = torch.full_like(L, BIGDIST).masked_fill(L == vid, 0)
-        Lnew, IDnew, dist, lab_unconv = kg.label_gossip(
-            bits, L, id_init, dist0, max_sweeps)
-        Snew, size_unconv = _subtree_sizes(Lnew, dist, max_sweeps)
+        if comm.dense:
+            Lnew, IDnew, dist, lab_unconv = kg.label_gossip(
+                bits, L, id_init, dist0, max_sweeps)
+        else:
+            Lnew, IDnew, dist, lab_unconv = kg.label_gossip_spatial(
+                bits, L, id_init, dist0, max_sweeps, comm.rank)
+        Snew, size_unconv = _subtree_sizes(Lnew, dist, max_sweeps, comm)
     else:
         # Away from hook pixels Lc (= L) and Int are uniform per old
         # component, so hook-free tiles start at a local fixpoint: the
@@ -826,6 +867,15 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
                      with_minsize=cfg.min_size > 1)
 
 
+def _value_flood(L, seed, max_sweeps, closures=False, comm=DENSE):
+    """The final map's value flood: the wrapper on one device (closures:
+    its hybrid route), the spatial fixpoint on a row tile. Returns (labels,
+    unconverged)."""
+    if comm.dense:
+        return kg.value_flood(L, seed, max_sweeps, closures=closures)
+    return kg.value_flood_spatial(L, seed, max_sweeps, comm.rank)
+
+
 def _final_map(gst: GossipState, st: CompactState, rm, r0, max_sweeps,
                closures=False):
     """Stage-G labels through the stage-2 root map -> final (H, W) labels:
@@ -839,8 +889,7 @@ def _final_map(gst: GossipState, st: CompactState, rm, r0, max_sweeps,
                          device=gst.L.device).reshape(h, w)
     seed = torch.where(gst.L == vid2d, gst.L, INT32_MAX).reshape(-1)
     seed = _scatter(seed, r0, st.fin)  # r0 holds v (dropped) where ~rm
-    return kg.value_flood(gst.L, seed.reshape(h, w), max_sweeps,
-                          closures=closures)
+    return _value_flood(gst.L, seed.reshape(h, w), max_sweeps, closures)
 
 
 def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,

@@ -12,6 +12,10 @@ Every C entry point takes device pointers, sizes and the CUDA stream, and
 returns `cudaGetLastError()`; `check` turns a nonzero code into an error.
 `on_cpu` is the wrappers' one routing rule: the plain PyTorch version for
 CPU tensors, the kernel for CUDA tensors, and nothing else.
+
+The wrappers may be called from several threads at once (the ranks of
+`gseg_tpu_torch.parallel`): a lock per library serialises its build, and
+`LOCK` the bindings and the launch counters (`count`).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import os
 import platform
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -40,6 +45,16 @@ HOST_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
+# library bindings and launch counters (reentrant: a binding loads)
+LOCK = threading.RLock()
+_build_locks: dict[str, threading.Lock] = {}
+
+
+def count(wrapper, attr: str = "launches", n: int = 1) -> None:
+    """wrapper.<attr> += n under LOCK (a bare += can lose counts between
+    threads)."""
+    with LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
 
 
 def _nvcc() -> str:
@@ -63,7 +78,7 @@ def _cached(stem: str, src: Path, cmd: list[str], key: bytes = b"",
     so = BUILD_DIR / f"lib{stem}_{digest}.so"
     if not so.exists() or verbose:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run([*cmd, "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
@@ -81,13 +96,28 @@ def load(name: str, verbose: bool = False) -> ctypes.CDLL:
 
     verbose=True adds `-Xptxas -v` and prints the compiler's report
     (registers, shared memory and spills per kernel)."""
-    if name in _libs and not verbose:
-        return _libs[name]
-    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    lib = _cached(name, CSRC / f"{name}.cu", [_nvcc(), *flags],
-                  verbose=verbose)
-    _libs[name] = lib
-    return lib
+    with LOCK:
+        lock = _build_locks.setdefault(name, threading.Lock())
+    with lock:
+        if name in _libs and not verbose:
+            return _libs[name]
+        flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+        lib = _cached(name, CSRC / f"{name}.cu", [_nvcc(), *flags],
+                      verbose=verbose)
+        _libs[name] = lib
+        return lib
+
+
+def load_all(verbose: bool = False) -> None:
+    """`load` every csrc/*.cu, one nvcc for each source, all started
+    together (the rank threads of `gseg_tpu_torch.parallel` then never
+    wait on a first build)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(names)) as pool:
+        for fut in [pool.submit(load, n, verbose) for n in names]:
+            fut.result()
 
 
 def _cpuinfo() -> dict[str, str]:
@@ -131,10 +161,13 @@ def load_host(src: Path) -> ctypes.CDLL:
     """The loaded library for a host C++ source, built with `g++` and
     HOST_FLAGS if not cached."""
     stem = src.stem
-    if stem not in _libs:
-        _libs[stem] = _cached(stem, src, ["g++", *HOST_FLAGS],
-                              key=_host_key())
-    return _libs[stem]
+    with LOCK:
+        lock = _build_locks.setdefault(stem, threading.Lock())
+    with lock:
+        if stem not in _libs:
+            _libs[stem] = _cached(stem, src, ["g++", *HOST_FLAGS],
+                                  key=_host_key())
+        return _libs[stem]
 
 
 def on_cpu(*tensors) -> bool:

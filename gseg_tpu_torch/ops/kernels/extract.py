@@ -122,7 +122,7 @@ def boundary_extract(L, weights, cap: int):
                         eid.data_ptr(), buf[4 * cap:].data_ptr(),
                         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gseg_boundary_extract")
-    _WRAPPER.launches += 1
+    _build.count(_WRAPPER)
     overflow = buf[4 * cap + 1:].view(torch.uint8)[0].view(torch.bool)
     return lo, hi, wv.view(torch.float32), eid, buf[4 * cap], overflow
 

@@ -52,6 +52,12 @@ bits of 0 join nothing, a pdir of 8 makes no child, and each read-write
 fill is the identity of its join (so a pad pixel offers nothing and, its
 own adjacency being empty, never changes; subsum pad pixels have no
 parent and feed no one). The closures run on the same padded planes.
+
+Row-sharded images (`gseg_tpu_torch.parallel`) take the spatial
+fixpoints (`*_spatial`): each rank holds a row tile, and each pass runs
+on the tile padded with T rows exchanged from the ranks above and below
+(`_spatial_fixpoint`): the step kernel on the card, the reference's
+one-row halo sweep on the CPU. They reach the same unique fixpoint.
 """
 
 from __future__ import annotations
@@ -443,27 +449,28 @@ _closure_max_width: dict[int, int] = {}
 
 
 def _lib():
-    lib = _build.load("gossip")
-    if getattr(lib, "gseg_bound", False):
+    with _build.LOCK:
+        lib = _build.load("gossip")
+        if getattr(lib, "gseg_bound", False):
+            return lib
+        for fname, _, fills in _VARIANTS.values():
+            fn = getattr(lib, fname)
+            fn.argtypes = ([ctypes.c_void_p] * (1 + 2 * len(fills))
+                           + [ctypes.c_int, ctypes.c_int]
+                           + [ctypes.c_void_p] * 4)
+            fn.restype = ctypes.c_int
+        for fname in ("gseg_gossip_steps", "gseg_gossip_tile",
+                      "gseg_gossip_reset_tile_counts"):
+            getattr(lib, fname).argtypes = []
+            getattr(lib, fname).restype = ctypes.c_int
+        lib.gseg_gossip_tile_counts.argtypes = [ctypes.c_void_p]
+        lib.gseg_gossip_tile_counts.restype = ctypes.c_int
+        got = (lib.gseg_gossip_steps(), lib.gseg_gossip_tile())
+        if got != (STEPS, _TILE):
+            raise RuntimeError(f"csrc/gossip.cu has (T, TILE) {got}; this "
+                               f"module expects {(STEPS, _TILE)}")
+        lib.gseg_bound = True
         return lib
-    for fname, _, fills in _VARIANTS.values():
-        fn = getattr(lib, fname)
-        fn.argtypes = ([ctypes.c_void_p] * (1 + 2 * len(fills))
-                       + [ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_void_p] * 4)
-        fn.restype = ctypes.c_int
-    for fname in ("gseg_gossip_steps", "gseg_gossip_tile",
-                  "gseg_gossip_reset_tile_counts"):
-        getattr(lib, fname).argtypes = []
-        getattr(lib, fname).restype = ctypes.c_int
-    lib.gseg_gossip_tile_counts.argtypes = [ctypes.c_void_p]
-    lib.gseg_gossip_tile_counts.restype = ctypes.c_int
-    got = (lib.gseg_gossip_steps(), lib.gseg_gossip_tile())
-    if got != (STEPS, _TILE):
-        raise RuntimeError(f"csrc/gossip.cu has (T, TILE) {got}; this module "
-                           f"expects {(STEPS, _TILE)}")
-    lib.gseg_bound = True
-    return lib
 
 
 def tile_counts():
@@ -481,8 +488,9 @@ def reset_tile_counts():
     """Zero the device's computed-tile counts and TILE_LAUNCHES."""
     _build.check(_lib().gseg_gossip_reset_tile_counts(),
                  "gseg_gossip_reset_tile_counts")
-    for counts in TILE_LAUNCHES.values():
-        counts[:] = [0, 0]
+    with _build.LOCK:
+        for counts in TILE_LAUNCHES.values():
+            counts[:] = [0, 0]
 
 
 def _closure_lib():
@@ -636,8 +644,9 @@ def _launch_pass(variant, ro, src, dst, act_in, act_out, changed, stream):
         None if act_in is None else act_in.data_ptr(), act_out.data_ptr(),
         changed.data_ptr(), stream)
     _build.check(err, f"gseg_{variant}_pass")
-    _WRAPPERS[variant].launches += 1
-    TILE_LAUNCHES[variant][0] += act_out.numel()
+    with _build.LOCK:
+        _WRAPPERS[variant].launches += 1
+        TILE_LAUNCHES[variant][0] += act_out.numel()
 
 
 def _passes(variant, ro, fields, max_passes, closures, seed_act=None):
@@ -658,7 +667,8 @@ def _passes(variant, ro, fields, max_passes, closures, seed_act=None):
             _launch_pass(variant, ro, src, dst, act_in, act_out, changed,
                          stream)
             if act_in is not None and act_in is seed_act:
-                TILE_LAUNCHES[variant][1] += act_out.numel()
+                with _build.LOCK:
+                    TILE_LAUNCHES[variant][1] += act_out.numel()
 
         def close(src, axis):
             _closure_launch(variant, clib, ro, src, axis, changed, stream)
@@ -714,8 +724,9 @@ def _closure_launch(variant, lib, ro, fields, axis, changed, stream):
                               h, w, axis, changed.data_ptr(), stream)
     _build.check(err, entry)
     wrapper = _CLOSURE_WRAPPERS[variant]
-    wrapper.launches += 1
-    wrapper.axis_launches[axis] += 1
+    with _build.LOCK:
+        wrapper.launches += 1
+        wrapper.axis_launches[axis] += 1
 
 
 def _closure(variant, plain, ro, fields, axis):
@@ -800,6 +811,124 @@ def subtree_sums(pdir, s, max_sweeps):
     """Subtree sums over the parent tree given by pdir (DIRS8 index of the
     parent, 8 = none). Returns (s, unconverged)."""
     return _fixpoint("subsum", subtree_sums_plain, pdir, [s], max_sweeps)
+
+
+# ---------------------------------------------------------------------------
+# spatial fixpoints: one image row-sharded over the ranks of a mesh
+# ---------------------------------------------------------------------------
+
+
+def _slab_step_kernel(variant, ro, src, dst):
+    """One ungated kernel pass over a row slab (contiguous CUDA planes);
+    the kernel's `changed` word is not read (see _spatial_fixpoint)."""
+    _check_contiguous(f"{variant} slab pass", (ro, *src, *dst))
+    h, w = ro.shape
+    act_out = torch.empty((-(-h // _TILE), -(-w // _TILE)), dtype=torch.uint8,
+                          device=ro.device)
+    changed = torch.zeros(1, dtype=torch.int32, device=ro.device)
+    with torch.cuda.device(ro.device):
+        _launch_pass(variant, ro, src, dst, None, act_out, changed,
+                     torch.cuda.current_stream().cuda_stream)
+
+
+def _spatial_fixpoint(variant, plain, ro, fields, max_sweeps, rank,
+                      step=None):
+    """The fixpoint of `variant` over a row tile of a row-sharded image.
+
+    rank: this rank's collectives (`parallel.mesh.Rank`): halos(xs, k,
+    fills), the tiles with the k rows above and below them in the global
+    plane (the fills outside the image), and any(local) -> bool over every
+    rank. Each pass pads the tile's planes to a slab with k exchanged rows
+    a side (the variant's inert fills outside the image, as on the padded
+    route), runs k steps on it and keeps the tile's own rows, which are
+    then exactly k global steps further: a row's new value depends only on
+    rows at most k away, all in the slab. The halo rows come fresh from
+    their owners each pass.
+
+    step(variant, ro, src, dst): one pass over a slab. None: on CUDA
+    tensors the step kernel (k = T, at most ceil(max_sweeps / T) passes,
+    ungated: no tile skipping, seed or closures, none of which is local
+    across ranks); on CPU tensors the reference's one-row halo sweep (k =
+    1, at most max_sweeps sweeps): one sweep of `plain` on the slab, whose
+    inner rows read only rows of the slab. Another step
+    (`step_pass_plain`, in tests) runs the slab route with k = T on any
+    device.
+
+    `changed` is decided on the tile's own rows only, compared word for
+    word with the pass's input, then ORed over the ranks: the slab's outer
+    halo rows have lost their neighbours beyond the slab and may change on
+    every pass (subtree sums there miss the children outside; a fill row
+    sums to 1), so they never stop the loop. Returns (*fields,
+    unconverged), the same on every rank."""
+    _check_fields(variant, ro, fields)
+    _, ro_fill, fills = _VARIANTS[variant]
+    h = ro.shape[0]
+    if step is None and _build.on_cpu(ro, *fields):
+        k, max_passes = 1, max_sweeps
+        ro_s = rank.halo(ro, 1, ro_fill)
+
+        def one_pass(src):
+            return [x[1:-1] for x in plain(ro_s, *src, 1)[:-1]]
+    else:
+        step = step or _slab_step_kernel
+        k, max_passes = STEPS, -(-max_sweeps // STEPS)
+        ro_s = rank.halo(ro, k, ro_fill)
+
+        def one_pass(src):
+            dst = [torch.empty_like(x) for x in src]
+            step(variant, ro_s, src, dst)
+            return [x[k:k + h] for x in dst]
+
+    # the OR of each pass's changed flag rides on the next pass's halo
+    # exchange (the last pass's alone).
+    cur, src, n = list(fields), rank.halos(fields, k, fills), 0
+    while True:
+        new = one_pass(src)
+        diff = torch.zeros((), dtype=torch.bool, device=ro.device)
+        for a, b in zip(new, cur):
+            diff |= (_word_bits(a) != _word_bits(b)).any()
+        cur, n = new, n + 1
+        if n >= max_passes:
+            return (*cur, rank.any(diff))
+        src, changed = rank.halos(cur, k, fills, diff)
+        if not changed:
+            return (*cur, False)
+
+
+def compmin_gossip_spatial(L, bw, be, sz, max_sweeps, rank, idle=False,
+                           step=None):
+    """compmin_gossip on a row tile (see _spatial_fixpoint). Returns (bw,
+    be, sz, unconverged)."""
+    if idle:
+        return bw, be, sz, False
+    return _spatial_fixpoint("compmin", compmin_gossip_plain, L,
+                             [bw, be, sz], max_sweeps, rank, step)
+
+
+def label_gossip_spatial(allow_bits, Lc, idf, dist, max_sweeps, rank,
+                         step=None):
+    """label_gossip on a row tile. Returns (Lc, idf, dist, unconverged)."""
+    return _spatial_fixpoint("labeldist", label_gossip_plain, allow_bits,
+                             [Lc, idf, dist], max_sweeps, rank, step)
+
+
+def label_flood_spatial(allow_bits, Lc, idf, max_sweeps, rank, step=None):
+    """label_flood on a row tile. Returns (Lc, idf, unconverged)."""
+    return _spatial_fixpoint("labelnd", label_flood_plain, allow_bits,
+                             [Lc, idf], max_sweeps, rank, step)
+
+
+def value_flood_spatial(L, val, max_sweeps, rank, step=None):
+    """value_flood on a row tile. Returns (val, unconverged)."""
+    return _spatial_fixpoint("value", value_flood_plain, L, [val],
+                             max_sweeps, rank, step)
+
+
+def subtree_sums_spatial(pdir, s, max_sweeps, rank, step=None):
+    """subtree_sums on a row tile; the parent tree may cross the tiles.
+    Returns (s, unconverged)."""
+    return _spatial_fixpoint("subsum", subtree_sums_plain, pdir, [s],
+                             max_sweeps, rank, step)
 
 
 # Launch counts live on the wrapper objects themselves (bound here, so a

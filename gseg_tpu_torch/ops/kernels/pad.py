@@ -121,7 +121,7 @@ def fast_pad_fields(fields, t, hp, wp):
     err = _launch(_lib().gseg_pad_fields, xs, outs, fills, h, w, t,
                   hp + 2 * t, wp)
     _build.check(err, "gseg_pad_fields")
-    _WRAPPERS["pad"].launches += 1
+    _build.count(_WRAPPERS["pad"])
     return outs
 
 
@@ -136,7 +136,7 @@ def fast_unpad_fields(fields, t, h, w):
     outs = [x.new_empty((h, w)) for x in fields]
     err = _launch(_lib().gseg_unpad_fields, fields, outs, h, w, t, hpad, wp)
     _build.check(err, "gseg_unpad_fields")
-    _WRAPPERS["unpad"].launches += 1
+    _build.count(_WRAPPERS["unpad"])
     return outs
 
 

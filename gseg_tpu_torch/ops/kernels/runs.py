@@ -93,7 +93,7 @@ def run_extract(L, cap: int):
                         buf[cap:].data_ptr(), buf[2 * cap:].data_ptr(),
                         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gseg_run_extract")
-    _WRAPPER.launches += 1
+    _build.count(_WRAPPER)
     overflow = buf[2 * cap + 1:].view(torch.uint8)[0].view(torch.bool)
     return buf[:cap], buf[cap:2 * cap], buf[2 * cap], overflow
 

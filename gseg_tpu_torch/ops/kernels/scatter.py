@@ -106,7 +106,7 @@ def ordered_scatter_add(base, idx, vals):
                         out.data_ptr(), sidx.numel(), c, slots,
                         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gseg_ordered_scatter_add")
-    _WRAPPER.launches += 1
+    _build.count(_WRAPPER)
     return out
 
 

@@ -776,3 +776,66 @@ def test_colorize_on_card_equals_cpu(dev):
     levels = torch.stack([labels, labels // 7 * 7])
     assert torch.equal(colorize_hierarchy(levels.to(dev), 5).cpu(),
                        colorize_hierarchy(levels, 5))
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(100, 130)])
+@pytest.mark.parametrize("variant", list(kg._VARIANTS))
+def test_slab_pass_kernel_equals_plain(dev, variant, shape):
+    """The spatial fixpoints' ungated slab pass: the kernel and
+    step_pass_plain from the same input give the same fields."""
+    h, w = shape
+    ro, fields = _step_inputs(variant, h, w, dev, seed=h * 13 + w)
+    dk = [torch.empty_like(x) for x in fields]
+    dp = [torch.empty_like(x) for x in fields]
+    n0 = kg._WRAPPERS[variant].launches
+    kg._slab_step_kernel(variant, ro, fields, dk)
+    kg.step_pass_plain(variant, ro, fields, dp)
+    assert _equal(dk, dp)
+    assert kg._WRAPPERS[variant].launches == n0 + 1
+
+
+@pytest.mark.parametrize("variant", list(kg._VARIANTS))
+def test_spatial_fixpoint_on_card_equals_plain(dev, variant):
+    """Four ranks on the card (6-row tiles, shorter than T): the slab
+    route's fixpoint equals the dense plain fixpoint, with no sweep."""
+    from gseg_tpu_torch.parallel.mesh import run_ranks
+
+    spatial_fn = {"compmin": kg.compmin_gossip_spatial,
+                  "labeldist": kg.label_gossip_spatial,
+                  "labelnd": kg.label_flood_spatial,
+                  "value": kg.value_flood_spatial,
+                  "subsum": kg.subtree_sums_spatial}[variant]
+    plain = {"compmin": kg.compmin_gossip_plain,
+             "labeldist": kg.label_gossip_plain,
+             "labelnd": kg.label_flood_plain, "value": kg.value_flood_plain,
+             "subsum": kg.subtree_sums_plain}[variant]
+    ro, fields = _step_inputs(variant, 24, 70, dev, seed=5)
+    ms = 4 * (24 + 70)
+    tiles = list(zip(ro.split(6), *[x.split(6) for x in fields]))
+    out = run_ranks([dev] * 4, lambda r, t: spatial_fn(
+        t[0].contiguous(), *[x.contiguous() for x in t[1:]], ms, r), tiles)
+    *want, unconv = plain(ro, *fields, ms)
+    got = [torch.cat([o[f] for o in out]) for f in range(len(fields))]
+    assert _equal(got, want) and out[0][-1] is unconv is False
+
+
+def test_parallel_paths_on_card_equal_dense(dev):
+    """Batch, row-sharded turbo (8 ranks: 6-row tiles) and row-sharded
+    atomic path on the card: equal to the dense paths there."""
+    from gseg_tpu_torch.models import atomic_boruvka
+    from gseg_tpu_torch.parallel import batching, spatial, turbo_spatial
+
+    cfg = SegmentationConfig(k=120.0, min_size=8)
+    imgs = torch.stack([torch.from_numpy(blobs_image(48, 40, 5, 6.0, s))
+                        for s in (2, 3)]).to(dev)
+    labels = batching.segment_batch(imgs, cfg, dev)
+    for i in range(2):
+        dense, flags = turbo.segment_turbo_flagged(imgs[i], cfg, 2)
+        assert flags == 0 and torch.equal(labels[i], dense)
+    got, flags = turbo_spatial.segment_turbo_spatial(
+        imgs[0], cfg, spatial.spatial_mesh([dev] * 8))
+    assert flags == 0 and torch.equal(got, labels[0])
+    acfg = SegmentationConfig(k=120.0, min_size=8, algorithm="atomic")
+    m4 = spatial.spatial_mesh([dev] * 4)
+    assert torch.equal(spatial.segment_spatial(imgs[1], acfg, m4),
+                       atomic_boruvka.segment_atomic(imgs[1], acfg))

@@ -145,6 +145,10 @@ def test_port_imports_no_jax():
         "import gseg_tpu_torch.native.bindings\n"
         "import gseg_tpu_torch.cli, gseg_tpu_torch.__main__\n"
         "import gseg_tpu_torch.bench.harness, gseg_tpu_torch.bench.__main__\n"
+        "import gseg_tpu_torch.parallel.mesh\n"
+        "import gseg_tpu_torch.parallel.batching\n"
+        "import gseg_tpu_torch.parallel.spatial\n"
+        "import gseg_tpu_torch.parallel.turbo_spatial\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gseg_tpu' or m.startswith('gseg_tpu.')]\n"
         "print(bad)\n"
