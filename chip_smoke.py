@@ -138,7 +138,30 @@ arguments). It
      launches, host reads, peak memory and median ms; no plain sweep may
      run. On every spatial turbo path, the slab passes of a top, a middle
      and a bottom rank, for each step variant, are held against
-     `step_pass_plain` (max_abs_err 0).
+     `step_pass_plain` (max_abs_err 0);
+ 11. runs the bench's performance half (`gseg_tpu_torch.bench`): the
+     resolution ladder, `python -m gseg_tpu_torch.bench perf --algorithms
+     turbo,atomic,fastmst --reps 5` in this process (rungs 540p to 4K at
+     the default --max-mpix 9.0, the main path's configuration; its
+     perf.jsonl in the gitignored bench_out/torch/), counted as one path:
+     every row flags 0, every kernel of the turbo, fastmst and padded
+     paths launched; each row's times, inner calls and filter_graph
+     stage. Then one more counted run of every row through the callable
+     the ladder timed: 0 pixels off its rung's oracle
+     (gseg_tpu_torch/oracles/blobs_{540x960,720x1280,1440x2560}_wb0.npz,
+     bench_out/oracle_bench_{1080x1920,2160x3840}_wb0.npy), the recorded
+     launches (the 1080p and 4K turbo rows those of 1080p_subsum and
+     4k_subsum), host reads and peak memory, and beside the 1080p and 4K
+     turbo rows the same callable's CUDA-event median of 25 calls (with
+     the host clock around the same calls). The 1440p rung's fields (2560
+     wide, the padded route) are held and timed as the main paths' are
+     (gated passes, pad and unpad on both routes). Then
+     `bench.profile_turbo` at 1080p and 4K and at 1080p wb16, 10 reps
+     (each prefix's wall ms beside the device ms of one more call under
+     `utils.timing.profile_trace`), five `PhaseTimer` runs at 1080p (prep,
+     segment; their median total within 1.5x of the ladder's median),
+     `bench.fig3` at 480x854 with 100 reps and `bench.flagship`'s JSON
+     line.
 
 `python3 chip_smoke.py --cards`, on a machine with several cards, runs
 only the row-sharded paths with one rank on each card (PERF.md: each
@@ -155,6 +178,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import json
@@ -172,6 +196,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gseg_tpu_torch.bench import __main__ as bench_main
+from gseg_tpu_torch.bench import fig3, flagship, harness, profile_turbo
 from gseg_tpu_torch.config import SegmentationConfig
 from gseg_tpu_torch.metrics.compare import asa_ue_best_gt, asa_ue_torch
 from gseg_tpu_torch.models import atomic_boruvka, fastmst, superpixel, turbo
@@ -187,6 +213,7 @@ from gseg_tpu_torch.parallel import batching, spatial, turbo_spatial
 from gseg_tpu_torch.parallel.mesh import Mesh, run_ranks
 from gseg_tpu_torch.oracles import (load_level_oracle, load_oracle,
                                     oracle_path)
+from gseg_tpu_torch.utils import timing
 from gseg_tpu_torch.utils.labels import (canonical_min_labels_np,
                                          compact_labels_np)
 from gseg_tpu_torch.utils.synthetic import blobs_image
@@ -298,53 +325,76 @@ SPATIAL_TURBO = ("1080p_spatial4", "1080p_spatial4_wb16", "4k_spatial4",
                  "spatial8_short_tiles")
 SPATIAL_ATOMIC = ("1080p_spatial_atomic4", "1080p_multichip_2x2")
 TURBO_NEW = set(BATCH + SPATIAL_TURBO)
+# step 11: the bench's performance half. `python -m gseg_tpu_torch.bench
+# perf` in process at its default --max-mpix 9.0 (the rungs 540p-4K), its
+# whole run counted as LADDER_RUN; then each row re-run once, counted, as
+# ladder_<algorithm>_<h>x<w>, against its rung's oracle.
+LADDER_RUN = "ladder_perf"
+LADDER_ALGOS = ("turbo", "atomic", "fastmst")
+LADDER_ORACLES = {
+    (540, 960): FsPath(oracle_path("blobs_540x960_wb0")).resolve(),
+    (720, 1280): FsPath(oracle_path("blobs_720x1280_wb0")).resolve(),
+    (1080, 1920): _WB0,
+    (1440, 2560): FsPath(oracle_path("blobs_1440x2560_wb0")).resolve(),
+    (2160, 3840): ROOT / "bench_out/oracle_bench_2160x3840_wb0.npy",
+}
+LADDER = {f"ladder_{a}_{h}x{w}": (a, h, w) for h, w in LADDER_ORACLES
+          for a in LADDER_ALGOS}
+LADDER_TURBO = {p for p, (a, _, _) in LADDER.items() if a == "turbo"}
+LADDER_DPP = {p for p, (a, _, _) in LADDER.items() if a == "fastmst"}
+# the padded route: w >= 2560 (gseg_tpu/ops/pallas/gossip.py:703)
+LADDER_WIDE = {p for p, (a, _, w) in LADDER.items()
+               if a != "atomic" and w >= 2560}
+LADDER_T = LADDER_TURBO | {LADDER_RUN}
 KERNELS = {
     "gossip_compmin": Kernel(
         kg, "compmin_gossip", kg.compmin_gossip_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_compmin_step :997)",
-        ALL | TURBO_NEW, set(), 28, 40,
+        ALL | TURBO_NEW | LADDER_T, set(), 28, 40,
         (r"\bfixpoint_pass<.*\bCompminOp>",)),
     "gossip_labeldist": Kernel(
         kg, "label_gossip", kg.label_gossip_plain,
         "gseg_tpu_torch/csrc/gossip.cu",
         _GOSSIP + "_label_step :1057, via label_gossip :1228)",
-        SPEED_SUBSUM | TURBO_NEW, set(), 28, 48,
+        SPEED_SUBSUM | TURBO_NEW | LADDER_T, set(), 28, 48,
         (r"\bfixpoint_pass<.*\bLabelDistOp>",)),
     "gossip_labelnd": Kernel(
         kg, "label_flood", kg.label_flood_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_labelnd_step :1086)",
-        ALL | set(BATCH), set(), 20, 24,
+        ALL | set(BATCH) | LADDER_T, set(), 20, 24,
         (r"\bfixpoint_pass<.*\bLabelndOp>",)),
     "gossip_value": Kernel(
         kg, "value_flood", kg.value_flood_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_value_step :1120)",
-        ALL | DPP | TURBO_NEW | {BSDS["fastmst"], BSDS["superpixel"]}, set(),
-        12, 16,
+        ALL | DPP | TURBO_NEW | LADDER_T | LADDER_DPP
+        | {BSDS["fastmst"], BSDS["superpixel"]}, set(), 12, 16,
         (r"\bfixpoint_pass<.*\bValueOp>",)),
     "gossip_subsum": Kernel(
         kg, "subtree_sums", kg.subtree_sums_plain,
         "gseg_tpu_torch/csrc/gossip.cu",
         _GOSSIP + "_subsum_step :1157, via subtree_sums :1320)",
-        SPEED_SUBSUM | TURBO_NEW, set(), 12, 16,
+        SPEED_SUBSUM | TURBO_NEW | LADDER_T, set(), 12, 16,
         (r"\bfixpoint_pass<.*\bSubsumOp>",)),
     "pad_fields": Kernel(
         kp, "fast_pad_fields", kp.fast_pad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:703 (_fast_pad_fields, call :781)",
-        {"4k_subsum", "4k_wb16", "4k_fastmst", "4k_batch2"}, set(), None, 0,
+        {"4k_subsum", "4k_wb16", "4k_fastmst", "4k_batch2", LADDER_RUN}
+        | LADDER_WIDE, set(), None, 0,
         (r"\bpad_fields_(bulk|regs)\b",)),
     "unpad_fields": Kernel(
         kp, "fast_unpad_fields", kp.fast_unpad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:799 (_fast_unpad_fields, call :826)",
-        {"4k_subsum", "4k_wb16", "4k_fastmst", "4k_batch2"}, set(), None, 0,
+        {"4k_subsum", "4k_wb16", "4k_fastmst", "4k_batch2", LADDER_RUN}
+        | LADDER_WIDE, set(), None, 0,
         (r"\bunpad_fields_(bulk|regs)\b",)),
     "boundary_extract": Kernel(
         kx, "boundary_extract", kx.boundary_extract_plain,
         "gseg_tpu_torch/csrc/extract.cu",
         "gseg_tpu/ops/pallas/extract.py:344 (_extract_kernel, via "
         "boundary_extract :515)",
-        ALL | set(BATCH), set(), 20, 16,
+        ALL | set(BATCH) | LADDER_T, set(), 20, 16,
         (r"\bextract_(fill|rows)\b",)),
     # a closure "call" below is one rows launch and one columns launch.
     "closure_compmin": Kernel(
@@ -481,6 +531,34 @@ RECORDED_LAUNCHES |= {
                                     ordered_scatter_add=196)),
     BSDS["kruskal_native"]: ("9a", {}),
     BSDS["boruvka_cpu"]: ("9a", {}),
+}
+# step 11: one counted run of each ladder row. The ladder's configuration
+# is the main path's (sigma 0.8, k 300, min_size 100, max_iters 32) and its
+# images at 1080p and 4K are the main paths', so those rows launch what
+# 1080p_subsum / 4k_subsum and 1080p_fastmst / 4k_fastmst launch; the
+# atomic path launches nothing; the 540p, 720p and 1440p rows were
+# recorded by run 11a.
+RECORDED_LAUNCHES |= {p: ("11a", {}) for p, (a, _, _) in LADDER.items()
+                      if a == "atomic"}
+RECORDED_LAUNCHES |= {
+    "ladder_turbo_540x960": ("11a", dict(
+        gossip_compmin=14, gossip_labeldist=8, gossip_labelnd=17,
+        gossip_value=9, gossip_subsum=8, boundary_extract=1)),
+    "ladder_turbo_720x1280": ("11a", dict(
+        gossip_compmin=13, gossip_labeldist=8, gossip_labelnd=19,
+        gossip_value=10, gossip_subsum=8, boundary_extract=1)),
+    "ladder_turbo_1080x1920": RECORDED_LAUNCHES["1080p_subsum"],
+    "ladder_turbo_1440x2560": ("11a", dict(
+        gossip_compmin=16, gossip_labeldist=8, gossip_labelnd=22,
+        gossip_value=16, gossip_subsum=8, pad_fields=10, unpad_fields=10,
+        boundary_extract=1)),
+    "ladder_turbo_2160x3840": RECORDED_LAUNCHES["4k_subsum"],
+    "ladder_fastmst_540x960": ("11a", dict(gossip_value=2)),
+    "ladder_fastmst_720x1280": ("11a", dict(gossip_value=2)),
+    "ladder_fastmst_1080x1920": RECORDED_LAUNCHES["1080p_fastmst"],
+    "ladder_fastmst_1440x2560": ("11a", dict(gossip_value=2, pad_fields=1,
+                                             unpad_fields=1)),
+    "ladder_fastmst_2160x3840": RECORDED_LAUNCHES["4k_fastmst"],
 }
 CLOSURES = ("closure_compmin", "closure_labelnd", "closure_value")
 # closure kernel -> the fixpoint whose fields it is checked and timed at
@@ -1396,6 +1474,12 @@ def _check_path_launches(path, launches):
     """The recorded launches, a launch of every kernel the path must run
     and none of a kernel it must not run."""
     _check_launches(path, launches)
+    _check_kernels_run(path, launches)
+
+
+def _check_kernels_run(path, launches):
+    """A launch of every kernel the path must run and none of a kernel it
+    must not run."""
     idle = [n for n in KERNELS if path in KERNELS[n].must
             and launches[n] == 0]
     if idle:
@@ -2777,6 +2861,230 @@ def _cross_card(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# step 11: the bench's performance half
+# ---------------------------------------------------------------------------
+
+LADDER_REPS = 5
+# CUDA-event reps beside the ladder's 1080p and 4K turbo rows: host time
+# drifts by tens of percent over a few seconds on a shared host (PERF.md
+# §7), so more reps than the ladder's 5 x inner
+CUDA_MS_REPS = 25
+PROFILE_REPS = 10
+PHASE_TIMER_RUNS = 5
+PROFILE_TURBO = {"1080p": ["--height", "1080", "--width", "1920"],
+                 "4k": ["--height", "2160", "--width", "3840"],
+                 "1080p_wb16": ["--height", "1080", "--width", "1920",
+                                "--weight-buckets", "16"]}
+
+
+def _ladder_perf(card):
+    """`python -m gseg_tpu_torch.bench perf --algorithms turbo,atomic,
+    fastmst --reps 5` in this process, counted as one path: every row's
+    flags 0, the rows of every rung and algorithm. Returns (rows, record)."""
+    out_dir = FsPath(bench_main.OUT_DIR)
+    _reset_counts()
+    base = _peak_reset()
+    t0 = time.perf_counter()
+    with _no_sweeps(LADDER_RUN), _host_reads() as reads:
+        rc = bench_main.main(["perf", "--algorithms", ",".join(LADDER_ALGOS),
+                              "--reps", str(LADDER_REPS)])
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    peak = _peak_since(base)
+    with open(out_dir / "perf.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    print(f"main path {LADDER_RUN}: exit {rc}, {len(rows)} rows in "
+          f"{seconds:.1f} s, launches {launches}, host reads {reads[0]}, "
+          f"peak memory {peak:.1f} MiB ({card})", flush=True)
+    got = [(r["algorithm"], r["height"], r["width"]) for r in rows]
+    if rc or got != list(LADDER.values()):
+        raise AssertionError(f"{LADDER_RUN}: exit {rc}, rows {got}")
+    flagged = [g for g, r in zip(got, rows) if r["flags"]]
+    if flagged:
+        raise AssertionError(f"{LADDER_RUN}: rows with flags: {flagged}")
+    _check_kernels_run(LADDER_RUN, launches)
+    for r in rows:
+        t, fg = r["total"], r["filter_graph"]
+        print(f"  ladder row {r['algorithm']} {r['height']}x{r['width']}: "
+              f"flags {r['flags']}, median {t['median_s'] * 1e3:.3f} ms "
+              f"(mean {t['mean_s'] * 1e3:.3f}, min {t['min_s'] * 1e3:.3f}, "
+              f"max {t['max_s'] * 1e3:.3f}; {t['reps']} reps x "
+              f"{t['inner']}, within 5% {t['within5pct']}) = "
+              f"{r['mpix'] / t['median_s']:.2f} MPix/s at the median, "
+              f"{r['mpix_per_s']:.2f} at the mean; filter_graph median "
+              f"{fg['median_s'] * 1e3:.3f} ms ({card})", flush=True)
+    return rows, {"launches": launches, "host_reads": reads[0],
+                  "peak_mib": peak, "seconds": seconds}
+
+
+def _ladder_row_runs(rows, card):
+    """One more counted run of every ladder row after the timed reps,
+    through the callable the ladder timed (`harness.segment_fn`): launch
+    counts 0 just before and read just after (RECORDED_LAUNCHES), host
+    reads, peak memory, 0 pixels off the rung's oracle; beside the 1080p
+    and 4K turbo rows the same callable's `_cuda_ms` reading. Each rung's
+    image is dropped before the next one's is made. Returns name ->
+    record."""
+    cfg = SegmentationConfig(k=300.0, min_size=100)  # the ladder's
+    by = {(r["algorithm"], r["height"], r["width"]): r for r in rows}
+    out = {}
+    for (h, w), oracle in LADDER_ORACLES.items():
+        image = torch.from_numpy(harness.ladder_image(h, w)).cuda()
+        for algo in LADDER_ALGOS:
+            path = f"ladder_{algo}_{h}x{w}"
+            fn = harness.segment_fn(algo, cfg)
+            _reset_counts()
+            base = _peak_reset()
+            with _no_sweeps(path), _host_reads() as reads:
+                labels = fn(image)
+                torch.cuda.synchronize()
+            launches = _counts()
+            peak = _peak_since(base)
+            ndiff = _oracle_diff(labels, oracle)
+            row = by[algo, h, w]
+            rec = out[path] = {
+                "launches": launches, "host_reads": reads[0],
+                "peak_mib": peak, "oracle_pixels_differ": ndiff,
+                "median_ms": row["total"]["median_s"] * 1e3,
+                "mean_ms": row["total"]["mean_s"] * 1e3,
+                "filter_graph_median_ms":
+                    row["filter_graph"]["median_s"] * 1e3,
+                "flags": row["flags"], "inner": row["total"]["inner"]}
+            print(f"main path {path}: launches {launches}, host reads "
+                  f"{reads[0]}, peak memory {peak:.1f} MiB; {ndiff} pixels "
+                  f"off {oracle.relative_to(ROOT)}", flush=True)
+            _check_path_launches(path, launches)
+            if ndiff:
+                raise AssertionError(f"{path}: partition differs from the "
+                                     "oracle")
+            if algo == "turbo" and (h, w) in ((1080, 1920), (2160, 3840)):
+                _cuda_ms_beside(rec, lambda: fn(image), path, card)
+            del labels
+        del image
+    return out
+
+
+def _cuda_ms_beside(rec, fn, path, card):
+    """The _cuda_ms reading (median CUDA-event ms of CUDA_MS_REPS calls
+    after a warm-up) beside the ladder's _timed median, with the host clock
+    around the same calls: their per-call gap and range."""
+    fn()
+    ev, wall = [], []
+    for _ in range(CUDA_MS_REPS):
+        t0 = time.perf_counter()
+        ev.append(_event_ms(fn))
+        wall.append((time.perf_counter() - t0) * 1e3)
+    rec["cuda_ms"] = statistics.median(ev)
+    rec["cuda_ms_wall"] = statistics.median(wall)
+    rec["cuda_ms_range"] = [min(ev), max(ev)]
+    gap = max(w - e for e, w in zip(ev, wall))
+    print(f"  {path}: _timed median {rec['median_ms']:.3f} ms, _cuda_ms "
+          f"median of {CUDA_MS_REPS} {rec['cuda_ms']:.3f} ms (ratio "
+          f"{rec['median_ms'] / rec['cuda_ms']:.4f}; calls "
+          f"{min(ev):.3f}-{max(ev):.3f} ms); the same calls on the host "
+          f"clock: median {rec['cuda_ms_wall']:.3f} ms, at most {gap:.3f} ms "
+          f"above their events ({card})", flush=True)
+
+
+def _ladder_1440p_kernels(card, errs):
+    """The 1440p rung's main-path fields (2560 wide: the padded route, pad
+    and unpad on the bulk route, and on planes offset by one word on the
+    register route): every step variant pass by pass with gated passes
+    against step_pass_plain, every kernel against its plain version
+    (bit-equal) and timed. Returns name -> timing record."""
+    path = "ladder_turbo_1440x2560"
+    image = torch.from_numpy(harness.ladder_image(1440, 2560)).cuda()
+    fields = _capture_main_path_fields(image, CFG)
+    missing = {n for n in KERNELS if path in KERNELS[n].must} - set(fields)
+    if missing:
+        raise AssertionError(f"{path} never called {sorted(missing)}")
+    for name in [n for n in STEP if n in fields]:
+        args, kwargs = fields[name]
+        n, err = _gated_passes(name, args, kwargs)
+        errs[name] = max(errs[name], err)
+        print(f"check {name} {path} main-path fields {sorted(kwargs)} gated "
+              f"passes: {n} passes equal to step_pass_plain", flush=True)
+    timed = _time_kernels(fields, f"{path} main-path fields", card, 1)
+    for name, rec in timed.items():
+        errs[name] = max(errs[name], rec["max_abs_err"])
+    return timed
+
+
+def _profile_turbo(card):
+    """`python -m gseg_tpu_torch.bench.profile_turbo` at 1080p and 4K in
+    speed mode and at 1080p wb16, with --trace-dir: each prefix's wall
+    time beside the device time of one more call under
+    `timing.profile_trace`, and each stage's increments. Every prefix's
+    flags must be 0. Returns label -> rows."""
+    out = {}
+    for label, argv in PROFILE_TURBO.items():
+        rows = profile_turbo.main(argv + ["--reps", str(PROFILE_REPS),
+                                          "--trace-dir", timing.TRACE_DIR])
+        bad = [r["phase"] for r in rows if r.get("flags", 0)]
+        if bad:
+            raise AssertionError(f"profile_turbo {label}: flags in {bad}")
+        prev = (0.0, 0.0, 0.0)
+        for r in rows:
+            wall, low = r["mean_s"] * 1e3, r["min_s"] * 1e3
+            dev = r["device_s"] * 1e3
+            print(f"  profile_turbo {label} {r['phase']}: wall mean "
+                  f"{wall:.1f} ms (+{wall - prev[0]:.1f}), min {low:.1f} "
+                  f"(+{low - prev[1]:.1f}); device {dev:.1f} ms "
+                  f"(+{dev - prev[2]:.1f}), {dev / low:.3f} of the min; "
+                  f"iters {r.get('iters', '-')} ({card})", flush=True)
+            prev = (wall, low, dev)
+        out[label] = rows
+    return out
+
+
+def _phase_timer(median_s, card):
+    """PHASE_TIMER_RUNS PhaseTimer runs at 1080p (prep, segment), one run
+    each: their median total must be within 1.5x of the ladder's _timed
+    median for the rung. Returns each run's phases."""
+    image = torch.from_numpy(harness.ladder_image(1080, 1920)).cuda()
+    prep, fn = harness.prep_fn(CFG), harness.segment_fn("turbo", CFG)
+    timers = []
+    for _ in range(PHASE_TIMER_RUNS):
+        timer = timing.PhaseTimer()
+        with timer.phase("prep") as o:
+            o["result"] = prep(image)[0]
+        with timer.phase("segment") as o:
+            o["result"] = fn(image)
+        timers.append(timer)
+        print(f"PhaseTimer 1080p turbo {timer.json()} ({card})", flush=True)
+    total = statistics.median(sum(t.phases.values()) for t in timers)
+    print(f"PhaseTimer 1080p turbo: median total of {PHASE_TIMER_RUNS} runs "
+          f"{total * 1e3:.3f} ms, {total / median_s:.4f} x the ladder's "
+          f"_timed median ({card})", flush=True)
+    if not 1 / 1.5 <= total / median_s <= 1.5:
+        raise AssertionError("PhaseTimer's total is not within 1.5x of "
+                             "_timed's median")
+    return [t.phases for t in timers]
+
+
+def _perf_half(card, errs):
+    """Step 11: the ladder, PhaseTimer runs (next to the ladder in time:
+    host time drifts), the rows against the oracles, the 1440p kernels,
+    profile_turbo, fig3 and flagship. Returns (path records, 1440p kernel
+    records, step record)."""
+    t0 = time.perf_counter()
+    gc.collect()  # the earlier steps' profiler events hold cycles
+    rows, rec = _ladder_perf(card)
+    row, = [r for r in rows if (r["algorithm"], r["height"]) == ("turbo",
+                                                                 1080)]
+    step = {"phase_timer": _phase_timer(row["total"]["median_s"], card)}
+    runs = {LADDER_RUN: rec} | _ladder_row_runs(rows, card)
+    timed = _ladder_1440p_kernels(card, errs)
+    step["profile_turbo"] = _profile_turbo(card)
+    step["fig3"] = fig3.main(["--reps", "100"])
+    step["flagship"] = flagship.main([])
+    step["seconds"] = time.perf_counter() - t0
+    print(f"step 11 took {step['seconds']:.1f} s", flush=True)
+    return runs, timed, step
+
+
 # per-kernel keys of the kernels line beyond the contract's, where measured
 _EXTRA_KEYS = ("library_device_ms", "device_ms_rows", "device_ms_cols",
                "device_ms_fill", "device_ms_bulk", "device_ms_regs", "ms_regs",
@@ -2911,6 +3219,10 @@ def main() -> None:
     runs |= parallel
     print(f"parallel paths done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    ladder, timed["1440p"], perf_half = _perf_half(card, errs)
+    runs |= ladder
+    print(f"performance half done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
                                    for m in sys.modules):
@@ -2947,6 +3259,8 @@ def main() -> None:
             "bound_ms_4k": rec4k.get("bound_ms")}
             | {k: rec[k] for k in _EXTRA_KEYS if k in rec}
             | {f"{k}_4k": rec4k[k] for k in _EXTRA_KEYS if k in rec4k}
+            | {f"{k}_1440p": v for k, v in timed["1440p"].get(name, {}).items()
+               if k in _EXTRA_KEYS + _KEYS_8K}
             | ({"active_tile_share": shares[name]} if name in STEP else {})
             | ({"slab_route": slab[name]} if name in slab else {})
             | ({"label_planes": {p: {k: r[k] for k in _KEYS_8K + (
@@ -2958,7 +3272,8 @@ def main() -> None:
                if k in _EXTRA_KEYS + _KEYS_8K})
     print("paths: " + json.dumps(
         {p: {k: v for k, v in r.items() if k != "launches"}
-         for p, r in runs.items()} | {"peel_ab_1080p": ab}))
+         for p, r in runs.items()} | {"peel_ab_1080p": ab,
+                                       "perf_half": perf_half}))
     print(f"chip_smoke wall time {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

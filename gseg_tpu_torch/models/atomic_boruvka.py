@@ -22,7 +22,7 @@ Every `lax.while_loop` / `fori_loop` of the reference is a host loop that
 reads the round's `merged` flag once per round. So `segment_atomic` (the
 reference's on-device loop) and `segment_atomic_hostsync` (its host-synced
 loop, one 4-byte read per round) run the same loop here; control of the
-loop on the device is later work (ROADMAP.md, queue 1, item 2).
+loop on the device is later work (ROADMAP.md, queue 1, item 4).
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ benchmark configuration of `scripts/precompute_oracles.py`: sigma 0.8, k 300,
 min_size 100, max_iters 32, `blobs_image(h, w, max(8, h * w // 65536), 8.0,
 0)`. It is saved with `np.savez_compressed` under the key "labels".
 
-Remake the committed files (about 75 s each at 4K on one CPU core):
-    python -m gseg_tpu_torch.oracles
+Remake the committed files (about 75 s at 4K on one CPU core), or only
+the named ones:
+    python -m gseg_tpu_torch.oracles [name ...]
 
 Level oracles hold, for each level of a segmentation hierarchy, the
 component count and the sha256 of the canonical map (int32, C order), as
@@ -29,6 +30,10 @@ import numpy as np
 # name -> (h, w, weight_buckets)
 ORACLES = {
     "blobs_2160x3840_wb16": (2160, 3840, 16),
+    # the resolution ladder's rungs that bench_out/ holds no oracle for
+    "blobs_540x960_wb0": (540, 960, 0),
+    "blobs_720x1280_wb0": (720, 1280, 0),
+    "blobs_1440x2560_wb0": (1440, 2560, 0),
 }
 
 

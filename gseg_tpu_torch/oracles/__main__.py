@@ -1,13 +1,17 @@
-"""Remake every committed oracle: python -m gseg_tpu_torch.oracles"""
+"""Remake the committed oracles, every one or the named ones:
+
+    python -m gseg_tpu_torch.oracles [name ...]
+"""
 
 import hashlib
+import sys
 import time
 
 import numpy as np
 
 from . import ORACLES, make_oracle, oracle_path
 
-for name in ORACLES:
+for name in sys.argv[1:] or ORACLES:
     t0 = time.perf_counter()
     labels = make_oracle(name)
     seconds = time.perf_counter() - t0

@@ -89,10 +89,11 @@ def segment_batch_sharded(images, cfg: SegmentationConfig, mesh: Mesh,
     """Data-parallel batched segmentation: the (B, H, W, 3) batch is split
     in order over the ranks of `mesh`'s axis (B divisible by its size), and
     each rank segments its share on its device, one image after another.
-    The flags are ORed over the whole batch and checked as in
-    `segment_batch`: "fallback" re-runs each share on the atomic path.
-    Returns one (B / n, H, W) int32 block of labels per rank, in order,
-    each on its rank's device.
+    The flags are ORed over the whole batch; as in the reference, only
+    "raise" acts on them (RuntimeError), and "fallback" and "ignore" both
+    return the flagged labels: unlike `segment_batch`, the sharded form
+    re-runs nothing on the atomic path. Returns one (B / n, H, W) int32
+    block of labels per rank, in order, each on its rank's device.
 
     The ranks take turns (`mesh._Group`) and meet only at the flags, so
     each holds the turn for its whole share: the shares run one after
@@ -112,6 +113,9 @@ def segment_batch_sharded(images, cfg: SegmentationConfig, mesh: Mesh,
     def run(rank, share):
         labels, flags = segment_batch_flagged(share, cfg, rank.device)
         flags = rank.or_flags(flags)
-        return _checked(labels, flags, share, cfg, "sharded batch")
+        if flags and cfg.on_overflow == "raise":
+            raise RuntimeError("turbo capacity/budget violation in sharded "
+                               "batch: " + describe_flags(flags))
+        return labels
 
     return run_ranks(devices, run, shares)

@@ -1,12 +1,15 @@
-"""Hold the committed 4K quality-mode oracle against the reference's NumPy
-Boruvka at full size (about 70 s on one CPU core, so not a test case):
+"""Hold committed oracles against the reference's NumPy Boruvka at full
+size (a script, not a test: about 70 s on one CPU core for the 4K one):
 
-    JAX_PLATFORMS=cpu python tests/check_oracle_4k.py
+    JAX_PLATFORMS=cpu python tests/check_oracle_4k.py [name ...]
 
-It recomputes `blobs_2160x3840_wb16` with `gseg_tpu`'s `segment_boruvka_np`
-and `canonical_min_labels_np`, compares the arrays with the committed
-labels, and prints the sha256 of each side's label bytes. Exits 1 when
-they differ.
+With no name it checks the 4K quality-mode oracle `blobs_2160x3840_wb16`;
+name the ladder's rungs (`blobs_540x960_wb0 blobs_720x1280_wb0
+blobs_1440x2560_wb0`, about 25 s together) or any other entry of
+`gseg_tpu_torch.oracles.ORACLES` to check those. For each it recomputes
+the labels with `gseg_tpu`'s `segment_boruvka_np` and
+`canonical_min_labels_np`, compares the arrays with the committed labels,
+and prints the sha256 of each side's label bytes. Exits 1 when any differ.
 """
 
 import hashlib
@@ -28,8 +31,8 @@ from gseg_tpu_torch.oracles import (  # noqa: E402
 NAME = "blobs_2160x3840_wb16"
 
 
-def main() -> int:
-    h, w, wb = ORACLES[NAME]
+def check(name: str) -> bool:
+    h, w, wb = ORACLES[name]
     img = blobs_image(h, w, num_blobs=max(8, (h * w) // 65536), noise=8.0,
                       seed=0)
     cfg = SegmentationConfig(sigma=0.8, k=300.0, min_size=100, max_iters=32,
@@ -37,15 +40,20 @@ def main() -> int:
     t0 = time.perf_counter()
     ref = canonical_min_labels_np(segment_boruvka_np(img, cfg))
     seconds = time.perf_counter() - t0
-    got = load_oracle(oracle_path(NAME))
+    got = load_oracle(oracle_path(name))
     same = ref.dtype == got.dtype and np.array_equal(ref, got)
     for side, labels in (("gseg_tpu", ref), ("committed", got)):
         digest = hashlib.sha256(np.ascontiguousarray(labels).tobytes())
-        print(f"{side}: {labels.shape} {labels.dtype}, "
+        print(f"{name} {side}: {labels.shape} {labels.dtype}, "
               f"{np.unique(labels).size} components, labels sha256 "
               f"{digest.hexdigest()}")
-    print(f"reference took {seconds:.1f} s; arrays equal: {same}")
-    return 0 if same else 1
+    print(f"{name}: reference took {seconds:.1f} s; arrays equal: {same}")
+    return same
+
+
+def main() -> int:
+    results = [check(name) for name in sys.argv[1:] or [NAME]]
+    return 0 if all(results) else 1
 
 
 if __name__ == "__main__":

@@ -839,3 +839,54 @@ def test_parallel_paths_on_card_equal_dense(dev):
     m4 = spatial.spatial_mesh([dev] * 4)
     assert torch.equal(spatial.segment_spatial(imgs[1], acfg, m4),
                        atomic_boruvka.segment_atomic(imgs[1], acfg))
+
+
+def _sleep_ms(dev):
+    """A device sleep and its CUDA-event milliseconds."""
+    cycles = 50_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles, start.elapsed_time(end)
+
+
+def test_timers_wait_for_a_cuda_result(dev):
+    """_timed and PhaseTimer stop their clocks only when the card is done:
+    a call that queues a device sleep and returns at once measures at
+    least the sleep's device time."""
+    from gseg_tpu_torch.bench import harness
+    from gseg_tpu_torch.utils import timing
+
+    x = torch.zeros(4, device=dev)
+    cycles, ms = _sleep_ms(dev)
+
+    def queued():
+        torch.cuda._sleep(cycles)
+        return x + 1
+
+    stats = harness._timed(queued, 3, inner=2)
+    assert stats["min_s"] >= 0.9 * ms / 1e3
+    timer = timing.PhaseTimer()
+    with timer.phase("sleep") as out:
+        out["result"] = queued()
+    assert timer.phases["sleep"] >= 0.9 * ms / 1e3
+
+
+def test_ladder_540p_turbo_row_on_card(dev):
+    """One 540p turbo row of the ladder on the card: flags 0, and one more
+    run 0 pixels off the rung's committed oracle."""
+    from gseg_tpu_torch.bench import harness
+    from gseg_tpu_torch.oracles import load_oracle, oracle_path
+    from gseg_tpu_torch.utils.labels import canonical_min_labels_np
+
+    row, = harness.run_performance_ladder(("turbo",), ((540, 960),), 2,
+                                          device=dev)
+    assert row["flags"] == 0 and row["total"]["median_s"] > 0
+    labels = harness.segment_fn("turbo", SegmentationConfig(
+        k=300.0, min_size=100))(harness.ladder_image(540, 960))
+    assert labels.is_cuda
+    got = canonical_min_labels_np(labels.cpu().numpy())
+    assert np.array_equal(got, load_oracle(oracle_path("blobs_540x960_wb0")))

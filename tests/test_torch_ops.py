@@ -145,6 +145,10 @@ def test_port_imports_no_jax():
         "import gseg_tpu_torch.native.bindings\n"
         "import gseg_tpu_torch.cli, gseg_tpu_torch.__main__\n"
         "import gseg_tpu_torch.bench.harness, gseg_tpu_torch.bench.__main__\n"
+        "import gseg_tpu_torch.bench.plots, gseg_tpu_torch.bench.fig3\n"
+        "import gseg_tpu_torch.bench.profile_turbo\n"
+        "import gseg_tpu_torch.bench.flagship\n"
+        "import gseg_tpu_torch.utils.timing\n"
         "import gseg_tpu_torch.parallel.mesh\n"
         "import gseg_tpu_torch.parallel.batching\n"
         "import gseg_tpu_torch.parallel.spatial\n"

@@ -13,6 +13,10 @@
   (`gseg_tpu_torch/oracles/blobs_2160x3840_wb16.npz`) loads as canonical
   (2160, 3840) int32 labels with 90 components. Remaking it takes about a
   minute (`python -m gseg_tpu_torch.oracles`), so it is only read here.
+- The committed oracles of the resolution ladder's 540p, 720p and 1440p
+  rungs load as canonical int32 labels of their rung's shape, with the
+  sha256 of their label bytes that `tests/check_oracle_4k.py` found equal
+  to the reference's NumPy Boruvka.
 """
 
 import hashlib
@@ -135,6 +139,32 @@ def test_committed_4k_quality_oracle_is_canonical():
     assert (flat <= np.arange(flat.size)).all()
     assert (flat[flat] == flat).all()
     assert np.unique(flat).size == 90
+
+
+# name -> sha256 of the label bytes (`python -m gseg_tpu_torch.oracles`
+# prints it; `tests/check_oracle_4k.py <name>` holds the labels against
+# gseg_tpu's segment_boruvka_np)
+LADDER_ORACLES = {
+    "blobs_540x960_wb0":
+        "b77557b1952915b1233dd29591a4f1e6ac43857937df55f93ebcfbfa0c1f0827",
+    "blobs_720x1280_wb0":
+        "b4eeb24b8ec2ddc0970abfad252bc0446aba15324d8a7ac8dcd6df26cd296c7a",
+    "blobs_1440x2560_wb0":
+        "35b814ba7c68b9d4d5be2e743d6c6131c045491bc869d1c9bd0092616cfb86c1",
+}
+
+
+@pytest.mark.parametrize("name", sorted(LADDER_ORACLES))
+def test_committed_ladder_oracles(name):
+    h, w, wb = ORACLES[name]
+    assert wb == 0 and name == f"blobs_{h}x{w}_wb0"
+    labels = load_oracle(oracle_path(name))
+    assert labels.shape == (h, w) and labels.dtype == np.int32
+    assert hashlib.sha256(labels.tobytes()).hexdigest() == LADDER_ORACLES[
+        name]
+    flat = labels.ravel()
+    assert (flat <= np.arange(flat.size)).all()
+    assert (flat[flat] == flat).all()
 
 
 def test_load_oracle_reads_the_reference_npy_oracles():

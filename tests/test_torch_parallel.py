@@ -82,9 +82,12 @@ def test_segment_batch_matches_reference(ref_batches, algo):
 
 def test_segment_batch_overflow_fallback_and_raise(monkeypatch):
     """Capacities forced small on low-k noise: the flags match the
-    reference's, "raise" raises in both packages, "fallback" re-runs the
-    batch on the atomic path (byte-equal to the reference's), "ignore"
-    keeps the flagged labels."""
+    reference's, "raise" raises in both packages, `segment_batch`'s
+    "fallback" re-runs the batch on the atomic path (byte-equal to the
+    reference's), "ignore" keeps the flagged labels. The sharded form
+    follows the reference's `segment_batch_sharded`: "fallback" and
+    "ignore" both return the flagged labels, byte-equal to the
+    reference's on a 2-device mesh."""
     rng = np.random.default_rng(3)
     imgs = rng.integers(0, 256, (2, 24, 32, 3)).astype(np.float32)
     cfg = SegmentationConfig(k=1e-3, min_size=1, sigma=0.0, max_iters=7,
@@ -109,9 +112,43 @@ def test_segment_batch_overflow_fallback_and_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="capacity"):
         batching.segment_batch_sharded(
             timgs, cfg, batching.data_parallel_mesh(["cpu"] * 2))
-    fallback = batching.segment_batch_sharded(
-        timgs, fb, batching.data_parallel_mesh(["cpu"] * 2))
-    assert np.array_equal(_np(fallback), np.asarray(want))
+    jmesh = ref_batching.data_parallel_mesh(jax.devices()[:2])
+    for policy in ("fallback", "ignore"):
+        pcfg = dataclasses.replace(cfg, on_overflow=policy)
+        got = batching.segment_batch_sharded(
+            timgs, pcfg, batching.data_parallel_mesh(["cpu"] * 2))
+        want = ref_batching.segment_batch_sharded(jimgs, _ref(pcfg), jmesh)
+        assert np.array_equal(_np(got), np.asarray(want)), policy
+        assert np.array_equal(_np(got), ignored.numpy()), policy
+
+
+@pytest.mark.parametrize("policy", ["fallback", "ignore"])
+def test_segment_batch_sharded_overflow_matches_reference(monkeypatch,
+                                                          policy):
+    """The sharded overflow policy on an input where the flagged labels
+    and the atomic path's differ (min_size 4 leaves merges that the
+    capped turbo run misses): "fallback" and "ignore" return the flagged
+    labels, byte-equal to the reference's sharded form on a 2-device
+    mesh, not `segment_batch`'s atomic re-run."""
+    rng = np.random.default_rng(3)
+    imgs = rng.integers(0, 256, (2, 24, 32, 3)).astype(np.float32)
+    cfg = SegmentationConfig(k=1e-3, min_size=4, sigma=0.0, max_iters=7,
+                             algorithm="turbo", on_overflow=policy)
+    monkeypatch.setattr(turbo, "_CAP_FLOOR", 64)
+    monkeypatch.setattr(ref_turbo, "_CAP_FLOOR", 64)
+    timgs = torch.from_numpy(imgs)
+    got = _np(batching.segment_batch_sharded(
+        timgs, cfg, batching.data_parallel_mesh(["cpu"] * 2)))
+    want = ref_batching.segment_batch_sharded(
+        jnp.asarray(imgs), _ref(cfg),
+        ref_batching.data_parallel_mesh(jax.devices()[:2]))
+    assert np.array_equal(got, np.asarray(want))
+    flagged, flags = batching.segment_batch_flagged(timgs, cfg, "cpu")
+    assert flags & turbo.FLAG_PAIR_OVERFLOW
+    assert np.array_equal(got, flagged.numpy())
+    fb = dataclasses.replace(cfg, on_overflow="fallback")
+    assert not np.array_equal(
+        got, batching.segment_batch(timgs, fb, "cpu").numpy())
 
 
 @needs_devices

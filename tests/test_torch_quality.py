@@ -16,10 +16,13 @@ generator, the datasets, the quality harness and its CLI.
   kruskal_native and boruvka_cpu, and under the port's kruskal_native,
   boruvka_cpu, fastmst (level 4) and superpixel (level 4). The card runs
   all 140 rows (chip_smoke.py, phase bsds_like_quality).
-- `python -m gseg_tpu_torch.bench quality` writes quality.jsonl and one
-  summary line; `perf` raises NotImplementedError. Its default output
-  goes to the port's gitignored `bench_out/torch/`, never over the
-  reference's committed `bench_out/quality.jsonl`.
+- `python -m gseg_tpu_torch.bench quality` writes quality.jsonl, its
+  figure quality.png (matplotlib is installed here) and one summary line;
+  `perf` without --device raises RuntimeError without a card, as every
+  entry point of the port does (tests/test_torch_bench_perf.py holds the
+  ladder). Its default output goes to the port's gitignored
+  `bench_out/torch/`, never over the reference's committed
+  `bench_out/quality.jsonl`.
 Every comparison is exact.
 """
 
@@ -194,8 +197,10 @@ def test_bench_cli(tmp_path, capsys):
     with open(tmp_path / "quality.jsonl") as f:
         rows = [json.loads(x) for x in f]
     assert [r["algorithm"] for r in rows] == ["kruskal_native", "boruvka_cpu"]
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        bench_main.main(["perf"])
+    assert (tmp_path / "quality.png").read_bytes()[:4] == b"\x89PNG"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench_main.main(["perf", "--out-dir", str(tmp_path)])
 
 
 def test_bench_cli_default_out_dir(tmp_path, monkeypatch, capsys):
@@ -205,7 +210,7 @@ def test_bench_cli_default_out_dir(tmp_path, monkeypatch, capsys):
     capsys.readouterr()
     assert sorted(p.relative_to(tmp_path).as_posix()
                   for p in tmp_path.rglob("*") if p.is_file()) == [
-        "bench_out/torch/quality.jsonl"]
+        "bench_out/torch/quality.jsonl", "bench_out/torch/quality.png"]
     # the default lies in a gitignored folder, not on a committed record
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "/bench_out/torch/" in f.read().split()
