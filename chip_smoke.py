@@ -102,7 +102,7 @@ arguments). It
      superpixel path's round-1 call;
   8. drives the CLI (`gseg_tpu_torch.cli.main`, in this process, on the
      default device) on the 1080p image written as a PPM: `1080p_cli`
-     (the default turbo path: labels 0 pixels off the 1080p oracle,
+     (`--algorithm turbo`: labels 0 pixels off the 1080p oracle,
      launches those of `1080p_subsum`, out.ppm one colour per component
      and as many colours as components), the same command as `python -m
      gseg_tpu_torch` in a subprocess (labels equal), `1080p_cli_level4`
@@ -161,11 +161,38 @@ arguments). It
      `utils.timing.profile_trace`), five `PhaseTimer` runs at 1080p (prep,
      segment; their median total within 1.5x of the ladder's median),
      `bench.fig3` at 480x854 with 100 reps and `bench.flagship`'s JSON
-     line.
+     line;
+ 12. holds the step kernel at T 4, 16 and 32 steps per pass (8 is step
+     3's) pass by pass against `kg.step_pass_plain` at the same T: every
+     variant at RANDOM_SHAPES (the wide ones included) and at the 4K
+     main path's fields, fields, act bytes and the changed flag bit-equal
+     after every pass; runs each variant's fixpoint at each T on the
+     1080p and 4K main paths' fields through the wrappers' own route
+     (`kg._run_fixpoint`: 1080p at `kg.STEPS` = T, 4K padded at
+     `kg.STEPS_WIDE` = T), equal to the plain fixpoint, each launch timed
+     by CUDA events behind a device sleep (no profiler: late in a long
+     process its windows came back empty): device ms a call and a
+     launch, launches, the bound of one ungated launch's (TILE + 2T)^2
+     slab loads; then drives
+     the turbo path's exact alternatives (ALTERNATIVES: module attributes
+     of `models.turbo` and `ops.kernels.gossip`), each with the launch
+     counts set to 0 just before it and read just after: the final-map
+     gather at 1080p, 4K, on the turbo hierarchy (every level equal to
+     the level oracle) and on 4 row-sharded ranks (labels equal to
+     dense), the pointer-resolved flood at 1080p and 4K, quality mode's
+     root list unsplit, speed mode's late rounds on the closure route,
+     quality mode without closures, T = 16 at 4K (pads at t = 16) and
+     the closure route from the first pass at T_SCAN = 4 (the T of each
+     step launch recorded): flags 0, 0 pixels off the
+     path's oracle, its RECORDED_LAUNCHES, every kernel it must run and
+     none it must not; its host reads and peak memory beside its
+     default's, and two A B B A pairs of CUDA-event medians (3 calls
+     each) of the default and the alternative.
 
 `python3 chip_smoke.py --cards`, on a machine with several cards, runs
 only the row-sharded paths with one rank on each card (PERF.md: each
-rank's peak memory).
+rank's peak memory). `python3 chip_smoke.py --alternatives` builds the
+kernels and runs step 12 alone.
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -257,9 +284,12 @@ PAD_SHAPES = {(37, 2563): "regs", (1081, 2599): "regs",
               (2160, 3840): "bulk", (4320, 7680): "bulk"}
 PAD_8K = (4320, 7680)
 # t -> fills of four planes (int32, float32, int32, int32): at t = 8 the
-# compmin fixpoint's, at t = 0 the other inert fills of kg._VARIANTS.
+# compmin fixpoint's, at t = 0 the other inert fills of kg._VARIANTS, and
+# at t = 16 and 32 (the step kernel's wide steps per pass) both mixed.
 PAD_FILLS = {8: (-1, float("inf"), kg.INT32_MAX, 0),
-             0: (8, 0.0, kg.BIGDIST, 0)}
+             0: (8, 0.0, kg.BIGDIST, 0),
+             16: (kg.INT32_MAX, 0.0, kg.BIGDIST, -1),
+             32: (0, float("inf"), 8, kg.INT32_MAX)}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 _GOSSIP = "gseg_tpu/ops/pallas/gossip.py:386 (_strip_call_skip, "
@@ -285,7 +315,7 @@ class Kernel(NamedTuple):
 # 1080p_atomic_hierarchy (no kernel) and the turbo hierarchy.
 TURBO_HIERARCHY = "1080p_turbo_hierarchy"
 LEVEL_ORACLE = "levels_blobs_1080x1920_wb0"
-# step 8: the CLI (`gseg_tpu_torch.cli`) at 1080p: the default turbo path,
+# step 8: the CLI (`gseg_tpu_torch.cli`) at 1080p: the turbo path,
 # its hierarchy's level 4, and the C++ kruskal_native baseline on the host
 CLI = "1080p_cli"
 CLI_LEVEL4 = "1080p_cli_level4"
@@ -346,75 +376,95 @@ LADDER_DPP = {p for p, (a, _, _) in LADDER.items() if a == "fastmst"}
 LADDER_WIDE = {p for p, (a, _, w) in LADDER.items()
                if a != "atomic" and w >= 2560}
 LADDER_T = LADDER_TURBO | {LADDER_RUN}
+# step 12: the turbo path's exact alternatives (module attributes of
+# models.turbo and ops.kernels.gossip; ALTERNATIVES below), each against
+# the default it replaces
+ALT_GATHER = ("1080p_final_gather", "4k_final_gather",
+              "1080p_turbo_hierarchy_final_gather",
+              "1080p_spatial4_final_gather")
+ALT_PTR = ("1080p_flood_ptr", "4k_flood_ptr")
+ALT_WB16 = ("1080p_wb16_rlist_nosplit", "1080p_wb16_no_q_closures",
+            "1080p_wb16_closures_tscan4")
+ALT_SPEED = ("1080p_late_closures", "4k_t16")
+ALT = set(ALT_GATHER + ALT_PTR + ALT_WB16 + ALT_SPEED)
+ALT_4K = {"4k_final_gather", "4k_flood_ptr", "4k_t16"}
+# speed mode with the subsum peel (no hierarchy: its peel counts); on the
+# row-sharded path every round sizes by subtree sums
+ALT_SUBSUM = ALT - set(ALT_WB16) - {"1080p_turbo_hierarchy_final_gather"}
+# the closure kernels: the paths on the closure route from the first pass,
+# and those whose hybrid fixpoints may pass the warm passes
+CLOSURE_MUST = {"1080p_wb16_closures", "1080p_wb16_closures_tscan4"}
+CLOSURE_MAY = {"1080p_wb16", "4k_wb16", "1080p_wb16_rlist_nosplit",
+               "1080p_late_closures"}
 KERNELS = {
     "gossip_compmin": Kernel(
         kg, "compmin_gossip", kg.compmin_gossip_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_compmin_step :997)",
-        ALL | TURBO_NEW | LADDER_T, set(), 28, 40,
-        (r"\bfixpoint_pass<.*\bCompminOp>",)),
+        ALL | TURBO_NEW | LADDER_T | ALT, set(), 28, 40,
+        (r"\bfixpoint_pass<.*\bCompminOp\b",)),
     "gossip_labeldist": Kernel(
         kg, "label_gossip", kg.label_gossip_plain,
         "gseg_tpu_torch/csrc/gossip.cu",
         _GOSSIP + "_label_step :1057, via label_gossip :1228)",
-        SPEED_SUBSUM | TURBO_NEW | LADDER_T, set(), 28, 48,
-        (r"\bfixpoint_pass<.*\bLabelDistOp>",)),
+        SPEED_SUBSUM | TURBO_NEW | LADDER_T | ALT_SUBSUM, set(), 28, 48,
+        (r"\bfixpoint_pass<.*\bLabelDistOp\b",)),
     "gossip_labelnd": Kernel(
         kg, "label_flood", kg.label_flood_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_labelnd_step :1086)",
-        ALL | set(BATCH) | LADDER_T, set(), 20, 24,
-        (r"\bfixpoint_pass<.*\bLabelndOp>",)),
+        ALL | set(BATCH) | LADDER_T
+        | ALT - set(ALT_PTR) - {"1080p_spatial4_final_gather"}, set(), 20,
+        24, (r"\bfixpoint_pass<.*\bLabelndOp\b",)),
     "gossip_value": Kernel(
         kg, "value_flood", kg.value_flood_plain,
         "gseg_tpu_torch/csrc/gossip.cu", _GOSSIP + "_value_step :1120)",
         ALL | DPP | TURBO_NEW | LADDER_T | LADDER_DPP
-        | {BSDS["fastmst"], BSDS["superpixel"]}, set(), 12, 16,
-        (r"\bfixpoint_pass<.*\bValueOp>",)),
+        | {BSDS["fastmst"], BSDS["superpixel"]} | ALT - set(ALT_GATHER),
+        set(), 12, 16, (r"\bfixpoint_pass<.*\bValueOp\b",)),
     "gossip_subsum": Kernel(
         kg, "subtree_sums", kg.subtree_sums_plain,
         "gseg_tpu_torch/csrc/gossip.cu",
         _GOSSIP + "_subsum_step :1157, via subtree_sums :1320)",
-        SPEED_SUBSUM | TURBO_NEW | LADDER_T, set(), 12, 16,
-        (r"\bfixpoint_pass<.*\bSubsumOp>",)),
+        SPEED_SUBSUM | TURBO_NEW | LADDER_T | ALT_SUBSUM, set(), 12, 16,
+        (r"\bfixpoint_pass<.*\bSubsumOp\b",)),
     "pad_fields": Kernel(
         kp, "fast_pad_fields", kp.fast_pad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:703 (_fast_pad_fields, call :781)",
         {"4k_subsum", "4k_wb16", "4k_fastmst", "4k_batch2", LADDER_RUN}
-        | LADDER_WIDE, set(), None, 0,
+        | LADDER_WIDE | ALT_4K, set(), None, 0,
         (r"\bpad_fields_(bulk|regs)\b",)),
     "unpad_fields": Kernel(
         kp, "fast_unpad_fields", kp.fast_unpad_fields_plain,
         "gseg_tpu_torch/csrc/pad.cu",
         "gseg_tpu/ops/pallas/gossip.py:799 (_fast_unpad_fields, call :826)",
         {"4k_subsum", "4k_wb16", "4k_fastmst", "4k_batch2", LADDER_RUN}
-        | LADDER_WIDE, set(), None, 0,
+        | LADDER_WIDE | ALT_4K, set(), None, 0,
         (r"\bunpad_fields_(bulk|regs)\b",)),
     "boundary_extract": Kernel(
         kx, "boundary_extract", kx.boundary_extract_plain,
         "gseg_tpu_torch/csrc/extract.cu",
         "gseg_tpu/ops/pallas/extract.py:344 (_extract_kernel, via "
         "boundary_extract :515)",
-        ALL | set(BATCH) | LADDER_T, set(), 20, 16,
-        (r"\bextract_(fill|rows)\b",)),
+        ALL | set(BATCH) | LADDER_T | ALT - {"1080p_spatial4_final_gather"},
+        set(), 20, 16, (r"\bextract_(fill|rows)\b",)),
     # a closure "call" below is one rows launch and one columns launch.
     "closure_compmin": Kernel(
         kg, "compmin_closure", kg.compmin_closure_plain,
         "gseg_tpu_torch/csrc/closure.cu",
         _CLOSURE + "_compmin_closure :1031, combine :1020)",
-        {"1080p_wb16_closures"}, {"1080p_wb16", "4k_wb16"}, 2 * 28, 2 * 20,
+        CLOSURE_MUST, CLOSURE_MAY, 2 * 28, 2 * 20,
         (r"\bclosure_(rows|cols)<.*\bCompminOp\b",)),
     "closure_labelnd": Kernel(
         kg, "labelnd_closure", kg.labelnd_closure_plain,
         "gseg_tpu_torch/csrc/closure.cu",
         _CLOSURE + "_labelnd_closure :1115, combine :1106)",
-        {"1080p_wb16_closures"}, {"1080p_wb16", "4k_wb16"}, 2 * 20, 2 * 12,
+        CLOSURE_MUST, CLOSURE_MAY, 2 * 20, 2 * 12,
         (r"\bclosure_(rows|cols)<.*\bLabelndOp\b",)),
     "closure_value": Kernel(
         kg, "value_closure", kg.value_closure_plain,
         "gseg_tpu_torch/csrc/closure.cu",
         _CLOSURE + "_value_closure :1141, combine :1135)",
-        {"1080p_wb16_closures"}, {"1080p_wb16", "4k_wb16", TURBO_HIERARCHY,
-                                  CLI_LEVEL4},
+        CLOSURE_MUST, CLOSURE_MAY | {TURBO_HIERARCHY, CLI_LEVEL4},
         2 * 12, 2 * 8, (r"\bclosure_(rows|cols)<.*\bValueOp\b",)),
     "run_extract": Kernel(
         kr, "run_extract", kr.run_extract_plain,
@@ -559,6 +609,41 @@ RECORDED_LAUNCHES |= {
     "ladder_fastmst_1440x2560": ("11a", dict(gossip_value=2, pad_fields=1,
                                              unpad_fields=1)),
     "ladder_fastmst_2160x3840": RECORDED_LAUNCHES["4k_fastmst"],
+}
+# step 12 (run 12c): the alternatives. The gather drops the value flood
+# (and at 4K its pad and unpad), the pointer flood the root-list rounds'
+# label floods (and their pads); the unsplit list and the closure switches
+# launch what their defaults do (no fixpoint passes the 64 warm passes);
+# T = 16 at 4K about halves the step passes; T_SCAN = 4 from the first
+# pass takes more closure pairs than 1080p_wb16_closures
+RECORDED_LAUNCHES |= {
+    "1080p_final_gather": ("12c", dict(
+        gossip_compmin=16, gossip_labeldist=8, gossip_labelnd=23,
+        gossip_subsum=8, boundary_extract=1)),
+    "4k_final_gather": ("12c", dict(
+        gossip_compmin=18, gossip_labeldist=8, gossip_labelnd=21,
+        gossip_subsum=8, pad_fields=9, unpad_fields=9, boundary_extract=1)),
+    "1080p_turbo_hierarchy_final_gather": ("12c", dict(
+        gossip_compmin=16, gossip_labelnd=31, boundary_extract=1)),
+    "1080p_spatial4_final_gather": ("12c", dict(
+        gossip_compmin=64, gossip_labeldist=136, gossip_subsum=136)),
+    "1080p_flood_ptr": ("12c", dict(
+        gossip_compmin=16, gossip_labeldist=8, gossip_value=17,
+        gossip_subsum=8, boundary_extract=1)),
+    "4k_flood_ptr": ("12c", dict(
+        gossip_compmin=18, gossip_labeldist=8, gossip_value=17,
+        gossip_subsum=8, pad_fields=8, unpad_fields=8, boundary_extract=1)),
+    "1080p_wb16_rlist_nosplit": RECORDED_LAUNCHES["1080p_wb16"],
+    "1080p_late_closures": RECORDED_LAUNCHES["1080p_subsum"],
+    "1080p_wb16_no_q_closures": RECORDED_LAUNCHES["1080p_wb16"],
+    "4k_t16": ("12c", dict(
+        gossip_compmin=11, gossip_labeldist=5, gossip_labelnd=12,
+        gossip_value=9, gossip_subsum=5, pad_fields=10, unpad_fields=10,
+        boundary_extract=1)),
+    "1080p_wb16_closures_tscan4": ("12c", dict(
+        gossip_compmin=76, gossip_labelnd=152, gossip_value=12,
+        boundary_extract=1, closure_compmin=76, closure_labelnd=152,
+        closure_value=12)),
 }
 CLOSURES = ("closure_compmin", "closure_labelnd", "closure_value")
 # closure kernel -> the fixpoint whose fields it is checked and timed at
@@ -1288,7 +1373,8 @@ def _pass_times(name, args, kwargs, card):
         def step(src, dst, act_in, act_out):
             kg.reset_tile_counts()
             t = _device_event_ms(lambda: kg._launch_pass(
-                v, ro, src, dst, act_in, act_out, changed, stream))
+                v, ro, src, dst, act_in, act_out, changed, stream,
+                kg.STEPS))
             c0, c1, steps = kg.tile_counts()[v]
             passes.append((c0 + c1, steps, t))
 
@@ -1421,13 +1507,15 @@ def _time_kernels(fields, label, card, plain_reps):
     return out
 
 
-def _gated_passes(name, args, kwargs=None):
+def _gated_passes(name, args, kwargs=None, t=None, ref=None):
     """One fixpoint driven pass by pass through the pass loop with tile
-    skipping, each pass by the kernel (kg.step_pass) and by
-    kg.step_pass_plain from the same input into copies of the same
-    destination: fields, act_out and changed must agree after every pass,
-    and the result must equal the plain fixpoint. A seed_mask in kwargs
-    seeds the first pass. Returns (passes, max abs error)."""
+    skipping, each pass of t steps (default kg.STEPS) by the kernel
+    (kg.step_pass) and by kg.step_pass_plain from the same input into
+    copies of the same destination: fields, act_out and changed must agree
+    after every pass, and the result must equal the plain fixpoint (ref:
+    its outputs, if already computed). A seed_mask in kwargs seeds the
+    first pass. Returns (passes, max abs error)."""
+    t = t or kg.STEPS
     v = STEP[name]
     ro, *fields, ms = args
     seed = (kwargs or {}).get("seed_mask")
@@ -1442,8 +1530,8 @@ def _gated_passes(name, args, kwargs=None):
     def step(src, dst, act_in, act_out):
         nonlocal err
         pdst = [x.clone() for x in dst]
-        _, ka, kc = kg.step_pass(v, ro, src, dst, act_in)
-        _, pa, pc = kg.step_pass_plain(v, ro, src, pdst, act_in)
+        _, ka, kc = kg.step_pass(v, ro, src, dst, act_in, t)
+        _, pa, pc = kg.step_pass_plain(v, ro, src, pdst, act_in, t)
         if kc != pc:
             raise AssertionError(f"{name} step pass: changed {kc} vs plain "
                                  f"{pc}")
@@ -1453,10 +1541,10 @@ def _gated_passes(name, args, kwargs=None):
             changed.fill_(1)
 
     seed_act = None if seed is None else kg._seed_act(seed, h, w, 0)
-    cap = -(-ms // kg.STEPS)
+    cap = -(-ms // t)
     out, unconv, n, _ = kg._pass_loop(step, None, fields, bufs, acts,
                                       changed, cap, cap, seed_act, True)
-    ref = KERNELS[name].plain(*args)
+    ref = ref or KERNELS[name].plain(*args)
     if unconv or ref[-1]:
         raise AssertionError(f"{name}: a fixpoint hit its cap")
     return n, max(err, _max_abs_err(out, ref[:-1]))
@@ -1598,7 +1686,8 @@ def _pad_planes(h, w, dev, seed):
 
 def _pad_checks(dev, card):
     """pad and unpad against their plain versions at PAD_SHAPES with 1 to 4
-    fields and t 0 and 8, the route of each shape's 4-field calls read
+    fields and each t of PAD_FILLS, the route of each shape's 4-field calls
+    read
     from the profiler; then the 8K planes (4 fields padded, 3 unpadded, as
     the compmin fixpoint does) timed like the main-path fields. Returns
     (name -> max abs error, name -> 8K record)."""
@@ -1619,9 +1708,9 @@ def _pad_checks(dev, card):
                         raise AssertionError(
                             f"{name} {h}x{w}: ran routes {sorted(taken)} "
                             f"where {route} alone was due")
-        print(f"check pad/unpad {h}x{w} (hp {hp}, wp {wp}), 1-4 fields, t 0 "
-              f"and 8, fills {PAD_FILLS}: equal to plain, {route} route",
-              flush=True)
+        print(f"check pad/unpad {h}x{w} (hp {hp}, wp {wp}), 1-4 fields, t "
+              f"{sorted(PAD_FILLS)}, fills {PAD_FILLS}: equal to plain, "
+              f"{route} route", flush=True)
     h, w = PAD_8K
     planes = _pad_planes(h, w, dev, seed=8)
     pad = (list(zip(planes, PAD_FILLS[8])), 8, h, w)
@@ -2179,8 +2268,8 @@ def _cli_paths(image, card):
 
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        rec, wall = _cli([src, str(tmp / "out.ppm"), "--labels-out",
-                          str(tmp / "l.npy"), "--time"])
+        rec, wall = _cli([src, str(tmp / "out.ppm"), "--algorithm", "turbo",
+                          "--labels-out", str(tmp / "l.npy"), "--time"])
         launches = _counts()
         peak = torch.cuda.max_memory_allocated() / 2**20
         _check_path_launches(CLI, launches)
@@ -2204,9 +2293,9 @@ def _cli_paths(image, card):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "gseg_tpu_torch", src,
-             str(tmp / "sub.ppm"), "--labels-out", str(tmp / "sub.npy"),
-             "--time"], cwd=ROOT, capture_output=True, text=True,
-            timeout=600)
+             str(tmp / "sub.ppm"), "--algorithm", "turbo", "--labels-out",
+             str(tmp / "sub.npy"), "--time"], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
         sub_wall = time.perf_counter() - t0
         if proc.returncode != 0:
             raise AssertionError("python -m gseg_tpu_torch exited "
@@ -2222,8 +2311,9 @@ def _cli_paths(image, card):
                      "subprocess_segment_s": sub["segment_s"]}
 
         _reset_counts()
-        rec, wall = _cli([src, str(tmp / "l4.ppm"), "--hierarchy-level", "4",
-                          "--labels-out", str(tmp / "l4.npy"), "--time"])
+        rec, wall = _cli([src, str(tmp / "l4.ppm"), "--algorithm", "turbo",
+                          "--hierarchy-level", "4", "--labels-out",
+                          str(tmp / "l4.npy"), "--time"])
         launches = _counts()
         _check_path_launches(CLI_LEVEL4, launches)
         l4 = np.load(tmp / "l4.npy")
@@ -2274,7 +2364,8 @@ def _bsds_field_checks(image, errs):
     `segment_turbo_flagged` gives them on image 0 of step 9, in speed and
     quality mode at K=80."""
     for extra in ({}, {"weight_buckets": 16}):
-        cfg = SegmentationConfig(k=80.0, min_size=100, **extra)
+        cfg = SegmentationConfig(k=80.0, min_size=100, algorithm="turbo",
+                                 **extra)
         label = f"bsds_like 321x481 wb{cfg.weight_buckets}"
         fields = _capture_main_path_fields(image, cfg)
         for name in [n for n in STEP if n in fields]:
@@ -2769,7 +2860,8 @@ def _parallel_paths(images, card, errs):
         "4k_spatial4", k4[0], CFG, 4, 2, _WB0_4K, card, errs, slab)
     out["spatial8_short_tiles"] = _spatial_turbo_path(
         "spatial8_short_tiles", small,
-        SegmentationConfig(k=120.0, min_size=8), 8, 4, None, card, errs,
+        SegmentationConfig(k=120.0, min_size=8, algorithm="turbo"), 8, 4,
+        None, card, errs,
         slab)
     out["1080p_spatial_atomic4"] = _spatial_atomic_path(
         "1080p_spatial_atomic4", hd[:1], card)
@@ -3085,6 +3177,334 @@ def _perf_half(card, errs):
     return runs, timed, step
 
 
+# ---------------------------------------------------------------------------
+# step 12: the turbo path's exact alternatives and steps per pass
+# ---------------------------------------------------------------------------
+
+
+class Alt(NamedTuple):
+    h: int
+    w: int
+    weight_buckets: int
+    settings: tuple           # ((module, attribute, value), ...): the switch
+    oracle: FsPath
+    kind: str = "dense"       # "dense", "hierarchy" or "spatial4"
+    base: tuple = ()          # settings of the alternative and its default
+
+
+_GATHER = ((turbo, "_FINAL_GATHER", True),)
+_PTR = ((turbo, "_FLOOD_PTR", True),)
+ALTERNATIVES = {
+    "1080p_final_gather": Alt(1080, 1920, 0, _GATHER, _WB0),
+    "4k_final_gather": Alt(2160, 3840, 0, _GATHER, _WB0_4K),
+    "1080p_turbo_hierarchy_final_gather": Alt(1080, 1920, 0, _GATHER, _WB0,
+                                              "hierarchy"),
+    "1080p_spatial4_final_gather": Alt(1080, 1920, 0, _GATHER, _WB0,
+                                       "spatial4"),
+    "1080p_flood_ptr": Alt(1080, 1920, 0, _PTR, _WB0),
+    "4k_flood_ptr": Alt(2160, 3840, 0, _PTR, _WB0_4K),
+    "1080p_wb16_rlist_nosplit": Alt(
+        1080, 1920, 16, ((turbo, "_RLIST_SPLIT", False),), _WB16),
+    "1080p_late_closures": Alt(
+        1080, 1920, 0, ((turbo, "_LATE_CLOSURES", True),), _WB0),
+    "1080p_wb16_no_q_closures": Alt(
+        1080, 1920, 16, ((turbo, "_Q_CLOSURES", False),), _WB16),
+    # the reference's _pick_t at w >= 2560
+    "4k_t16": Alt(2160, 3840, 0, ((kg, "STEPS_WIDE", 16),), _WB0_4K),
+    # the reference's T_SCAN, every hybrid fixpoint on the closure route
+    "1080p_wb16_closures_tscan4": Alt(
+        1080, 1920, 16, ((kg, "STEPS_SCAN", 4),), _WB16,
+        base=((kg, "WARM_PASSES", 0),)),
+}
+assert set(ALTERNATIVES) == ALT
+# the T the step kernel's launches of a path must take (profiler symbols)
+ALT_STEPS = {"4k_t16": {16}, "1080p_wb16_closures_tscan4": {4}}
+AB_REPS = 3           # CUDA-event calls per median of an A/B entry
+
+
+@contextlib.contextmanager
+def _settings(pairs):
+    """Module attributes set while open, restored after."""
+    old = [(m, a, getattr(m, a)) for m, a, _ in pairs]
+    try:
+        for m, a, v in pairs:
+            setattr(m, a, v)
+        yield
+    finally:
+        for m, a, v in old:
+            setattr(m, a, v)
+
+
+def _alt_fn(path, image, alt=True):
+    """One run of the path's entry point with its switch set (alt) or at
+    the default; returns its outputs, flags last."""
+    A = ALTERNATIVES[path]
+    cfg = dataclasses.replace(CFG, weight_buckets=A.weight_buckets)
+    settings = A.base + (A.settings if alt else ())
+    if A.kind == "hierarchy":
+        def run():
+            return turbo.segment_turbo_hierarchy_flagged(image, cfg,
+                                                         GOSSIP_ROUNDS)
+    elif A.kind == "spatial4":
+        mesh = spatial.spatial_mesh(["cuda:0"] * 4)
+
+        def run():
+            return turbo_spatial.segment_turbo_spatial(
+                image, cfg, mesh, gossip_rounds=GOSSIP_ROUNDS)
+    else:
+        def run():
+            return turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)
+
+    def fn():
+        with _settings(settings):
+            return run()
+    return fn
+
+
+def _counted(path, fn):
+    """One run with the launch counts set to 0 just before and read just
+    after, no plain sweep allowed: (outputs, launches, closure launches by
+    orientation, hybrid fixpoints, host reads, peak MiB)."""
+    _reset_counts()
+    base = _peak_reset()
+    with _no_sweeps(path), _host_reads() as reads:
+        out = fn()
+        torch.cuda.synchronize()
+    return (out, _counts(), _axis_counts(), list(kg.HYBRID_LOG), reads[0],
+            _peak_since(base))
+
+
+def _launch_steps(fn):
+    """The T of every step-kernel launch in one run of fn, by variant
+    (kg._launch_pass recorded)."""
+    launch, out = kg._launch_pass, {}
+
+    def rec(variant, *args):
+        out.setdefault(variant, set()).add(args[-1])
+        return launch(variant, *args)
+    kg._launch_pass = rec
+    try:
+        fn()
+    finally:
+        kg._launch_pass = launch
+    return out
+
+
+def _ab_pairs(fa, fb, reps=AB_REPS, pairs=2):
+    """`pairs` A B B A pairs, each entry the median CUDA-event ms of `reps`
+    calls, after a warm-up call of each. Returns (A medians, B medians)."""
+    fa()
+    fb()
+    a, b = [], []
+    for _ in range(pairs):
+        for fn, out in ((fa, a), (fb, b), (fb, b), (fa, a)):
+            out.append(statistics.median(_event_ms(fn) for _ in range(reps)))
+    return a, b
+
+
+def _alt_path(path, image, dense, card, unrecorded):
+    """The counted run of one alternative: flags 0, 0 pixels off its
+    oracle, its recorded launches (a path without a record is listed in
+    `unrecorded`), every kernel it must run and none it must not; the
+    hierarchy's levels against the level oracle, the row-sharded labels
+    against the dense ones, the T of its step launches where the switch
+    sets one; then host reads and peak memory of the default, and two
+    A B B A pairs of the default (A) and the alternative (B). Returns the
+    record."""
+    A = ALTERNATIVES[path]
+    fn, base_fn = _alt_fn(path, image), _alt_fn(path, image, alt=False)
+    out, launches, axis, hybrid, reads, peak = _counted(path, fn)
+    labels, flags = out[-2], out[-1]
+    ndiff = _oracle_diff(labels, A.oracle)
+    print(f"main path {path}: flags {flags}, launches {launches}, closure "
+          f"launches (rows, columns) {axis}, {len(hybrid)} hybrid fixpoints "
+          f"(variant, step passes, pairs) {hybrid}; host reads {reads}, "
+          f"peak memory {peak:.1f} MiB; oracle partition "
+          f"({A.oracle.relative_to(ROOT)}): {ndiff} pixels differ",
+          flush=True)
+    if flags or ndiff:
+        raise AssertionError(f"{path}: flags {flags}, {ndiff} pixels off "
+                             "the oracle")
+    if path in RECORDED_LAUNCHES:
+        _check_launches(path, launches)
+    else:
+        unrecorded[path] = launches
+    _check_kernels_run(path, launches)
+    rec = {"launches": launches, "host_reads": reads, "peak_mib": peak,
+           "hybrid_variant_steps_pairs": hybrid,
+           "closure_launches_rows_cols": axis,
+           "oracle_pixels_differ": ndiff}
+    if A.kind == "hierarchy":
+        ref = load_level_oracle(LEVEL_ORACLE)["levels"]
+        stats = [_level_stats(_canonical(lv)) for lv in out[0]]
+        bad = [i for i, ((n, sha), r) in enumerate(zip(stats, ref))
+               if sha != r["sha256"]]
+        print(f"  check levels {path}: {len(stats)} levels, "
+              f"{len(stats) - len(bad)} equal to the level oracle "
+              f"(gseg_tpu_torch/oracles/{LEVEL_ORACLE}.json)", flush=True)
+        if bad or len(stats) != len(ref):
+            raise AssertionError(f"{path}: levels {bad} differ")
+    if A.kind == "spatial4":
+        same = torch.equal(labels, dense)
+        print(f"  {path}: labels equal to the dense path's: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"{path}: labels differ from dense")
+    if path == "4k_t16":
+        pads = _wrapper_calls(PADS, fn)
+        ts = {args[1] for calls in pads.values() for args, _ in calls}
+        print(f"  {path}: pad/unpad at t {sorted(ts)}", flush=True)
+        if ts != {16}:
+            raise AssertionError(f"{path}: pads at t {ts}")
+    if path in ALT_STEPS:
+        by = _launch_steps(fn)
+        print(f"  {path}: step launches at T, by variant "
+              f"{ {v: sorted(ts) for v, ts in by.items()} }", flush=True)
+        if set().union(*by.values()) != ALT_STEPS[path]:
+            raise AssertionError(f"{path}: step launches at T {by}")
+    _, _, _, _, base_reads, base_peak = _counted(path, base_fn)
+    a, b = _ab_pairs(base_fn, fn)
+    rec |= {"ab_default_ms": a, "ab_alternative_ms": b,
+            "default_host_reads": base_reads, "default_peak_mib": base_peak}
+    print(f"  A/B {path} (A the default, B the alternative; two A B B A "
+          f"pairs, medians of {AB_REPS} CUDA-event calls): A {_r(a)} ms, "
+          f"B {_r(b)} ms, B/A of the medians "
+          f"{statistics.median(b) / statistics.median(a):.4f}; host reads "
+          f"A {base_reads} B {reads}; peak memory A {base_peak:.1f} B "
+          f"{peak:.1f} MiB ({card})", flush=True)
+    return rec
+
+
+def _r(xs):
+    return [round(x, 3) for x in xs]
+
+
+def _t_bound_ms(name, h, w, t):
+    """Least time of one ungated t-step launch over an (h, w) plane at the
+    HBM rate: every tile loads its (TILE + 2t)^2 slab of the read-only
+    plane and each read-write field once, and writes its interior's
+    fields once."""
+    nrw = len(kg._VARIANTS[STEP[name]][2])
+    tiles = -(-h // kg._TILE) * -(-w // kg._TILE)
+    nbytes = tiles * 4 * ((kg._TILE + 2 * t) ** 2 * (nrw + 1)
+                          + kg._TILE ** 2 * nrw)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _timed_passes(times):
+    """A `passes` for kg._run_fixpoint: its step-only passes by the kernel,
+    tile skipping as configured, each launch's device ms (CUDA events
+    behind a device sleep) appended to `times`."""
+    def passes(variant, ro, fields, max_passes, closures, seed_act, t):
+        if closures:
+            raise ValueError("_timed_passes drives step-only fixpoints")
+        tiles = (-(-ro.shape[0] // kg._TILE), -(-ro.shape[1] // kg._TILE))
+        bufs = [[torch.empty_like(x) for x in fields] for _ in range(2)]
+        acts = [torch.empty(tiles, dtype=torch.uint8, device=ro.device)
+                for _ in range(2)]
+        changed = torch.zeros(1, dtype=torch.int32, device=ro.device)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def step(src, dst, act_in, act_out):
+            times.append(_device_event_ms(lambda: kg._launch_pass(
+                variant, ro, src, dst, act_in, act_out, changed, stream, t)))
+        out, unconv, _, _ = kg._pass_loop(
+            step, None, fields, bufs, acts, changed, max_passes, max_passes,
+            seed_act, kg.TILE_SKIP)
+        return out, unconv
+    return passes
+
+
+def _steps_per_pass(fields, card, errs):
+    """The step kernel at each T of kg.STEP_COUNTS on the main-path fields
+    of 1080p and 4K: at 4K every variant's fixpoint pass by pass against
+    step_pass_plain at T (4, 16, 32; 8 and the 1080p fields are step 3's);
+    then at both sizes the fixpoint through the wrappers' own route
+    (`kg._run_fixpoint`: 1080p at kg.STEPS = T, 4K padded at
+    kg.STEPS_WIDE = T), equal to the plain fixpoint, with each launch's
+    device ms (CUDA events behind a device sleep): its launches, device
+    ms a call and a launch, and the bound of one ungated launch at T.
+    Returns variant name -> size -> T -> record."""
+    out = {name: {} for name in STEP}
+    for size, flds, attr in (("1080p", fields["1080p"], "STEPS"),
+                             ("4k", fields["4k"], "STEPS_WIDE")):
+        for name in STEP:
+            args, kwargs = flds[name]
+            ro, *planes, ms = args
+            ref = KERNELS[name].plain(*args)
+            for t in kg.STEP_COUNTS:
+                if t != kg.STEPS and size == "4k":
+                    n, err = _gated_passes(name, args, kwargs, t, ref)
+                    errs[name] = max(errs[name], err)
+                    print(f"check {name} {size} main-path fields T={t} "
+                          f"gated passes: {n} passes equal to "
+                          "step_pass_plain", flush=True)
+                times = []
+                with _settings(((kg, attr, t),)):
+                    got, unconv = kg._run_fixpoint(
+                        STEP[name], ro, planes, ms, False,
+                        kwargs.get("seed_mask"), passes=_timed_passes(times))
+                errs[name] = max(errs[name], _max_abs_err(got, ref[:-1]))
+                if unconv or ref[-1]:
+                    raise AssertionError(f"{name} {size} T={t}: a fixpoint "
+                                         "hit its cap")
+                ms_call = sum(times)
+                rec = out[name].setdefault(size, {})[t] = {
+                    "device_ms_fixpoint": ms_call, "launches": len(times),
+                    "device_ms_launch": ms_call / len(times),
+                    "bound_ms_launch": _t_bound_ms(name, *ro.shape, t)}
+                print(f"  {name} {size} T={t}: equal to plain; "
+                      f"{len(times)} launches, device {ms_call:.4f} ms a "
+                      f"fixpoint, {rec['device_ms_launch']:.4f} ms a launch; "
+                      f"bound of an ungated launch "
+                      f"{rec['bound_ms_launch']:.4f} ms (bytes) ({card})",
+                      flush=True)
+    return out
+
+
+def _alternatives(images, card, errs):
+    """Step 12: the step kernel at T 4, 16 and 32 pass by pass at
+    RANDOM_SHAPES and at the 1080p and 4K main-path fields, its device ms
+    per T; then each alternative path (ALTERNATIVES) counted and timed
+    against its default. Returns (path records, step record)."""
+    t0 = time.perf_counter()
+    dev = images[1080, 1920].device
+    for h, w in RANDOM_SHAPES:
+        args = _random_args(h, w, dev, seed=h * 7 + w)
+        refs = {name: KERNELS[name].plain(*args[name]) for name in STEP}
+        for t in kg.STEP_COUNTS:
+            if t == kg.STEPS:
+                continue
+            passes = {}
+            for name in STEP:
+                passes[name], err = _gated_passes(name, args[name], None, t,
+                                                  refs[name])
+                errs[name] = max(errs[name], err)
+            print(f"check step kernel {h}x{w} T={t}: every variant's gated "
+                  f"passes equal to step_pass_plain ({passes} passes) at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"step 12 random shapes done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    fields = {"1080p": _capture_main_path_fields(images[1080, 1920], CFG),
+              "4k": _capture_main_path_fields(images[2160, 3840], CFG)}
+    step = {"steps_per_pass": _steps_per_pass(fields, card, errs)}
+    del fields
+    print(f"step 12 steps per pass done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    dense = turbo.segment_turbo_flagged(images[1080, 1920], CFG,
+                                        GOSSIP_ROUNDS)[0]
+    runs, unrecorded = {}, {}
+    for path, A in ALTERNATIVES.items():
+        runs[path] = _alt_path(path, images[A.h, A.w], dense, card,
+                               unrecorded)
+    if unrecorded:
+        raise AssertionError(f"launches of paths with no record: "
+                             f"{unrecorded}")
+    step["seconds"] = time.perf_counter() - t0
+    print(f"step 12 took {step['seconds']:.1f} s ({card})", flush=True)
+    return runs, step
+
+
 # per-kernel keys of the kernels line beyond the contract's, where measured
 _EXTRA_KEYS = ("library_device_ms", "device_ms_rows", "device_ms_cols",
                "device_ms_fill", "device_ms_bulk", "device_ms_regs", "ms_regs",
@@ -3112,6 +3532,18 @@ def main() -> None:
     _build_all()
     if sys.argv[1:] == ["--cards"]:
         print("cards: " + json.dumps(_cross_card(card)))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if sys.argv[1:] == ["--alternatives"]:
+        images = {(h, w): torch.from_numpy(blobs_image(h, w, n, 8.0, 0)).to(
+            dev) for h, w, n in ((1080, 1920, 31), (2160, 3840, 126))}
+        errs = {name: 0.0 for name in KERNELS}
+        runs, step = _alternatives(images, card, errs)
+        print("alternatives: " + json.dumps(
+            {"paths": runs, "step": step,
+             "max_abs_err": {n: errs[n] for n in STEP}}, default=str))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3223,6 +3655,10 @@ def main() -> None:
     runs |= ladder
     print(f"performance half done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    alt_runs, alternatives = _alternatives(images, card, errs)
+    runs |= alt_runs
+    print(f"alternatives done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
                                    for m in sys.modules):
@@ -3261,7 +3697,9 @@ def main() -> None:
             | {f"{k}_4k": rec4k[k] for k in _EXTRA_KEYS if k in rec4k}
             | {f"{k}_1440p": v for k, v in timed["1440p"].get(name, {}).items()
                if k in _EXTRA_KEYS + _KEYS_8K}
-            | ({"active_tile_share": shares[name]} if name in STEP else {})
+            | ({"active_tile_share": shares[name],
+                "steps_per_pass": alternatives["steps_per_pass"][name]}
+               if name in STEP else {})
             | ({"slab_route": slab[name]} if name in slab else {})
             | ({"label_planes": {p: {k: r[k] for k in _KEYS_8K + (
                 "library_device_ms", "bound_by", "device_ms_rows",
@@ -3273,7 +3711,8 @@ def main() -> None:
     print("paths: " + json.dumps(
         {p: {k: v for k, v in r.items() if k != "launches"}
          for p, r in runs.items()} | {"peel_ab_1080p": ab,
-                                       "perf_half": perf_half}))
+                                       "perf_half": perf_half,
+                                       "alternatives": alternatives}))
     print(f"chip_smoke wall time {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

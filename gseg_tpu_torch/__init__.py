@@ -36,13 +36,12 @@ imports torch and never jax. It ports:
     driven by one process, one thread per rank; a device may repeat.
 
 Public API:
-    segment(image, sigma=.8, k=300, min_size=100, algorithm="turbo",
+    segment(image, sigma=.8, k=300, min_size=100, algorithm="atomic",
             device=None) -> (H, W) int32 label tensor
     segment_hierarchy(...) -> (levels (L, H, W), labels (H, W))
     SegmentationConfig, colorize, colorize_hierarchy, compact_labels_np
 Both run on cuda:0 unless device="cpu" is given. The default algorithm is
-"turbo", where the reference's is "atomic": the port's default path is the
-one that runs its hand-written kernels.
+"atomic", as in the reference.
 """
 
 from __future__ import annotations
@@ -112,7 +111,7 @@ def _host_image(image) -> np.ndarray:
     return np.asarray(image)
 
 
-def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="turbo",
+def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="atomic",
             config: SegmentationConfig | None = None, device=None):
     """Segment an (H, W, 3) image (NumPy array or tensor); returns (H, W)
     int32 labels on `device`: canonical min-pixel ids on the turbo route,
@@ -166,7 +165,7 @@ def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="turbo",
 
 
 def segment_hierarchy(image, sigma=0.8, k=300.0, min_size=100,
-                      algorithm="turbo",
+                      algorithm="atomic",
                       config: SegmentationConfig | None = None, device=None):
     """Segment and return the per-round hierarchy: (levels, labels),
     levels (L, H, W) int32 one label map per Boruvka round (the

@@ -67,7 +67,8 @@ def main(argv=None) -> dict:
     from ..config import SegmentationConfig
     from ..utils.synthetic import blobs_image
 
-    cfg = SegmentationConfig(sigma=0.8, k=300.0, min_size=100, max_iters=32)
+    cfg = SegmentationConfig(sigma=0.8, k=300.0, min_size=100, max_iters=32,
+                             algorithm="turbo")
     img = _image_on(blobs_image(1080, 1920, num_blobs=32, noise=8.0, seed=0),
                     _device(args.device))
     line = throughput_line(img, cfg)

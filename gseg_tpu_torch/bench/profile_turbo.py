@@ -94,7 +94,8 @@ def main(argv=None) -> list[dict]:
 
     h, w = args.height, args.width
     cfg = SegmentationConfig(
-        k=300.0, min_size=100, weight_buckets=args.weight_buckets)
+        k=300.0, min_size=100, algorithm="turbo",
+        weight_buckets=args.weight_buckets)
     dev = _device(args.device)
     img = _image_on(blobs_image(h, w, num_blobs=max(8, (h * w) // 65536),
                                 noise=8.0, seed=0), dev)

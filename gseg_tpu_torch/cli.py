@@ -1,14 +1,13 @@
 """Command-line interface (port of `gseg_tpu.cli`, the reference's L4 CLI
 apps): one image in, a coloured segmentation out.
 
-    python -m gseg_tpu_torch INPUT OUTPUT [--algorithm turbo] [--sigma 0.8]
+    python -m gseg_tpu_torch INPUT OUTPUT [--algorithm atomic] [--sigma 0.8]
         [--k 300] [--min-size 100] [--hierarchy-level N] [--labels-out F]
         [--time] [--device cuda:0]
 
 The flags are the reference's, plus `--device`: the run takes cuda:0 and
 raises without a CUDA device unless `--device cpu` is given. The default
-algorithm is "turbo", the port's default path (the reference's is
-"atomic"). With --hierarchy-level N > 0 the N-th Boruvka-round label map
+algorithm is "atomic", as in the reference. With --hierarchy-level N > 0 the N-th Boruvka-round label map
 is rendered (the reference's benchmark level is 4); with --hierarchy-dir
 DIR every level is written, like the reference's per-level output images
 (Report.pdf p.4 §3.2.3). Colours come from `colorize` (a seeded
@@ -36,9 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("input", help="input image (ppm/pgm or anything PIL reads)")
     p.add_argument("output", help="output rendering (colorized segmentation)")
-    p.add_argument("--algorithm", default="turbo", choices=list(ALGORITHMS),
-                   help="segmentation path (default turbo, the port's "
-                        "default; the reference's CLI defaults to atomic)")
+    p.add_argument("--algorithm", default="atomic", choices=list(ALGORITHMS),
+                   help="segmentation path (default atomic, as in the "
+                        "reference's CLI)")
     p.add_argument("--sigma", type=float, default=0.8)
     p.add_argument("--k", type=float, default=300.0)
     p.add_argument("--min-size", type=int, default=100)

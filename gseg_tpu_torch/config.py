@@ -2,10 +2,8 @@
 
 The same frozen dataclass with the same fields and validation, so a
 reference configuration converts with
-`SegmentationConfig(**dataclasses.asdict(reference_cfg))`. One default
-differs: `algorithm` is "turbo" (the reference's is "atomic"), as
-`gseg_tpu_torch.segment` defaults to it: the port's default path is the
-one that runs its hand-written kernels.
+`SegmentationConfig(**dataclasses.asdict(reference_cfg))`, and the same
+defaults: `algorithm` is "atomic", as in the reference.
 """
 
 from __future__ import annotations
@@ -14,9 +12,9 @@ import dataclasses
 
 
 ALGORITHMS = (
-    "turbo",            # staged gossip + compact-graph path (ported; the
-                        # port's default)
-    "atomic",           # scatter-min Boruvka-Felzenszwalb (ported)
+    "turbo",            # staged gossip + compact-graph path (ported)
+    "atomic",           # scatter-min Boruvka-Felzenszwalb (ported; the
+                        # default)
     "atomic_hostsync",  # same, host-synced convergence flag (ported: the
                         # same host loop as "atomic")
     "fastmst",          # DPP/FastMST path (ported)
@@ -50,7 +48,7 @@ class SegmentationConfig:
     k: float = 300.0
     min_size: int = 100
     max_iters: int = 32
-    algorithm: str = "turbo"
+    algorithm: str = "atomic"
     hierarchy_levels: int = 0
     quantize_weight_bits: int = 0
     connectivity: int = 8

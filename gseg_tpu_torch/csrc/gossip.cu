@@ -97,25 +97,52 @@
 // 3. TILE stays 32: the skipping works at tile granularity, and a 64-pixel
 //    tile (a smaller halo share) would skip 4x more coarsely.
 //
-// Device counters per variant (g_tiles): tiles computed in unseeded
-// passes, in seeded first passes, and the in-tile steps they ran, read
-// back only by gseg_gossip_tile_counts, so the main path gains no host
-// sync.
+// 4. T, the steps per pass, is a template parameter: 4 (the reference's
+//    T_SCAN), 8 (the default), 16 (the reference's _pick_t at w >= 2560)
+//    and 32 (= TILE, the largest the skip argument allows: a slab must lie
+//    in its 3 x 3 tile neighbourhood). Each C entry takes the T of the call
+//    and launches that instantiation; any other T is refused. The slab, its
+//    shared memory and each thread's pixels per step grow with T: the
+//    fields, the label plane and the bits live in dynamic shared memory
+//    ((TILE + 2T)^2 pixels of 4 bytes a field, 4 for a label plane, 1 for
+//    the bits: 36 KB for compmin at T = 8, 69 KB at T = 16, 153 KB at
+//    T = 32), and each instantiation opts in to what it needs past 48 KB
+//    on its first launch on each device. A failed opt-in or launch is
+//    returned as the CUDA error; there is no other route. The skip stays
+//    sound when T changes between two passes of a fixpoint (the hybrid
+//    route's passes after the warm passes; only the joins take that
+//    route): a join only raises, so a tile whose 3 x 3 neighbourhood did
+//    not change in a pass of any T <= TILE is unchanged by one step
+//    there, hence by any number of steps on its slab.
+//
+// Device counters per variant (g_tiles, shared by every T): tiles computed
+// in unseeded passes, in seeded first passes, and the in-tile steps they
+// ran, read back only by gseg_gossip_tile_counts, so the main path gains
+// no host sync.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int T = 8;                 // steps per pass (_pick_t at w < 2560)
 constexpr int TILE = 32;             // interior side owned by one block
-constexpr int SLAB = TILE + 2 * T;   // loaded side, halo included
-constexpr int NPIX = SLAB * SLAB;
 constexpr int THREADS = 256;
-constexpr int LOAD_PPT = (NPIX + THREADS - 1) / THREADS;
-// pixels per thread in the largest computed square, (SLAB - 2)^2
-constexpr int STEP_PPT = ((SLAB - 2) * (SLAB - 2) + THREADS - 1) / THREADS;
 constexpr int NVARIANTS = 5;
+constexpr size_t kDefaultSmem = 48 * 1024;  // shared memory without opt-in
+
+// The slab of a T-step pass: its side (halo included), its pixels, and
+// each thread's share of them in the load and in the largest computed
+// square, (SLAB - 2)^2.
+template <int T>
+struct Slab {
+    static_assert(T >= 1 && T <= TILE, "a slab must lie in its 3 x 3 tiles");
+    static constexpr int SIDE = TILE + 2 * T;
+    static constexpr int NPIX = SIDE * SIDE;
+    static constexpr int LOAD_PPT = (NPIX + THREADS - 1) / THREADS;
+    static constexpr int STEP_PPT =
+        ((SIDE - 2) * (SIDE - 2) + THREADS - 1) / THREADS;
+};
 constexpr uint8_t kActChanged = 1;   // act bits: interior changed last pass
 constexpr uint8_t kActSeed = 2;      // the tile holds a seed pixel
 
@@ -155,6 +182,7 @@ struct CompminOp : KeepOwn {  // fields: bw (f32 bits), be (i32), sz (i32)
     __device__ static uint32_t fill(int k) {
         return k == 0 ? 0x7f800000u : (k == 1 ? 0x7fffffffu : 0u);
     }
+    template <int NPIX>
     __device__ static void join(uint32_t (&c)[NRW],
                                 uint32_t (*f)[NPIX], int n) {
         const float cw = __uint_as_float(c[0]);
@@ -178,6 +206,7 @@ struct LabelDistOp : KeepOwn {  // fields: Lc (i32), idf (f32 bits), dist (i32)
         return k == 0 ? 0x7fffffffu
                       : (k == 1 ? 0u : static_cast<uint32_t>(BIGDIST));
     }
+    template <int NPIX>
     __device__ static void join(uint32_t (&c)[NRW],
                                 uint32_t (*f)[NPIX], int n) {
         const int nl = static_cast<int>(f[0][n]);
@@ -199,6 +228,7 @@ struct LabelndOp : KeepOwn {  // fields: Lc (i32), idf (f32 bits)
     __device__ static uint32_t fill(int k) {
         return k == 0 ? 0x7fffffffu : 0u;
     }
+    template <int NPIX>
     __device__ static void join(uint32_t (&c)[NRW],
                                 uint32_t (*f)[NPIX], int n) {
         if (static_cast<int>(f[0][n]) < static_cast<int>(c[0])) c[0] = f[0][n];
@@ -211,6 +241,7 @@ struct ValueOp : KeepOwn {  // field: val (i32)
     static constexpr int NRW = 1;
     static constexpr Ro RO = Ro::kLabel;
     __device__ static uint32_t fill(int) { return 0x7fffffffu; }
+    template <int NPIX>
     __device__ static void join(uint32_t (&c)[NRW],
                                 uint32_t (*f)[NPIX], int n) {
         if (static_cast<int>(f[0][n]) < static_cast<int>(c[0])) c[0] = f[0][n];
@@ -228,6 +259,7 @@ struct SubsumOp {  // field: s (i32); the bits mark the children; s starts at 1
     __device__ static void init(uint32_t (&c)[NRW], const uint32_t (&)[NRW]) {
         c[0] = 1u;
     }
+    template <int NPIX>
     __device__ static void join(uint32_t (&c)[NRW],
                                 uint32_t (*f)[NPIX], int n) {
         c[0] += f[0][n];
@@ -240,20 +272,34 @@ struct Fields {
     uint32_t* out[N];
 };
 
+// Dynamic shared memory of one block: the fields, the label plane (label
+// and pdir planes only) and the direction bits.
+template <class Op, int T>
+constexpr size_t smem_bytes() {
+    constexpr size_t n = Slab<T>::NPIX;
+    return n * 4 * Op::NRW + (Op::RO != Ro::kAllow ? n * 4 : 0) + n;
+}
+
 // ro: the (H, W) read-only plane of kind Op::RO. act_in: the previous
 // pass's (H/TILE, W/TILE) act bytes, or null to run every tile. act_out:
 // this pass's.
-template <class Op>
+template <class Op, int T>
 __global__ void __launch_bounds__(THREADS)
 fixpoint_pass(const int32_t* __restrict__ ro, Fields<Op::NRW> fl, int h,
               int w, const uint8_t* __restrict__ act_in,
               uint8_t* __restrict__ act_out, int32_t* __restrict__ changed) {
+    constexpr int SLAB = Slab<T>::SIDE;
+    constexpr int NPIX = Slab<T>::NPIX;
+    constexpr int LOAD_PPT = Slab<T>::LOAD_PPT;
+    constexpr int STEP_PPT = Slab<T>::STEP_PPT;
     constexpr bool kInShared = Op::RO != Ro::kAllow;
     // out-of-image fill of a shared ro plane: no label, no parent.
     constexpr int32_t kRoFill = Op::RO == Ro::kLabel ? -1 : 8;
-    __shared__ uint32_t f[Op::NRW][NPIX];
-    __shared__ int32_t lab[kInShared ? NPIX : 1];
-    __shared__ uint8_t nbits[NPIX];  // direction bits of each pixel
+    extern __shared__ __align__(16) unsigned char smem[];
+    auto f = reinterpret_cast<uint32_t (*)[NPIX]>(smem);
+    int32_t* lab = reinterpret_cast<int32_t*>(smem + 4 * NPIX * Op::NRW);
+    // direction bits of each pixel
+    uint8_t* nbits = smem + 4 * NPIX * Op::NRW + (kInShared ? 4 * NPIX : 0);
 
     const int tiles_x = static_cast<int>(gridDim.x);
     const int tiles_y = static_cast<int>(gridDim.y);
@@ -408,22 +454,64 @@ fixpoint_pass(const int32_t* __restrict__ ro, Fields<Op::NRW> fl, int h,
     }
 }
 
-template <class Op>
-int launch(const void* ro, Fields<Op::NRW> fl, int h, int w,
-           const void* act_in, void* act_out, void* changed, void* stream) {
+template <class Op, int T>
+int launch_t(const void* ro, Fields<Op::NRW> fl, int h, int w,
+             const void* act_in, void* act_out, void* changed, void* stream) {
+    constexpr size_t bytes = smem_bytes<Op, T>();
+    if constexpr (bytes > kDefaultSmem) {
+        // the opt-in past the default 48 KB, once per instantiation and
+        // device (a bit per device).
+        static std::atomic<unsigned long long> opted{0};
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const unsigned long long bit = 1ull << (dev & 63);
+        if (!(opted.load() & bit)) {
+            err = cudaFuncSetAttribute(
+                fixpoint_pass<Op, T>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(bytes));
+            if (err != cudaSuccess) return static_cast<int>(err);
+            opted.fetch_or(bit);
+        }
+    }
     const dim3 grid((w + TILE - 1) / TILE, (h + TILE - 1) / TILE);
-    fixpoint_pass<Op><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    fixpoint_pass<Op, T><<<grid, THREADS, bytes,
+                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(ro), fl, h, w,
         static_cast<const uint8_t*>(act_in), static_cast<uint8_t*>(act_out),
         static_cast<int32_t*>(changed));
     return static_cast<int>(cudaGetLastError());
 }
 
+template <class Op>
+int launch(int t, const void* ro, Fields<Op::NRW> fl, int h, int w,
+           const void* act_in, void* act_out, void* changed, void* stream) {
+    switch (t) {
+        case 4: return launch_t<Op, 4>(ro, fl, h, w, act_in, act_out,
+                                       changed, stream);
+        case 8: return launch_t<Op, 8>(ro, fl, h, w, act_in, act_out,
+                                       changed, stream);
+        case 16: return launch_t<Op, 16>(ro, fl, h, w, act_in, act_out,
+                                         changed, stream);
+        case 32: return launch_t<Op, 32>(ro, fl, h, w, act_in, act_out,
+                                         changed, stream);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+constexpr int kSteps[] = {4, 8, 16, 32};  // the instantiated T
+
 }  // namespace
 
 extern "C" {
 
-int gseg_gossip_steps() { return T; }
+// 1 if the step kernel is instantiated for t steps per pass, else 0.
+int gseg_gossip_has_steps(int t) {
+    for (int k : kSteps)
+        if (k == t) return 1;
+    return 0;
+}
 
 int gseg_gossip_tile() { return TILE; }
 
@@ -442,19 +530,20 @@ int gseg_gossip_reset_tile_counts() {
 
 int gseg_compmin_pass(const void* L, const void* bw_in, const void* be_in,
                       const void* sz_in, void* bw_out, void* be_out,
-                      void* sz_out, int h, int w, const void* act_in,
+                      void* sz_out, int h, int w, int t, const void* act_in,
                       void* act_out, void* changed, void* stream) {
     Fields<3> fl{{static_cast<const uint32_t*>(bw_in),
                   static_cast<const uint32_t*>(be_in),
                   static_cast<const uint32_t*>(sz_in)},
                  {static_cast<uint32_t*>(bw_out), static_cast<uint32_t*>(be_out),
                   static_cast<uint32_t*>(sz_out)}};
-    return launch<CompminOp>(L, fl, h, w, act_in, act_out, changed, stream);
+    return launch<CompminOp>(t, L, fl, h, w, act_in, act_out, changed,
+                             stream);
 }
 
 int gseg_labeldist_pass(const void* allow, const void* L_in,
                         const void* idf_in, const void* dist_in, void* L_out,
-                        void* idf_out, void* dist_out, int h, int w,
+                        void* idf_out, void* dist_out, int h, int w, int t,
                         const void* act_in, void* act_out, void* changed,
                         void* stream) {
     Fields<3> fl{{static_cast<const uint32_t*>(L_in),
@@ -462,35 +551,36 @@ int gseg_labeldist_pass(const void* allow, const void* L_in,
                   static_cast<const uint32_t*>(dist_in)},
                  {static_cast<uint32_t*>(L_out), static_cast<uint32_t*>(idf_out),
                   static_cast<uint32_t*>(dist_out)}};
-    return launch<LabelDistOp>(allow, fl, h, w, act_in, act_out, changed,
+    return launch<LabelDistOp>(t, allow, fl, h, w, act_in, act_out, changed,
                                stream);
 }
 
 int gseg_labelnd_pass(const void* allow, const void* L_in, const void* idf_in,
-                      void* L_out, void* idf_out, int h, int w,
+                      void* L_out, void* idf_out, int h, int w, int t,
                       const void* act_in, void* act_out, void* changed,
                       void* stream) {
     Fields<2> fl{{static_cast<const uint32_t*>(L_in),
                   static_cast<const uint32_t*>(idf_in)},
                  {static_cast<uint32_t*>(L_out), static_cast<uint32_t*>(idf_out)}};
-    return launch<LabelndOp>(allow, fl, h, w, act_in, act_out, changed,
+    return launch<LabelndOp>(t, allow, fl, h, w, act_in, act_out, changed,
                              stream);
 }
 
 int gseg_value_pass(const void* L, const void* val_in, void* val_out, int h,
-                    int w, const void* act_in, void* act_out, void* changed,
-                    void* stream) {
+                    int w, int t, const void* act_in, void* act_out,
+                    void* changed, void* stream) {
     Fields<1> fl{{static_cast<const uint32_t*>(val_in)},
                  {static_cast<uint32_t*>(val_out)}};
-    return launch<ValueOp>(L, fl, h, w, act_in, act_out, changed, stream);
+    return launch<ValueOp>(t, L, fl, h, w, act_in, act_out, changed, stream);
 }
 
 int gseg_subsum_pass(const void* pdir, const void* s_in, void* s_out, int h,
-                     int w, const void* act_in, void* act_out, void* changed,
-                     void* stream) {
+                     int w, int t, const void* act_in, void* act_out,
+                     void* changed, void* stream) {
     Fields<1> fl{{static_cast<const uint32_t*>(s_in)},
                  {static_cast<uint32_t*>(s_out)}};
-    return launch<SubsumOp>(pdir, fl, h, w, act_in, act_out, changed, stream);
+    return launch<SubsumOp>(t, pdir, fl, h, w, act_in, act_out, changed,
+                            stream);
 }
 
 }  // extern "C"

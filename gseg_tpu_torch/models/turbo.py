@@ -44,6 +44,17 @@ mode (`weight_buckets > 0`, scan closures on):
   value flood per distinct map). Levels stay on the device. Its overflow
   fallback is the fastmst hierarchy; `segment_turbo`'s the atomic path.
 
+  ALTERNATIVES — the reference's exact alternative routes, selected by
+  module attributes in place of its environment variables (defaults as
+  in the reference): `_FINAL_GATHER` (GSEG_FINAL_GATHER=1: each final map
+  and hierarchy level is one gather of the root table, no value flood),
+  `_FLOOD_PTR` (GSEG_FLOOD_PTR=1: the root-list rounds resolve labels by
+  pointer doubling on the root list, `_flood_pointer`), `_RLIST_SPLIT` and
+  `_RLIST_TIERS_Q` (GSEG_RLIST_SPLIT, GSEG_RLIST_TIERS_Q), `_LATE_CLOSURES`
+  and `_Q_CLOSURES` (GSEG_LATE_CLOSURES, GSEG_Q_CLOSURES), `_RUNS_DIV`
+  (GSEG_RUNS_DIV) and `_S2_SMALL_DIV` / `_S2_SMALL_DIV_Q`
+  (GSEG_S2_SMALL_DIV). Each gives the same labels and flags.
+
 Every `lax.while_loop` of the reference is a host loop that reads a device
 value each iteration, and every `lax.cond` a host `if`. Capacities are the
 reference's at its default handoff gate (V/128); overflows raise FLAG_* bits
@@ -80,6 +91,20 @@ _PEEL_SIZES = "subsum"  # peel-round sizes: "subsum" (default), "count", "runs"
 _GATE_DIV = 128       # speed-mode handoff: at most V/128 components
 _GATE_DIV_Q = 32      # quality-mode handoff: at most V/32 components
 _S2_SMALL = True      # stage 2: run the early rounds on a sliced pool
+_S2_SMALL_DIV = 64    # ... of V/64 pairs a half (speed mode)
+_S2_SMALL_DIV_Q = 24  # ... of V/24 pairs a half (quality mode)
+_RUNS_DIV = 2         # the runs peel's pool holds V/_RUNS_DIV runs
+# The reference's exact alternative routes (its GSEG_* switches), each
+# giving the same labels and flags; the defaults are the reference's.
+_FINAL_GATHER = False   # final maps: one V-sized gather of the root table
+#                         (GSEG_FINAL_GATHER=1) in place of the value flood
+_FLOOD_PTR = False      # root-list rounds: pointer doubling on the root
+#                         list (GSEG_FLOOD_PTR=1) in place of the label flood
+_RLIST_SPLIT = True     # root-list rounds: slice the list as roots thin out
+#                         (False: one loop at full capacity)
+_RLIST_TIERS_Q = (16,)  # quality mode: the slices, V / each (a tier ladder)
+_LATE_CLOSURES = False  # speed mode: root-list rounds on the closure route
+_Q_CLOSURES = True      # quality mode: fixpoints on the closure route
 
 
 class GossipState(NamedTuple):
@@ -288,7 +313,7 @@ def _runs_sizes(L):
     scatter gives the same sizes. Returns ((H, W) size at root pixel / 0
     elsewhere, overflow=False)."""
     h, w = L.shape
-    lab, cnt, _, ovf = kr.run_extract(L, max(h * w // 2, 1024))
+    lab, cnt, _, ovf = kr.run_extract(L, max(h * w // _RUNS_DIV, 1024))
     if bool(ovf):
         return _component_sizes(L)
     return _sum_by_label(lab, cnt, h, w)[0], False
@@ -318,6 +343,63 @@ def _subtree_sizes(L, dist, max_sweeps, comm=DENSE):
                                    comm.rank)
 
 
+def _flood_pointer(L, id_init, pass8, nbrL, rlist):
+    """The dist-free label flood of a root-list round, resolved on the root
+    list (the reference's `_flood_pointer`, GSEG_FLOOD_PTR=1): the flood's
+    cross-label edges are each component's own passed min edge, a
+    functional hook graph on the roots whose cycles have length 2. So: one
+    scatter-min of each component's hook partner to its root slot, the
+    2-cycles broken to their min endpoint, pointer doubling over the list
+    (at most 24 steps), the min old root of each hook tree as the new
+    label, and one gather per pixel for the label and for the max-ride of
+    id_init. Returns (Lnew, IDnew, unconverged): the flood's fixpoint, and
+    True only if 24 doubling steps did not converge."""
+    h, w = L.shape
+    v = h * w
+    dev = L.device
+    cap = rlist.numel()
+    Lf = L.reshape(-1)
+    # 1. each component's hook partner at its root slot.
+    partner = torch.full((h, w), INT32_MAX, dtype=torch.int32, device=dev)
+    for d in range(8):
+        partner = torch.where(pass8[d], torch.minimum(partner, nbrL[d]),
+                              partner)
+    S0 = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32, device=dev),
+                  Lf, partner.reshape(-1), "amin")
+    # 2. the list's view: slot -> root id (0 where dead), root id -> slot.
+    alive = rlist != INT32_MAX
+    self_id = torch.where(alive, rlist, 0)
+    inv = _scatter(torch.zeros(v, dtype=torch.int32, device=dev),
+                   torch.where(alive, rlist, v),
+                   torch.arange(cap, dtype=torch.int32, device=dev))
+    sp = S0[self_id.to(torch.int64)]
+    sp = torch.where(alive & (sp != INT32_MAX), sp, self_id)
+    # mutual hooks keep the min endpoint as their root.
+    s2 = sp[inv[sp.to(torch.int64)].to(torch.int64)]
+    par = torch.where(s2 == self_id, torch.minimum(self_id, sp), sp)
+    changed, i = True, 0
+    while changed and i < 24:
+        pn = par[inv[par.to(torch.int64)].to(torch.int64)]
+        changed = bool((pn != par).any())
+        par, i = pn, i + 1
+    # 3. the min old root of each hook tree, per slot, then per root id.
+    minid = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
+                                device=dev),
+                     torch.where(alive, par, v), self_id, "amin")
+    nl = minid[par.to(torch.int64)]
+    newlab = _scatter(torch.zeros(v, dtype=torch.int32, device=dev),
+                      torch.where(alive, rlist, v), nl)
+    # 4. each pixel's new label, and Int riding as a max.
+    Lnew = newlab[Lf.to(torch.int64)]
+    idtab = _scatter(torch.zeros(v, dtype=torch.float32, device=dev), Lf,
+                     id_init.reshape(-1), "amax")
+    idt2 = _scatter(torch.zeros(v, dtype=torch.float32, device=dev),
+                    torch.where(alive, nl, v),
+                    idtab[self_id.to(torch.int64)], "amax")
+    IDnew = idt2[Lnew.to(torch.int64)]
+    return Lnew.reshape(h, w), IDnew.reshape(h, w), changed
+
+
 def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
             sizes="subsum", idle_compmin=False, tau=None, closures=False,
             comm=DENSE, vid=None):
@@ -329,7 +411,8 @@ def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
     sizes="count": dist-free flood, exact sizes by a counting scatter.
     sizes="runs": dist-free flood, exact sizes from the row-run pool.
     sizes="rlist": dist-free flood, sizes by grouping the compact old-root
-    list `rlist`; returns (state, new rlist).
+    list `rlist`; returns (state, new rlist). Under `_FLOOD_PTR` (dense
+    only) `_flood_pointer` replaces this round's flood.
     idle_compmin: True on round 1 (all-singleton labels: the compmin
     fixpoint is the identity). tau: the round's weight cap (quality mode;
     None: no cap). closures: the fixpoints' hybrid route (quality mode).
@@ -394,6 +477,9 @@ def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
             Lnew, IDnew, dist, lab_unconv = kg.label_gossip_spatial(
                 bits, L, id_init, dist0, max_sweeps, comm.rank)
         Snew, size_unconv = _subtree_sizes(Lnew, dist, max_sweeps, comm)
+    elif sizes == "rlist" and comm.dense and _FLOOD_PTR:
+        Lnew, IDnew, lab_unconv = _flood_pointer(L, id_init, pass8, nbrL,
+                                                 rlist)
     else:
         # Away from hook pixels Lc (= L) and Int are uniform per old
         # component, so hook-free tiles start at a local fixpoint: the
@@ -415,12 +501,13 @@ def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
     return (out, rlist_new) if sizes == "rlist" else out
 
 
-def _rlist_loop(gcond, gbody, gst, rlist, vid, cap: int):
-    """Root-list rounds: at full list capacity while more than `cap` roots
-    live, then on the list sorted and sliced to `cap`. Slicing is lossless
-    once every live root fits, and the component count only decreases, so
-    this runs exactly the rounds a single loop would."""
-    if cap < rlist.numel():
+def _rlist_loop(gcond, gbody, gst, rlist, vid, caps):
+    """Root-list rounds: at full list capacity while more roots live than
+    the first of `caps`, then on the list sorted and sliced to it, and so
+    on down the list. Slicing is lossless once every live root fits, and
+    the component count only decreases, so this runs exactly the rounds a
+    single loop would, which is what `_RLIST_SPLIT = False` runs."""
+    for cap in [c for c in caps if c < rlist.numel() and _RLIST_SPLIT]:
         while gcond(gst) and int((gst.L == vid).sum()) > cap:
             gst, rlist = gbody(gst, rlist)
         # dead slots sit interleaved in the list: sort them to the tail.
@@ -460,6 +547,7 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
     vid = torch.arange(v, dtype=torch.int32, device=dev).reshape(h, w)
 
     quality = cfg.weight_buckets > 0
+    closures = quality and _Q_CLOSURES
     nb = max(cfg.weight_buckets, 1)
     thresholds = bucket_thresholds(weights, nb) if quality else None
 
@@ -483,12 +571,13 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
             capture(it, s.L)
         return s
 
-    # two peel rounds (quality mode: count sizes, closures on).
+    # two peel rounds (quality mode: count sizes, closures on unless
+    # _Q_CLOSURES is False).
     while gst.merged and gst.it < 2:
         gst = captured(gst.it, advance(gst, _ground(
             gst, w8, eid8, cfg.k, max_sweeps,
             sizes="count" if quality or capture is not None else _PEEL_SIZES,
-            idle_compmin=gst.it == 0, tau=tau(gst), closures=quality)))
+            idle_compmin=gst.it == 0, tau=tau(gst), closures=closures)))
     # quality mode: the bucket ramp merges slowly, so the root list gets
     # full pixel capacity (the hierarchy's: up to 2^20 pixels too).
     if capture is not None:
@@ -506,11 +595,13 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
 
     def gbody(s, rl):
         s2, rl2 = _ground(s, w8, eid8, cfg.k, max_sweeps, rlist=rl,
-                          sizes="rlist", tau=tau(s), closures=quality)
+                          sizes="rlist", tau=tau(s),
+                          closures=closures if quality else _LATE_CLOSURES)
         return captured(s.it, advance(s, s2)), rl2
 
-    gst = _rlist_loop(gcond, gbody, gst, rlist, vid,
-                      max(v // (16 if quality else 32), _RLIST_FLOOR))
+    caps = [max(v // d, _RLIST_FLOOR)
+            for d in (_RLIST_TIERS_Q if quality else (32,))]
+    gst = _rlist_loop(gcond, gbody, gst, rlist, vid, caps)
     return gst, weights, thresholds
 
 
@@ -856,7 +947,8 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
     # slice, run the same early rounds on the sliced pool (dead slots past
     # the slice carry no information).
     pair_cap = st.esrc.numel() // 2
-    cs = max(v // (24 if quality else 64), -(-rec1_cap // 2))
+    cs = max(v // (_S2_SMALL_DIV_Q if quality else _S2_SMALL_DIV),
+             -(-rec1_cap // 2))
     if (_S2_SMALL and cs < pair_cap
             and int(torch.isfinite(st.ew[:pair_cap]).sum()) <= cs):
         st = early(_slice_pool(st, pair_cap, cs))
@@ -876,12 +968,18 @@ def _value_flood(L, seed, max_sweeps, closures=False, comm=DENSE):
     return kg.value_flood_spatial(L, seed, max_sweeps, comm.rank)
 
 
+def _root_gather(table, L):
+    """Each pixel's entry of a (V,) root table: L holds root ids."""
+    return table[L.reshape(-1).to(torch.int64)].reshape(L.shape)
+
+
 def _final_map(gst: GossipState, st: CompactState, rm, r0, max_sweeps,
                closures=False):
     """Stage-G labels through the stage-2 root map -> final (H, W) labels:
     each root pixel holds its final label (its own id when stage 2 never
     saw it), and a value flood spreads it over the stage-G component
-    (closures: its hybrid route, quality mode). Returns (labels,
+    (closures: its hybrid route, quality mode); under `_FINAL_GATHER`
+    each pixel gathers its root's slot instead. Returns (labels,
     unconverged)."""
     h, w = gst.L.shape
     v = h * w
@@ -889,6 +987,8 @@ def _final_map(gst: GossipState, st: CompactState, rm, r0, max_sweeps,
                          device=gst.L.device).reshape(h, w)
     seed = torch.where(gst.L == vid2d, gst.L, INT32_MAX).reshape(-1)
     seed = _scatter(seed, r0, st.fin)  # r0 holds v (dropped) where ~rm
+    if _FINAL_GATHER:
+        return _root_gather(seed, gst.L), False
     return _value_flood(gst.L, seed.reshape(h, w), max_sweeps, closures)
 
 
@@ -906,8 +1006,9 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
                                         weights_override)
     st, rm, r0 = _extract_stage(gst, weights, cfg)
     st = _s2_stage(st, v, cfg, thresholds)
-    labels, fm_unconv = _final_map(gst, st, rm, r0, 4 * (h + w),
-                                   closures=cfg.weight_buckets > 0)
+    labels, fm_unconv = _final_map(
+        gst, st, rm, r0, 4 * (h + w),
+        closures=cfg.weight_buckets > 0 and _Q_CLOSURES)
     flags = _raise_flag(st.flags, fm_unconv, FLAG_GOSSIP_UNCONVERGED)
     return labels, int(flags)
 
@@ -982,8 +1083,10 @@ def segment_turbo_hierarchy_impl(image: torch.Tensor, cfg: SegmentationConfig,
     def render_fin(fin):
         if id(fin) not in rendered:
             seed = _scatter(seed_base, r0, fin)  # r0 holds v where ~rm
-            rendered[id(fin)] = kg.value_flood(gst.L, seed.reshape(h, w),
-                                               max_sweeps, closures=quality)
+            rendered[id(fin)] = (
+                (_root_gather(seed, gst.L), False) if _FINAL_GATHER
+                else kg.value_flood(gst.L, seed.reshape(h, w), max_sweeps,
+                                    closures=quality and _Q_CLOSURES))
         return rendered[id(fin)]
 
     levels = torch.empty((n_levels + 1, h, w), dtype=torch.int32,

@@ -6,8 +6,9 @@ Port of the entry points of `gseg_tpu/ops/pallas/gossip.py`
 them), with:
 
   - the step kernel: `csrc/gossip.cu`, one T-step Jacobi pass over 2D
-    tiles with a T-pixel halo, one template per variant, which skips the
-    tiles that the previous pass left settled (see the note there);
+    tiles with a T-pixel halo, one template per variant and T (4, 8, 16 or
+    32 steps per pass), which skips the tiles that the previous pass left
+    settled (see the note there);
     `step_pass_plain` is its plain version, one gated pass in the kernel's
     tiled form, and `_pass_loop` the pass loop that drives either;
   - the closure kernel: `csrc/closure.cu`, one bidirectional segmented
@@ -34,14 +35,20 @@ the reference's two-phase hybrid route on the card: up to
 min(cap, WARM_PASSES) step passes, then, while unconverged, pairs of
 (step pass + rows closure) and (step pass + columns closure), each pair
 one pass against the same cap, until a pair changes nothing. The step
-passes keep T = 8 (the reference's T_SCAN = 4 in phase 2 was a VMEM and
-roll-cost choice on the TPU). Every step and closure only lowers mins and
-raises maxes of a semilattice fixpoint whose solution is unique, and a
+passes of the pairs take STEPS_SCAN steps (the reference's T_SCAN is 4, a
+VMEM and roll-cost choice on the TPU; the port keeps 8). Every step and
+closure only lowers mins and raises maxes of a semilattice fixpoint whose
+solution is unique, and a
 round in which nothing changed contains a full step, so the exit
 certifies the same fixpoint as the step-only route: the results are
 bit-equal to it and to the plain version. `HYBRID_LOG` records each
 hybrid call's step passes and pairs on the card. `label_gossip` and
 `subtree_sums` stay step-only, as in the reference.
+
+Steps per pass: STEPS on images narrower than PAD_MIN_WIDTH, STEPS_WIDE on
+wider ones (the reference's `_pick_t`: 8, and 16 at w >= 2560; the port
+keeps 8 for both, the schedule its launch counts were recorded with), and
+the pass cap is ceil(max_sweeps / T) for the T of the call.
 
 Wide images (w >= PAD_MIN_WIDTH) take the reference's padded route: the
 fields are padded once on entry (`kernels.pad.fast_pad_fields`), the
@@ -56,8 +63,9 @@ parent and feed no one). The closures run on the same padded planes.
 Row-sharded images (`gseg_tpu_torch.parallel`) take the spatial
 fixpoints (`*_spatial`): each rank holds a row tile, and each pass runs
 on the tile padded with T rows exchanged from the ranks above and below
-(`_spatial_fixpoint`): the step kernel on the card, the reference's
-one-row halo sweep on the CPU. They reach the same unique fixpoint.
+(`_spatial_fixpoint`): the step kernel on the card at STEPS steps per
+pass, the reference's one-row halo sweep on the CPU. They reach the same
+unique fixpoint.
 """
 
 from __future__ import annotations
@@ -75,7 +83,14 @@ INT32_MAX = gg.INT32_MAX
 BIGDIST = 1 << 30     # dist of a pixel that no seed has reached
 _REV = [4, 5, 6, 7, 0, 1, 2, 3]   # DIRS8 index of the reverse direction
 PAD_MIN_WIDTH = 2560  # the reference's padded-route gate (_fastpad_on)
-STEPS = 8             # steps per pass (T) in csrc/gossip.cu
+# Steps per pass (T) of the step kernel (csrc/gossip.cu instantiates
+# STEP_COUNTS): on images narrower than PAD_MIN_WIDTH, on wider ones (the
+# reference: 16), and in the hybrid route's passes after the warm passes
+# (the reference's T_SCAN: 4). The row-sharded slab route takes STEPS.
+STEPS = 8
+STEPS_WIDE = 8
+STEPS_SCAN = 8
+STEP_COUNTS = (4, 8, 16, 32)
 _TILE = 32            # interior side of a block in csrc/gossip.cu
 _PAD_LANES = 128      # padded width multiple
 _ACT_SEED = 2         # act byte of a seeded tile (csrc/gossip.cu, kActSeed)
@@ -326,14 +341,14 @@ def _slab_shift(x, dy, dx, fill):
     return gg.shift_plane(x.permute(1, 2, 0), dy, dx, fill).permute(2, 0, 1)
 
 
-def _slabs(x, fill, th, tw):
-    """(th * tw, SLAB, SLAB): each tile's interior with a STEPS-pixel halo,
+def _slabs(x, fill, th, tw, t):
+    """(th * tw, SLAB, SLAB): each tile's interior with a t-pixel halo,
     `fill` outside the (h, w) plane x, tiles in row-major order."""
     h, w = x.shape
-    side = _TILE + 2 * STEPS
-    xp = torch.full((th * _TILE + 2 * STEPS, tw * _TILE + 2 * STEPS), fill,
+    side = _TILE + 2 * t
+    xp = torch.full((th * _TILE + 2 * t, tw * _TILE + 2 * t), fill,
                     dtype=x.dtype, device=x.device)
-    xp[STEPS:STEPS + h, STEPS:STEPS + w] = x
+    xp[t:t + h, t:t + w] = x
     return xp.unfold(0, side, _TILE).unfold(1, side, _TILE).reshape(
         -1, side, side)
 
@@ -355,20 +370,29 @@ def _slab_bits(variant, ro_s, inside, ro_fill):
     return ok
 
 
+def _slab_views(x, fill):
+    """The DIRS8 neighbour views of a (N, S, S) stack of slabs (view d:
+    `_slab_shift(x, *DIRS8[d], fill)`), from one copy with a border."""
+    n, side, _ = x.shape
+    xp = torch.full((n, side + 2, side + 2), fill, dtype=x.dtype,
+                    device=x.device)
+    xp[:, 1:-1, 1:-1] = x
+    return [xp[:, 1 + dy:1 + dy + side, 1 + dx:1 + dx + side]
+            for dy, dx in gg.DIRS8]
+
+
 def _slab_step(variant, fields, ok, fills):
     """One Jacobi step on every slab: each pixel folds in its joined
     neighbours' old values in DIRS8 order (subsum: 1 + the children)."""
     if variant == "subsum":
         total = torch.ones_like(fields[0])
-        for d, (dy, dx) in enumerate(gg.DIRS8):
-            total = total + torch.where(
-                ok[d], _slab_shift(fields[0], dy, dx, 0), 0)
+        for d, nb in enumerate(_slab_views(fields[0], 0)):
+            total = total + torch.where(ok[d], nb, 0)
         return [total]
+    views = [_slab_views(x, fill) for x, fill in zip(fields, fills)]
     out = list(fields)
-    for d, (dy, dx) in enumerate(gg.DIRS8):
-        cands = [_slab_shift(x, dy, dx, fill)
-                 for x, fill in zip(fields, fills)]
-        out = _JOINS[variant](cands, out, ok[d])
+    for d in range(8):
+        out = _JOINS[variant]([v[d] for v in views], out, ok[d])
     return out
 
 
@@ -376,17 +400,19 @@ def _word_bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-def step_pass_plain(variant, ro, src, dst, act_in=None):
-    """One gated T-step pass as csrc/gossip.cu computes it, vectorised over
-    tiles: each TILE x TILE tile whose 3 x 3 tile neighbourhood holds a
-    nonzero act_in byte (every tile when act_in is None) loads its slab
-    (a T-pixel halo, the variant's fills outside the image), runs T Jacobi
-    steps on it and writes its interior into `dst` (in place); the other
-    tiles leave `dst` as it was. Returns (dst, act_out, changed): act_out
-    the (H/TILE, W/TILE) uint8 bytes, 1 where a computed tile's interior
-    differs from `src` (word for word), and changed whether any does."""
+def step_pass_plain(variant, ro, src, dst, act_in=None, t=None):
+    """One gated t-step pass (t: one of STEP_COUNTS, default STEPS) as
+    csrc/gossip.cu computes it, vectorised over tiles: each TILE x TILE
+    tile whose 3 x 3 tile neighbourhood holds a nonzero act_in byte (every
+    tile when act_in is None) loads its slab (a t-pixel halo, the
+    variant's fills outside the image), runs t Jacobi steps on it and
+    writes its interior into `dst` (in place); the other tiles leave `dst`
+    as it was. Returns (dst, act_out, changed): act_out the (H/TILE,
+    W/TILE) uint8 bytes, 1 where a computed tile's interior differs from
+    `src` (word for word), and changed whether any does."""
     _check_fields(variant, ro, src)
     _check_fields(variant, ro, dst)
+    t = _check_steps(STEPS if t is None else t)
     h, w = ro.shape
     th, tw = -(-h // _TILE), -(-w // _TILE)
     _, ro_fill, fills = _VARIANTS[variant]
@@ -395,11 +421,12 @@ def step_pass_plain(variant, ro, src, dst, act_in=None):
         run = torch.nn.functional.max_pool2d(
             act_in.reshape(1, 1, th, tw).float(), 3, 1, 1)[0, 0] > 0
     idx = run.reshape(-1).nonzero()[:, 0]
-    inside = _slabs(torch.ones_like(ro, dtype=torch.bool), False, th, tw)[idx]
-    ok = _slab_bits(variant, _slabs(ro, ro_fill, th, tw)[idx], inside,
+    inside = _slabs(torch.ones_like(ro, dtype=torch.bool), False, th, tw,
+                    t)[idx]
+    ok = _slab_bits(variant, _slabs(ro, ro_fill, th, tw, t)[idx], inside,
                     ro_fill)
-    cur = [_slabs(x, fill, th, tw)[idx] for x, fill in zip(src, fills)]
-    for _ in range(STEPS):
+    cur = [_slabs(x, fill, th, tw, t)[idx] for x, fill in zip(src, fills)]
+    for _ in range(t):
         cur = _slab_step(variant, cur, ok, fills)
     px_run = run.repeat_interleave(_TILE, 0).repeat_interleave(_TILE, 1)
     px_run = px_run[:h, :w]
@@ -408,7 +435,7 @@ def step_pass_plain(variant, ro, src, dst, act_in=None):
     for x_src, x_dst, c in zip(src, dst, cur):
         tiles = torch.zeros((th * tw, _TILE, _TILE), dtype=c.dtype,
                             device=c.device)
-        tiles[idx] = c[:, STEPS:STEPS + _TILE, STEPS:STEPS + _TILE]
+        tiles[idx] = c[:, t:t + _TILE, t:t + _TILE]
         new = tiles.view(th, tw, _TILE, _TILE).transpose(1, 2).reshape(
             th * _TILE, tw * _TILE)[:h, :w]
         new = torch.where(px_run, new, x_src)
@@ -456,19 +483,21 @@ def _lib():
         for fname, _, fills in _VARIANTS.values():
             fn = getattr(lib, fname)
             fn.argtypes = ([ctypes.c_void_p] * (1 + 2 * len(fills))
-                           + [ctypes.c_int, ctypes.c_int]
-                           + [ctypes.c_void_p] * 4)
+                           + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
             fn.restype = ctypes.c_int
-        for fname in ("gseg_gossip_steps", "gseg_gossip_tile",
-                      "gseg_gossip_reset_tile_counts"):
+        for fname in ("gseg_gossip_tile", "gseg_gossip_reset_tile_counts"):
             getattr(lib, fname).argtypes = []
             getattr(lib, fname).restype = ctypes.c_int
+        lib.gseg_gossip_has_steps.argtypes = [ctypes.c_int]
+        lib.gseg_gossip_has_steps.restype = ctypes.c_int
         lib.gseg_gossip_tile_counts.argtypes = [ctypes.c_void_p]
         lib.gseg_gossip_tile_counts.restype = ctypes.c_int
-        got = (lib.gseg_gossip_steps(), lib.gseg_gossip_tile())
-        if got != (STEPS, _TILE):
-            raise RuntimeError(f"csrc/gossip.cu has (T, TILE) {got}; this "
-                               f"module expects {(STEPS, _TILE)}")
+        got = ([t for t in STEP_COUNTS if lib.gseg_gossip_has_steps(t)],
+               lib.gseg_gossip_tile())
+        if got != (list(STEP_COUNTS), _TILE):
+            raise RuntimeError(
+                f"csrc/gossip.cu has (steps per pass, TILE) {got}; this "
+                f"module expects {(list(STEP_COUNTS), _TILE)}")
         lib.gseg_bound = True
         return lib
 
@@ -521,6 +550,16 @@ def _check_fields(variant, ro, fields):
             f"{ro.dtype} and {[(str(x.dtype), tuple(x.shape)) for x in fields]}")
 
 
+def _check_steps(t):
+    """t, if the step kernel is instantiated for t steps per pass (checked
+    on every device, so the CPU tests catch what the kernel would
+    refuse)."""
+    if t not in STEP_COUNTS:
+        raise ValueError(f"steps per pass must be one of {STEP_COUNTS}; "
+                         f"got {t}")
+    return t
+
+
 def _check_contiguous(variant, planes):
     if not all(x.is_contiguous() for x in planes):
         raise ValueError(f"{variant}: the kernel takes contiguous planes")
@@ -556,33 +595,38 @@ def _seed_act(seed_mask, h, w, row0):
     return m.view(th, _TILE, tw, _TILE).amax((1, 3)) * _ACT_SEED
 
 
-def _run_fixpoint(variant, ro, fields, max_sweeps, closures, seed_mask=None):
-    """Jacobi passes (double-buffered) until one changes nothing or the
-    pass cap ceil(max_sweeps / T) is reached, the hybrid route with
-    closures; wide images on padded planes (module note). Returns (fields,
-    unconverged)."""
+def _run_fixpoint(variant, ro, fields, max_sweeps, closures, seed_mask=None,
+                  passes=None):
+    """Jacobi passes (double-buffered) of T steps (STEPS, or STEPS_WIDE on
+    wide images) until one changes nothing or the pass cap
+    ceil(max_sweeps / T) is reached, the hybrid route with closures; wide
+    images on padded planes (module note). passes: what drives the passes
+    on the (padded) planes, with `_passes`' arguments (None: `_passes`,
+    the kernels; the CPU tests give the kernels' plain versions). Returns
+    (fields, unconverged)."""
     _check_contiguous(f"{variant} fixpoint", (ro, *fields))
     _, ro_fill, fills = _VARIANTS[variant]
-    max_passes = -(-max_sweeps // STEPS)
     h0, w0 = ro.shape
     padded = w0 >= PAD_MIN_WIDTH
+    t = _check_steps(STEPS_WIDE if padded else STEPS)
+    max_passes = -(-max_sweeps // t)
     if padded:
         hp = -(-h0 // _TILE) * _TILE
         wp = -(-w0 // _PAD_LANES) * _PAD_LANES
         ro, *fields = kp.fast_pad_fields(
-            [(ro, ro_fill), *zip(fields, fills)], STEPS, hp, wp)
+            [(ro, ro_fill), *zip(fields, fills)], t, hp, wp)
     seed_act = None
     if seed_mask is not None and TILE_SKIP:
-        seed_act = _seed_act(seed_mask, *ro.shape, STEPS if padded else 0)
-    fields, unconv = _passes(variant, ro, fields, max_passes, closures,
-                             seed_act)
+        seed_act = _seed_act(seed_mask, *ro.shape, t if padded else 0)
+    fields, unconv = (passes or _passes)(variant, ro, fields, max_passes,
+                                         closures, seed_act, t)
     if padded:
-        fields = kp.fast_unpad_fields(fields, STEPS, h0, w0)
+        fields = kp.fast_unpad_fields(fields, t, h0, w0)
     return fields, unconv
 
 
 def _pass_loop(step, close, fields, bufs, acts, changed, max_passes, warm,
-               seed_act=None, gate=True):
+               seed_act=None, gate=True, scan_step=None):
     """The pass loop of one fixpoint, its launches passed in (so the CPU
     tests can drive it with step_pass_plain).
 
@@ -592,7 +636,9 @@ def _pass_loop(step, close, fields, bufs, acts, changed, max_passes, warm,
     axis): one closure launch in place, ORing `changed` (None: step-only).
     Up to `warm` step passes, then (with close) pairs of (step pass + rows
     closure) and (step pass + columns closure), each pair one pass against
-    the cap, until a pass or pair changes nothing or the cap is reached.
+    the cap, until a pass or pair changes nothing or the cap is reached;
+    the pairs' step passes run `scan_step` (None: `step`), which may take
+    another T (the act bytes stay sound across it: csrc/gossip.cu, 4).
     The first pass reads `fields`, later ones ping-pong between the two
     scratch sets `bufs` (the closures update one in place), so the inputs
     are never written. gate: each step gets the previous step's act bytes
@@ -609,15 +655,15 @@ def _pass_loop(step, close, fields, bufs, acts, changed, max_passes, warm,
                 b.copy_(x)
     src, n, act_in = list(fields), 0, seed_act if gate else None
 
-    def run():
+    def run(fn):
         nonlocal src, n, act_in
         dst, act_out = bufs[n % 2], acts[n % 2]
-        step(src, dst, act_in, act_out)
+        fn(src, dst, act_in, act_out)
         src, n, act_in = dst, n + 1, act_out if gate else None
 
     for _ in range(warm):
         changed.zero_()
-        run()
+        run(step)
         if int(changed.item()) == 0:
             return src, False, n, 0
     if close is None:
@@ -626,7 +672,7 @@ def _pass_loop(step, close, fields, bufs, acts, changed, max_passes, warm,
     while warm + pairs < max_passes:
         changed.zero_()
         for axis in (1, 0):
-            run()
+            run(scan_step or step)
             close(src, axis)
             act_in = None
         pairs += 1
@@ -635,12 +681,12 @@ def _pass_loop(step, close, fields, bufs, acts, changed, max_passes, warm,
     return src, True, n, pairs
 
 
-def _launch_pass(variant, ro, src, dst, act_in, act_out, changed, stream):
-    """One step-kernel launch on contiguous CUDA planes."""
+def _launch_pass(variant, ro, src, dst, act_in, act_out, changed, stream, t):
+    """One t-step kernel launch on contiguous CUDA planes."""
     h, w = ro.shape
     err = getattr(_lib(), _VARIANTS[variant][0])(
         ro.data_ptr(), *[x.data_ptr() for x in src],
-        *[x.data_ptr() for x in dst], h, w,
+        *[x.data_ptr() for x in dst], h, w, t,
         None if act_in is None else act_in.data_ptr(), act_out.data_ptr(),
         changed.data_ptr(), stream)
     _build.check(err, f"gseg_{variant}_pass")
@@ -649,9 +695,10 @@ def _launch_pass(variant, ro, src, dst, act_in, act_out, changed, stream):
         TILE_LAUNCHES[variant][0] += act_out.numel()
 
 
-def _passes(variant, ro, fields, max_passes, closures, seed_act=None):
+def _passes(variant, ro, fields, max_passes, closures, seed_act, t):
     """Allocates the scratch sets and act bytes and drives _pass_loop with
-    the kernel. Returns (fields, unconverged)."""
+    the kernel at t steps per pass (the closure pairs' at STEPS_SCAN).
+    Returns (fields, unconverged)."""
     h, w = ro.shape
     tiles = (-(-h // _TILE), -(-w // _TILE))
     bufs = [[torch.empty_like(x) for x in fields] for _ in range(2)]
@@ -660,35 +707,40 @@ def _passes(variant, ro, fields, max_passes, closures, seed_act=None):
     changed = torch.zeros(1, dtype=torch.int32, device=ro.device)
     warm = min(max_passes, WARM_PASSES) if closures else max_passes
     clib = _closure_lib() if closures else None
+    t_scan = _check_steps(STEPS_SCAN) if closures else t
     with torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream().cuda_stream
 
-        def step(src, dst, act_in, act_out):
+        def step(src, dst, act_in, act_out, t=t):
             _launch_pass(variant, ro, src, dst, act_in, act_out, changed,
-                         stream)
+                         stream, t)
             if act_in is not None and act_in is seed_act:
                 with _build.LOCK:
                     TILE_LAUNCHES[variant][1] += act_out.numel()
+
+        def scan_step(src, dst, act_in, act_out):
+            step(src, dst, act_in, act_out, t_scan)
 
         def close(src, axis):
             _closure_launch(variant, clib, ro, src, axis, changed, stream)
 
         out, unconv, n, pairs = _pass_loop(
             step, close if closures else None, fields, bufs, acts, changed,
-            max_passes, warm, seed_act, TILE_SKIP)
+            max_passes, warm, seed_act, TILE_SKIP, scan_step)
     if closures:
         HYBRID_LOG.append((variant, min(n, warm), pairs))
     return out, unconv
 
 
-def step_pass(variant, ro, src, dst, act_in=None):
-    """One step pass of `variant` from the fields `src` into `dst`, gated
-    by act_in (the previous pass's act bytes, or None for every tile): the
-    kernel for CUDA tensors, step_pass_plain for CPU tensors. Returns (dst,
-    act_out, changed); the card's checks hold the two against each other
-    pass by pass."""
+def step_pass(variant, ro, src, dst, act_in=None, t=None):
+    """One t-step pass (one of STEP_COUNTS, default STEPS) of `variant`
+    from the fields `src` into `dst`, gated by act_in (the previous pass's
+    act bytes, or None for every tile): the kernel for CUDA tensors,
+    step_pass_plain for CPU tensors. Returns (dst, act_out, changed); the
+    card's checks hold the two against each other pass by pass."""
     _check_fields(variant, ro, src)
     _check_fields(variant, ro, dst)
+    t = _check_steps(STEPS if t is None else t)
     h, w = ro.shape
     tiles = (-(-h // _TILE), -(-w // _TILE))
     gate = []
@@ -698,13 +750,13 @@ def step_pass(variant, ro, src, dst, act_in=None):
                              f"shape {tiles}")
         gate = [act_in]
     if _build.on_cpu(ro, *src, *dst, *gate):
-        return step_pass_plain(variant, ro, src, dst, act_in)
+        return step_pass_plain(variant, ro, src, dst, act_in, t)
     _check_contiguous(f"{variant} step pass", (ro, *src, *dst, *gate))
     act_out = torch.empty(tiles, dtype=torch.uint8, device=ro.device)
     changed = torch.zeros(1, dtype=torch.int32, device=ro.device)
     with torch.cuda.device(ro.device):
         _launch_pass(variant, ro, src, dst, act_in, act_out, changed,
-                     torch.cuda.current_stream().cuda_stream)
+                     torch.cuda.current_stream().cuda_stream, t)
     return dst, act_out, bool(changed.item())
 
 
@@ -819,8 +871,9 @@ def subtree_sums(pdir, s, max_sweeps):
 
 
 def _slab_step_kernel(variant, ro, src, dst):
-    """One ungated kernel pass over a row slab (contiguous CUDA planes);
-    the kernel's `changed` word is not read (see _spatial_fixpoint)."""
+    """One ungated STEPS-step kernel pass over a row slab (contiguous CUDA
+    planes); the kernel's `changed` word is not read (see
+    _spatial_fixpoint)."""
     _check_contiguous(f"{variant} slab pass", (ro, *src, *dst))
     h, w = ro.shape
     act_out = torch.empty((-(-h // _TILE), -(-w // _TILE)), dtype=torch.uint8,
@@ -828,7 +881,7 @@ def _slab_step_kernel(variant, ro, src, dst):
     changed = torch.zeros(1, dtype=torch.int32, device=ro.device)
     with torch.cuda.device(ro.device):
         _launch_pass(variant, ro, src, dst, None, act_out, changed,
-                     torch.cuda.current_stream().cuda_stream)
+                     torch.cuda.current_stream().cuda_stream, STEPS)
 
 
 def _spatial_fixpoint(variant, plain, ro, fields, max_sweeps, rank,

@@ -224,14 +224,19 @@ def _turbo_rank(rank, tile, cfg: SegmentationConfig, gossip_rounds: int,
     st, rm, r0, Lg = _extract_spatial(comm, gst, weights, vidg, v, cfg)
     st = turbo._s2_stage(st, v, cfg, thresholds)
     # the final map: the replicated root table seeds the tile's root
-    # pixels, then the spatial value flood.
+    # pixels, then the spatial value flood; under turbo._FINAL_GATHER each
+    # pixel gathers its root's entry (the tile's labels are global root
+    # ids, so no halo is exchanged).
     vid_full = torch.arange(v, dtype=torch.int32,
                             device=tile.device).reshape(h_glob, w)
     seed = torch.where(Lg == vid_full, Lg, INT32_MAX).reshape(-1)
     seed = turbo._scatter(seed, r0, st.fin)  # r0 holds v (dropped) where ~rm
-    seed = seed.reshape(h_glob, w)[row_off:row_off + h].contiguous()
-    labels, fm_unconv = turbo._value_flood(gst.L, seed, max_sweeps,
-                                           comm=comm)
+    if turbo._FINAL_GATHER:
+        labels, fm_unconv = turbo._root_gather(seed, gst.L), False
+    else:
+        seed = seed.reshape(h_glob, w)[row_off:row_off + h].contiguous()
+        labels, fm_unconv = turbo._value_flood(gst.L, seed, max_sweeps,
+                                               comm=comm)
     flags = turbo._raise_flag(st.flags, fm_unconv,
                               turbo.FLAG_GOSSIP_UNCONVERGED)
     return labels, rank.or_flags(flags)

@@ -185,7 +185,7 @@ def test_cli_entry_point_subprocess(tmp_path):
     assert np.array_equal(np.load(lab), want)
     assert rec["components"] == np.unique(want).size
     assert "--device" in cli.build_parser().format_help()
-    assert cli.build_parser().parse_args(["a", "b"]).algorithm == "turbo"
+    assert cli.build_parser().parse_args(["a", "b"]).algorithm == "atomic"
 
 
 @pytest.mark.parametrize("seed", [0, 7])

@@ -208,9 +208,11 @@ def test_padded_route_equals_plain(dev, shape):
 
 def test_segment_runs_on_the_card_by_default(dev):
     img = blobs_image(24, 32, 5, 6.0, 0)
-    labels = gseg_tpu_torch.segment(img, k=100.0, min_size=8)
+    labels = gseg_tpu_torch.segment(img, k=100.0, min_size=8,
+                                    algorithm="turbo")
     assert labels.device == torch.device("cuda", 0)
-    cpu = gseg_tpu_torch.segment(img, k=100.0, min_size=8, device="cpu")
+    cpu = gseg_tpu_torch.segment(img, k=100.0, min_size=8, algorithm="turbo",
+                                 device="cpu")
     assert torch.equal(labels.cpu(), cpu)
 
 
@@ -631,6 +633,72 @@ def test_gated_kernel_passes_equal_plain(dev, variant, shape):
     assert kg._WRAPPERS[variant].launches == n0 + n
 
 
+@pytest.mark.parametrize("t", [4, 16, 32])
+@pytest.mark.parametrize("variant", list(kg._VARIANTS))
+def test_kernel_passes_at_each_t_equal_plain(dev, variant, t):
+    """Each other instantiation of the step kernel (T = 8 above): every
+    gated pass of a fixpoint, by the kernel and by step_pass_plain at the
+    same T, gives the same fields, act bytes and changed flag; the passes
+    reach the plain fixpoint."""
+    h, w = 100, 130
+    ro, fields = _step_inputs(variant, h, w, dev, seed=h * 11 + w + t)
+    tiles = (-(-h // kg._TILE), -(-w // kg._TILE))
+    bufs = [[torch.zeros_like(x) for x in fields] for _ in range(2)]
+    acts = [torch.zeros(tiles, dtype=torch.uint8, device=dev)
+            for _ in range(2)]
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def step(src, dst, act_in, act_out):
+        pdst = [x.clone() for x in dst]
+        _, ka, kc = kg.step_pass(variant, ro, src, dst, act_in, t)
+        _, pa, pc = kg.step_pass_plain(variant, ro, src, pdst, act_in, t)
+        assert _equal(dst, pdst) and torch.equal(ka, pa) and kc == pc
+        act_out.copy_(ka)
+        changed.bitwise_or_(int(kc))
+
+    cap = -(-4 * (h + w) // t)
+    out, unconv, _, _ = kg._pass_loop(step, None, fields, bufs, acts,
+                                      changed, cap, cap, None, True)
+    plain = {"compmin": kg.compmin_gossip_plain,
+             "labeldist": kg.label_gossip_plain,
+             "labelnd": kg.label_flood_plain,
+             "value": kg.value_flood_plain,
+             "subsum": kg.subtree_sums_plain}[variant]
+    *ref, ref_unconv = plain(ro, *fields, 4 * (h + w))
+    assert _equal(out, ref) and unconv is ref_unconv is False
+
+
+@pytest.mark.parametrize("t", [4, 16, 32])
+@pytest.mark.parametrize("shape", [(96, 56), (37, 2600)])
+def test_fixpoints_at_each_t_equal_plain(dev, t, shape, monkeypatch):
+    """Every fixpoint wrapper with STEPS, STEPS_WIDE and STEPS_SCAN at t
+    (two warm passes, then the closure pairs), the padded route included:
+    the plain fixpoints' bits."""
+    for name in ("STEPS", "STEPS_WIDE", "STEPS_SCAN"):
+        monkeypatch.setattr(kg, name, t)
+    monkeypatch.setattr(kg, "WARM_PASSES", 2)
+    h, w = shape
+    f = _fields(h, w, dev, seed=h + w + t, ncomp=3)
+    ms = 4 * (h + w)
+    got = kg.compmin_gossip(f["L"], f["bw"], f["be"], f["sz"], ms,
+                            closures=True)
+    ref = kg.compmin_gossip_plain(f["L"], f["bw"], f["be"], f["sz"], ms)
+    assert _equal(got[:3], ref[:3]) and got[3] is ref[3] is False
+    got = kg.label_flood(f["allow"], f["be"], f["bw"], ms, closures=True)
+    ref = kg.label_flood_plain(f["allow"], f["be"], f["bw"], ms)
+    assert _equal(got[:2], ref[:2]) and got[2] is ref[2] is False
+    got = kg.value_flood(f["L"], f["be"], ms)
+    ref = kg.value_flood_plain(f["L"], f["be"], ms)
+    assert torch.equal(got[0], ref[0]) and got[1] is ref[1] is False
+    dist0, pdir = _dist_and_pdir(f["L"], seed=t)
+    got = kg.label_gossip(f["allow"], f["be"], f["bw"], dist0, ms)
+    ref = kg.label_gossip_plain(f["allow"], f["be"], f["bw"], dist0, ms)
+    assert _equal(got[:3], ref[:3]) and got[3] is ref[3] is False
+    got = kg.subtree_sums(pdir, torch.ones_like(pdir), ms)
+    ref = kg.subtree_sums_plain(pdir, torch.ones_like(pdir), ms)
+    assert torch.equal(got[0], ref[0]) and got[1] is ref[1] is False
+
+
 @pytest.mark.parametrize("tile_skip", [True, False])
 def test_hybrid_route_equals_plain_with_and_without_skipping(
         dev, tile_skip, monkeypatch):
@@ -825,7 +893,7 @@ def test_parallel_paths_on_card_equal_dense(dev):
     from gseg_tpu_torch.models import atomic_boruvka
     from gseg_tpu_torch.parallel import batching, spatial, turbo_spatial
 
-    cfg = SegmentationConfig(k=120.0, min_size=8)
+    cfg = SegmentationConfig(k=120.0, min_size=8, algorithm="turbo")
     imgs = torch.stack([torch.from_numpy(blobs_image(48, 40, 5, 6.0, s))
                         for s in (2, 3)]).to(dev)
     labels = batching.segment_batch(imgs, cfg, dev)

@@ -208,7 +208,7 @@ def test_segment_api():
     img = blobs_image(24, 32, 5, 6.0, 0)
     cfg = SegmentationConfig(k=100.0, min_size=8, algorithm="turbo")
     labels = gseg_tpu_torch.segment(img, k=100.0, min_size=8,
-                                    device="cpu")
+                                    algorithm="turbo", device="cpu")
     assert labels.dtype == torch.int32 and labels.device.type == "cpu"
     assert np.array_equal(labels.numpy(), _oracle(img, cfg))
     assert np.array_equal(labels.numpy(),

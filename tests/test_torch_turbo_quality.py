@@ -116,14 +116,15 @@ def test_quality_mode_matches_pallas_closure_path(monkeypatch):
 
 
 def test_segment_api_quality_mode():
-    """A config's default algorithm is the port's "turbo": quality mode runs
-    from the config alone; a config naming "atomic" with weight buckets is
+    """A config naming "turbo" runs quality mode; one naming "atomic" (the
+    default, as in the reference) with weight buckets is
     refused as the reference refuses it (that path ignores them), as is one
     naming "fastmst"; one naming "kruskal_native" is not (the C++ baseline
     takes the edges in sorted order, so the ramp is moot) and gives the
     reference's labels byte for byte."""
     img = blobs_image(48, 64, 5, 4.0, 1)
-    cfg = SegmentationConfig(k=30.0, min_size=10, weight_buckets=16)
+    cfg = SegmentationConfig(k=30.0, min_size=10, weight_buckets=16,
+                             algorithm="turbo")
     labels = gseg_tpu_torch.segment(img, config=cfg, device="cpu")
     assert labels.dtype == torch.int32 and labels.device.type == "cpu"
     assert np.array_equal(labels.numpy(), _oracle(img, cfg))
