@@ -189,10 +189,30 @@ arguments). It
      default's, and two A B B A pairs of CUDA-event medians (3 calls
      each) of the default and the alternative.
 
+ 13. runs the reference's hardware parity protocol and the rows of its
+     record the card had not run, each row with the launch counts set to
+     0 just before it and read just after (RECORDED_LAUNCHES), its host
+     reads, peak memory and `bench.harness._timed` median (3 reps of one
+     call) with MPix/s: `python -m gseg_tpu_torch.bench.parity` in this
+     process (the 20-seed synthetic sweep at k 30, min_size 10; 540p
+     blobs and textured at the bench configuration, against
+     `segment_boruvka_np` on the host; textured 1080p k 10, min_size 10,
+     wb16 against its committed oracle), then each of its rows counted;
+     `python -m gseg_tpu_torch.bench.spatial_parity` (the row-sharded
+     turbo path against the dense one: 540p on 4 ranks, 720p on 8, blobs
+     and textured, wb0 and wb16, the ranks on cuda:0), then each row's
+     dense and row-sharded runs counted (labels equal); the ladder's 5K
+     and 8K rungs for turbo, atomic and fastmst
+     (`run_performance_ladder(resolutions=[(2880, 5120), (4320, 7680)])`)
+     and the textured turbo rows at 540p, 1080p and 4K (`content=
+     "textured"`), each counted as one path and every row re-run, counted,
+     against its committed oracle. Every row: flags 0, 0 pixels off (or
+     equal), its recorded launches; no plain sweep may run.
+
 `python3 chip_smoke.py --cards`, on a machine with several cards, runs
 only the row-sharded paths with one rank on each card (PERF.md: each
 rank's peak memory). `python3 chip_smoke.py --alternatives` builds the
-kernels and runs step 12 alone.
+kernels and runs step 12 alone, `python3 chip_smoke.py --parity` step 13.
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -224,7 +244,8 @@ import numpy as np
 import torch
 
 from gseg_tpu_torch.bench import __main__ as bench_main
-from gseg_tpu_torch.bench import fig3, flagship, harness, profile_turbo
+from gseg_tpu_torch.bench import (fig3, flagship, harness, parity,
+                                  profile_turbo, spatial_parity)
 from gseg_tpu_torch.config import SegmentationConfig
 from gseg_tpu_torch.metrics.compare import asa_ue_best_gt, asa_ue_torch
 from gseg_tpu_torch.models import atomic_boruvka, fastmst, superpixel, turbo
@@ -3505,6 +3526,347 @@ def _alternatives(images, card, errs):
     return runs, step
 
 
+# ---------------------------------------------------------------------------
+# step 13: the reference's hardware parity protocol (bench.parity,
+# bench.spatial_parity) and the rows of its record the card had not run
+# ---------------------------------------------------------------------------
+
+STEP13_REPS = 3       # _timed reps of a row, one call each
+SPATIAL_REPS = 2      # ... of a row-sharded row (0.4-3.8 s a call)
+PARITY_RUN = "parity_protocol"
+SPATIAL_RUN = "spatial_parity_protocol"
+BIG_RUN = "ladder_5k_8k"
+TEXTURED_RUN = "ladder_textured"
+BIG_RUNGS = {(2880, 5120): "blobs_2880x5120_wb0",
+             (4320, 7680): "blobs_4320x7680_wb0"}
+TEXTURED_RUNGS = {(540, 960): "textured_540x960_wb0",
+                  (1080, 1920): "textured_1080x1920_wb0",
+                  (2160, 3840): "textured_2160x3840_wb0"}
+
+
+def _parity_path(case_name):
+    return "parity_" + case_name.replace(" ", "_")
+
+
+PARITY_PATHS = [_parity_path(c) for c in
+                [f"synthetic{s:03d}" for s in range(20)]
+                + ["540p blobs", "540p textured", "1080p textured k10 wb16"]]
+# (content, h, w, ranks, weight_buckets) -> the row-sharded and the dense
+# run's path
+SPATIAL_ROWS = {
+    (c, h, w, n, wb): (f"spatial_parity_{c}_{h}x{w}_{n}ranks_wb{wb}",
+                       f"spatial_parity_dense_{c}_{h}x{w}_wb{wb}")
+    for h, w, n in spatial_parity.PLAN for c in spatial_parity.CONTENTS
+    for wb in spatial_parity.WEIGHT_BUCKETS}
+
+
+def _ladder_path(algo, h, w, content):
+    return (f"ladder_{algo}_{h}x{w}" if content == "blobs"
+            else f"ladder_{algo}_{content}_{h}x{w}")
+
+
+# each run of a whole module -> the rows it holds
+STEP13_RUNS = {
+    PARITY_RUN: PARITY_PATHS,
+    SPATIAL_RUN: [p for pair in SPATIAL_ROWS.values() for p in pair],
+    BIG_RUN: [_ladder_path(a, h, w, "blobs") for h, w in BIG_RUNGS
+              for a in LADDER_ALGOS],
+    TEXTURED_RUN: [_ladder_path("turbo", h, w, "textured")
+                   for h, w in TEXTURED_RUNGS]}
+# the module runs whose launches are the sum of their rows' (the ladders'
+# timed calls vary in number with the host)
+STEP13_SUMS = {PARITY_RUN, SPATIAL_RUN}
+
+
+def _turbo_launches(compmin, labeldist, labelnd, value, subsum, extract=1,
+                    pads=0, **closures):
+    return (dict(gossip_compmin=compmin, gossip_labeldist=labeldist,
+                 gossip_labelnd=labelnd, gossip_value=value,
+                 gossip_subsum=subsum, boundary_extract=extract,
+                 pad_fields=pads, unpad_fields=pads) | closures)
+
+
+# step 13 (run 13a). The sweep's seeds (compmin, label+dist = subsum,
+# labelnd, value; one extract each): stage G's rounds vary with the seed,
+# seed 5 taking 69 compmin passes. The row-sharded rows count slab passes
+# summed over the ranks (no labelnd, closure, pad or extract); the dense
+# quality-mode rows at 540p and 720p run the closures (their hybrid
+# fixpoints pass the warm passes), as no earlier path at the default
+# WARM_PASSES did. 5K and 8K take the padded route: pad and unpad 10 each
+# on turbo, 1 on fastmst.
+SWEEP_LAUNCHES = (
+    (18, 7, 26, 11), (11, 7, 15, 8), (19, 8, 24, 11), (19, 7, 25, 11),
+    (19, 7, 29, 14), (69, 7, 67, 21), (12, 7, 16, 9), (17, 7, 24, 11),
+    (10, 7, 17, 8), (19, 7, 26, 11), (18, 7, 25, 11), (22, 7, 30, 16),
+    (24, 8, 30, 13), (12, 7, 15, 9), (12, 7, 16, 8), (18, 7, 26, 12),
+    (11, 7, 15, 8), (17, 7, 26, 14), (19, 7, 24, 13), (12, 7, 13, 7))
+RECORDED_LAUNCHES |= {
+    path: ("13a", _turbo_launches(c, ld, lnd, v, ld))
+    for path, (c, ld, lnd, v) in zip(PARITY_PATHS, SWEEP_LAUNCHES)}
+RECORDED_LAUNCHES |= {p: ("13a", launches) for p, launches in {
+    "parity_540p_blobs": _turbo_launches(14, 8, 17, 9, 8),
+    "parity_540p_textured": _turbo_launches(13, 8, 19, 11, 8),
+    "parity_1080p_textured_k10_wb16": _turbo_launches(64, 0, 128, 37, 0),
+    "spatial_parity_dense_blobs_540x960_wb0": _turbo_launches(
+        14, 8, 17, 9, 8),
+    "spatial_parity_blobs_540x960_4ranks_wb0": _turbo_launches(
+        56, 112, 0, 36, 112, extract=0),
+    "spatial_parity_dense_blobs_540x960_wb16": _turbo_launches(
+        96, 0, 183, 63, 0, closure_labelnd=8),
+    "spatial_parity_blobs_540x960_4ranks_wb16": _turbo_launches(
+        384, 808, 0, 252, 784, extract=0),
+    "spatial_parity_dense_textured_540x960_wb0": _turbo_launches(
+        13, 8, 19, 11, 8),
+    "spatial_parity_textured_540x960_4ranks_wb0": _turbo_launches(
+        52, 112, 0, 44, 112, extract=0),
+    "spatial_parity_dense_textured_540x960_wb16": _turbo_launches(
+        51, 0, 93, 27, 0),
+    "spatial_parity_textured_540x960_4ranks_wb16": _turbo_launches(
+        204, 372, 0, 108, 360, extract=0),
+    "spatial_parity_dense_blobs_720x1280_wb0": _turbo_launches(
+        13, 8, 19, 10, 8),
+    "spatial_parity_blobs_720x1280_8ranks_wb0": _turbo_launches(
+        104, 240, 0, 80, 240, extract=0),
+    "spatial_parity_dense_blobs_720x1280_wb16": _turbo_launches(
+        145, 0, 244, 66, 0, closure_labelnd=16, closure_value=2),
+    "spatial_parity_blobs_720x1280_8ranks_wb16": _turbo_launches(
+        1160, 2336, 0, 520, 2336, extract=0),
+    "spatial_parity_dense_textured_720x1280_wb0": _turbo_launches(
+        13, 8, 21, 10, 8),
+    "spatial_parity_textured_720x1280_8ranks_wb0": _turbo_launches(
+        104, 240, 0, 80, 232, extract=0),
+    "spatial_parity_dense_textured_720x1280_wb16": _turbo_launches(
+        100, 0, 185, 47, 0, closure_labelnd=8),
+    "spatial_parity_textured_720x1280_8ranks_wb16": _turbo_launches(
+        800, 1512, 0, 376, 1320, extract=0),
+    "ladder_turbo_2880x5120": _turbo_launches(20, 9, 28, 19, 9, pads=10),
+    "ladder_atomic_2880x5120": {},
+    "ladder_fastmst_2880x5120": dict(gossip_value=3, pad_fields=1,
+                                     unpad_fields=1),
+    "ladder_turbo_4320x7680": _turbo_launches(22, 9, 31, 24, 9, pads=10),
+    "ladder_atomic_4320x7680": {},
+    "ladder_fastmst_4320x7680": dict(gossip_value=3, pad_fields=1,
+                                     unpad_fields=1),
+    "ladder_turbo_textured_540x960": _turbo_launches(13, 8, 19, 11, 8),
+    "ladder_turbo_textured_1080x1920": _turbo_launches(13, 8, 19, 10, 8),
+    "ladder_turbo_textured_2160x3840": _turbo_launches(13, 8, 19, 9, 8,
+                                                       pads=10),
+}.items()}
+
+
+def _step13_launches(path, launches, unrecorded):
+    """A row's launches against its record (exact: every kernel it
+    recorded launched, no other); a row without one is listed in
+    `unrecorded`. A whole-module run must launch the kernels its rows
+    recorded and no other, and where its calls are its rows' (STEP13_SUMS)
+    the sum of their records."""
+    if path in STEP13_RUNS:
+        rows = STEP13_RUNS[path]
+        if not all(r in RECORDED_LAUNCHES for r in rows):
+            return
+        if path in STEP13_SUMS:
+            want = {n: sum(RECORDED_LAUNCHES[r][1].get(n, 0) for r in rows)
+                    for n in KERNELS}
+            if launches != want:
+                raise AssertionError(f"{path}: launches {launches}, the sum "
+                                     f"of its rows' records {want}")
+        want = {n for r in rows for n, c in RECORDED_LAUNCHES[r][1].items()
+                if c}
+        got = {n for n, c in launches.items() if c}
+        if got != want:
+            raise AssertionError(f"{path}: launched {sorted(got)}, its rows "
+                                 f"recorded {sorted(want)}")
+    elif path in RECORDED_LAUNCHES:
+        _check_launches(path, launches)
+    else:
+        unrecorded[path] = launches
+
+
+def _step13_row(path, fn, card, unrecorded, pixels, reps=STEP13_REPS):
+    """One counted call of a row's callable (returns the outputs), its
+    launches against the record, host reads and peak memory; then its
+    _timed median of `reps` calls, unless `reps` is 0. Returns (outputs,
+    record)."""
+    out, launches, _, _, reads, peak = _counted(path, fn)
+    _step13_launches(path, launches, unrecorded)
+    rec = {"launches": launches, "host_reads": reads, "peak_mib": peak}
+    if reps:
+        t = harness._timed(fn, reps, inner=1)
+        rec |= {"median_ms": t["median_s"] * 1e3, "reps": reps,
+                "mpix_per_s": pixels / 1e6 / t["median_s"]}
+    return out, rec
+
+
+def _row_line(path, rec, card, what):
+    timed = (f"; _timed median {rec['median_ms']:.3f} ms of {rec['reps']} "
+             f"reps = {rec['mpix_per_s']:.2f} MPix/s"
+             if "median_ms" in rec else "")
+    print(f"main path {path}: {what}; launches {rec['launches']}, host "
+          f"reads {rec['host_reads']}, peak memory {rec['peak_mib']:.1f} "
+          f"MiB{timed} ({card})", flush=True)
+
+
+def _module_run(path, fn, card):
+    """A whole module's run in this process, counted as one path."""
+    t0 = time.perf_counter()
+    out, launches, _, _, reads, peak = _counted(path, fn)
+    seconds = time.perf_counter() - t0
+    print(f"main path {path}: {seconds:.1f} s, launches {launches}, host "
+          f"reads {reads}, peak memory {peak:.1f} MiB ({card})", flush=True)
+    return out, {"launches": launches, "host_reads": reads,
+                 "peak_mib": peak, "seconds": seconds}
+
+
+def _parity_rows(dev, card, unrecorded):
+    """`bench.parity` whole (it raises SystemExit on any failure), then
+    every row counted and timed."""
+    _, rec = _module_run(PARITY_RUN, lambda: parity.main([]), card)
+    runs = {PARITY_RUN: rec}
+    for case, path in zip(parity.cases(), PARITY_PATHS):
+        h, w = case.image.shape[:2]
+        row, rec = _step13_row(path, lambda: parity.check(case, dev), card,
+                               unrecorded, h * w, reps=0)
+        image = torch.from_numpy(case.image).to(dev)
+        t = harness._timed(lambda: turbo.segment_turbo_flagged(
+            image, case.cfg, GOSSIP_ROUNDS)[0], STEP13_REPS, inner=1)
+        rec |= {"flags": row["flags"], "oracle_pixels_differ":
+                row["pixels_differ"], "components": row["components"],
+                "median_ms": t["median_s"] * 1e3, "reps": STEP13_REPS,
+                "mpix_per_s": h * w / 1e6 / t["median_s"]}
+        _row_line(path, rec, card, f"flags {row['flags']}, "
+                  f"{row['components']} components, {row['pixels_differ']} "
+                  "pixels off the oracle")
+        if row["flags"] or not row["equal"]:
+            raise AssertionError(f"{path}: {row}")
+        runs[path] = rec
+    return runs
+
+
+def _spatial_rows(dev, card, unrecorded):
+    """`bench.spatial_parity` whole (exit 0, its JSON rows equal with
+    flags 0), then every row's dense and row-sharded runs counted, the
+    row-sharded one timed: labels equal, flags 0."""
+    rc, rec = _module_run(SPATIAL_RUN, lambda: spatial_parity.main([]),
+                          card)
+    with open(spatial_parity.OUT) as f:
+        record = json.load(f)
+    bad = [r for r in record["rows"] if not spatial_parity.row_ok(r)]
+    if rc or bad or len(record["rows"]) != len(SPATIAL_ROWS):
+        raise AssertionError(f"{SPATIAL_RUN}: exit {rc}, rows {bad}")
+    runs = {SPATIAL_RUN: rec | {"rows": record["rows"]}}
+    for (content, h, w, n, wb), (path, dense_path) in SPATIAL_ROWS.items():
+        image = torch.from_numpy(harness.ladder_image(h, w, content)).to(dev)
+        cfg = spatial_parity.config(wb)
+        mesh = spatial.spatial_mesh([dev] * n)
+        (dense, dflags), drec = _step13_row(
+            dense_path, lambda: turbo.segment_turbo_flagged(
+                image, cfg, GOSSIP_ROUNDS), card, unrecorded, h * w, reps=0)
+        _row_line(dense_path, drec, card, f"flags {dflags}")
+        (labels, flags), rec = _step13_row(
+            path, lambda: turbo_spatial.segment_turbo_spatial(
+                image, cfg, mesh, "space", GOSSIP_ROUNDS), card,
+            unrecorded, h * w, reps=SPATIAL_REPS)
+        same = torch.equal(labels, dense)
+        rec |= {"flags": flags, "dense_flags": dflags, "equal": same}
+        _row_line(path, rec, card, f"flags {flags}, labels equal to the "
+                  f"dense path's: {same}")
+        if flags or dflags or not same:
+            raise AssertionError(f"{path}: flags {flags}, dense flags "
+                                 f"{dflags}, equal {same}")
+        runs[path], runs[dense_path] = rec, drec
+    return runs
+
+
+def _ladder_rows(run, rungs, algos, content, dev, card, unrecorded):
+    """`run_performance_ladder` over `rungs` (rung -> oracle name) for
+    `algos` on `content`, counted as the path `run` (every row flags 0),
+    then each row once more, counted, 0 pixels off its rung's oracle."""
+    rows, rec = _module_run(run, lambda: harness.run_performance_ladder(
+        algos, list(rungs), STEP13_REPS, content=content, device=dev), card)
+    runs = {run: rec}
+    flagged = [(r["algorithm"], r["height"], r["width"]) for r in rows
+               if r["flags"]]
+    if flagged or len(rows) != len(rungs) * len(algos):
+        raise AssertionError(f"{run}: {len(rows)} rows, flags in {flagged}")
+    by = {(r["algorithm"], r["height"], r["width"]): r for r in rows}
+    cfg = SegmentationConfig(k=300.0, min_size=100)  # the ladder's
+    for (h, w), name in rungs.items():
+        image = torch.from_numpy(harness.ladder_image(h, w, content)).to(dev)
+        oracle = FsPath(oracle_path(name)).resolve()
+        for algo in algos:
+            path = _ladder_path(algo, h, w, content)
+            labels, rec = _step13_row(path, lambda: harness.segment_fn(
+                algo, cfg, device=dev)(image), card, unrecorded, h * w,
+                reps=0)
+            row = by[algo, h, w]
+            t = row["total"]
+            rec |= {"flags": row["flags"], "median_ms": t["median_s"] * 1e3,
+                    "reps": t["reps"], "mean_ms": t["mean_s"] * 1e3,
+                    "inner": t["inner"],
+                    "mpix_per_s": row["mpix"] / t["median_s"],
+                    "filter_graph_median_ms":
+                        row["filter_graph"]["median_s"] * 1e3,
+                    "oracle_pixels_differ": _oracle_diff(labels, oracle)}
+            _row_line(path, rec, card, f"flags {row['flags']}, "
+                      f"{rec['oracle_pixels_differ']} pixels off "
+                      f"{oracle.relative_to(ROOT)}")
+            if rec["oracle_pixels_differ"]:
+                raise AssertionError(f"{path}: partition differs from the "
+                                     "oracle")
+            runs[path] = rec
+            del labels
+        del image
+    return runs
+
+
+@contextlib.contextmanager
+def _images_once():
+    """`harness.ladder_image` (and the parity modules' references to it)
+    makes each (h, w, content) once while open, so that a module's run and
+    its rows' runs share their images: on the host an 8K blobs image takes
+    tens of seconds."""
+    made, make = {}, harness.ladder_image
+
+    def once(h, w, content="blobs"):
+        if (h, w, content) not in made:
+            made[h, w, content] = make(h, w, content)
+        return made[h, w, content]
+
+    mods = (harness, parity, spatial_parity)
+    for m in mods:
+        m.ladder_image = once
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.ladder_image = make
+
+
+def _parity_step(dev, card):
+    """Step 13. Returns (path records, step record)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    unrecorded, step = {}, {}
+    with _images_once():
+        runs = _parity_rows(dev, card, unrecorded)
+        step["parity_s"] = time.perf_counter() - t0
+        runs |= _spatial_rows(dev, card, unrecorded)
+        step["spatial_s"] = time.perf_counter() - t0 - step["parity_s"]
+        runs |= _ladder_rows(BIG_RUN, BIG_RUNGS, LADDER_ALGOS, "blobs", dev,
+                             card, unrecorded)
+        runs |= _ladder_rows(TEXTURED_RUN, TEXTURED_RUNGS, ("turbo",),
+                             "textured", dev, card, unrecorded)
+    for path in STEP13_RUNS:
+        _step13_launches(path, runs[path]["launches"], unrecorded)
+    step["seconds"] = time.perf_counter() - t0
+    print(f"step 13 took {step['seconds']:.1f} s ({card})", flush=True)
+    if unrecorded:
+        print("unrecorded launches: " + json.dumps(unrecorded), flush=True)
+        raise AssertionError(f"launches of paths with no record: "
+                             f"{sorted(unrecorded)}")
+    return runs, step
+
+
 # per-kernel keys of the kernels line beyond the contract's, where measured
 _EXTRA_KEYS = ("library_device_ms", "device_ms_rows", "device_ms_cols",
                "device_ms_fill", "device_ms_bulk", "device_ms_regs", "ms_regs",
@@ -3532,6 +3894,15 @@ def main() -> None:
     _build_all()
     if sys.argv[1:] == ["--cards"]:
         print("cards: " + json.dumps(_cross_card(card)))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if sys.argv[1:] == ["--parity"]:
+        runs, step = _parity_step(dev, card)
+        print("parity: " + json.dumps(
+            {p: {k: v for k, v in r.items() if k != "launches"}
+             for p, r in runs.items()} | {"step": step}, default=str))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3659,6 +4030,10 @@ def main() -> None:
     runs |= alt_runs
     print(f"alternatives done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    parity_runs, parity_step = _parity_step(dev, card)
+    runs |= parity_runs
+    print(f"parity protocol done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
                                    for m in sys.modules):
@@ -3712,7 +4087,8 @@ def main() -> None:
         {p: {k: v for k, v in r.items() if k != "launches"}
          for p, r in runs.items()} | {"peel_ab_1080p": ab,
                                        "perf_half": perf_half,
-                                       "alternatives": alternatives}))
+                                       "alternatives": alternatives,
+                                       "parity": parity_step}))
     print(f"chip_smoke wall time {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

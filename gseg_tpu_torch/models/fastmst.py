@@ -81,6 +81,13 @@ def _round1_dense(image: torch.Tensor, cfg: SegmentationConfig):
     return gst, weights
 
 
+def capacities(v: int) -> dict:
+    """The capacities at V pixels: the handoff's pair pool (1.25 V) and
+    the compact root list (V/2)."""
+    return {"pair_cap": max(v + v // 4, _FLOOR),
+            "comp_cap": max(v // 2, _FLOOR)}
+
+
 def boundary_pairs(L, w4, dead_inf=False):
     """The live boundary edges of a label plane (finite w4, labels apart,
     both ends in the image), deduplicated per pair by
@@ -99,7 +106,7 @@ def boundary_pairs(L, w4, dead_inf=False):
     hi = torch.where(live, torch.maximum(la, lb), INT32_MAX)
     eid4 = torch.arange(4 * v, dtype=torch.int32, device=L.device)
     return turbo._chunked_pair_extract(lo, hi, w4, eid4,
-                                       max(v + v // 4, _FLOOR))
+                                       capacities(v)["pair_cap"])
 
 
 def _extract_compact(gst, weights, v: int):
@@ -109,15 +116,16 @@ def _extract_compact(gst, weights, v: int):
     w4 = torch.stack([weights[d] for d in range(4)], -1).reshape(-1)
     pm, plo, phi, pw, pe, pair_ovf = boundary_pairs(gst.L, w4)
     return turbo._pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v,
-                                 max(v // 2, _FLOOR), gst.S.reshape(-1),
-                                 gst.ID.reshape(-1), 0, gst.flags)
+                                 capacities(v)["comp_cap"],
+                                 gst.S.reshape(-1), gst.ID.reshape(-1), 0,
+                                 gst.flags)
 
 
 def _compact_phase(st, v, cfg, rounds, runout=False, capture=None):
     """Compact felz rounds with hook-sink labels; the run-out phase goes on
     to the min-size rounds and flags an exhausted round budget."""
-    return turbo._s2_phase(st, v, max(v // 2, _FLOOR), cfg.k, cfg.min_size,
-                           rounds, None,
+    return turbo._s2_phase(st, v, capacities(v)["comp_cap"], cfg.k,
+                           cfg.min_size, rounds, None,
                            with_minsize=runout and cfg.min_size > 1,
                            flag_exhaustion=runout, capture=capture,
                            canonical=False)

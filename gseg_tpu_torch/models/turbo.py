@@ -94,6 +94,7 @@ _S2_SMALL = True      # stage 2: run the early rounds on a sliced pool
 _S2_SMALL_DIV = 64    # ... of V/64 pairs a half (speed mode)
 _S2_SMALL_DIV_Q = 24  # ... of V/24 pairs a half (quality mode)
 _RUNS_DIV = 2         # the runs peel's pool holds V/_RUNS_DIV runs
+PAIR_CHUNK = 131072   # slots a chunk of _chunked_pair_extract sorts
 # The reference's exact alternative routes (its GSEG_* switches), each
 # giving the same labels and flags; the defaults are the reference's.
 _FINAL_GATHER = False   # final maps: one V-sized gather of the root table
@@ -580,10 +581,11 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
             idle_compmin=gst.it == 0, tau=tau(gst), closures=closures)))
     # quality mode: the bucket ramp merges slowly, so the root list gets
     # full pixel capacity (the hierarchy's: up to 2^20 pixels too).
+    caps = capacities(v, cfg.weight_buckets)
     if capture is not None:
         rcap = v if quality or v <= 1 << 20 else max(v // 2, _CAP_FLOOR)
     else:
-        rcap = v if quality else max(v // 4, _CAP_FLOOR)
+        rcap = caps["rcap"]
     rlist, rovf = _build_rlist(gst.L, rcap)
     gst = gst._replace(flags=_raise_flag(gst.flags, rovf, FLAG_COMP_OVERFLOW))
 
@@ -599,15 +601,35 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
                           closures=closures if quality else _LATE_CLOSURES)
         return captured(s.it, advance(s, s2)), rl2
 
-    caps = [max(v // d, _RLIST_FLOOR)
-            for d in (_RLIST_TIERS_Q if quality else (32,))]
-    gst = _rlist_loop(gcond, gbody, gst, rlist, vid, caps)
+    gst = _rlist_loop(gcond, gbody, gst, rlist, vid, caps["rlist_caps"])
     return gst, weights, thresholds
 
 
 # ---------------------------------------------------------------------------
 # Handoff and stage 2: compact rounds
 # ---------------------------------------------------------------------------
+
+
+def capacities(v: int, weight_buckets: int) -> dict:
+    """The fixed capacities of a turbo run at V pixels (the hierarchy's
+    root list aside): the root list after the peel rounds (rcap) and its
+    slices (rlist_caps), the handoff's candidate pool (cap_live) and pair
+    pool (pair_cap), and the compact root list (comp_cap)."""
+    quality = weight_buckets > 0
+    return {
+        "rcap": v if quality else max(v // 4, _CAP_FLOOR),
+        "rlist_caps": [max(v // d, _RLIST_FLOOR)
+                       for d in (_RLIST_TIERS_Q if quality else (32,))],
+        "cap_live": max(v // 2, 1 << 16),
+        "pair_cap": max(v // (6 if quality else 24), _CAP_FLOOR),
+        "comp_cap": max(v // (24 if quality else 96), _CAP_FLOOR),
+    }
+
+
+def pair_chunks(n: int, chunk: int = PAIR_CHUNK) -> int:
+    """The chunks `_chunked_pair_extract` sorts n slots in."""
+    return -(-n // chunk)
+
 
 
 def _select_compact(mask, keys, cap):
@@ -641,9 +663,8 @@ def _extract_stage(gst: GossipState, weights, cfg: SegmentationConfig):
     sort-dedup of its live head. Returns (st, rm, r0)."""
     h, w = gst.L.shape
     v = h * w
-    quality = cfg.weight_buckets > 0
-    pair_cap = max(v // (6 if quality else 24), _CAP_FLOOR)
-    cap_live = max(v // 2, 1 << 16)
+    caps = capacities(v, cfg.weight_buckets)
+    pair_cap, cap_live = caps["pair_cap"], caps["cap_live"]
     lo, hi, ew4, eid4, cnt, extract_ovf = kx.boundary_extract(
         gst.L, weights, cap_live)
 
@@ -663,10 +684,9 @@ def _extract_stage(gst: GossipState, weights, cfg: SegmentationConfig):
     head &= s_lo != INT32_MAX
     pm, (plo, phi, pw, pe), pair_ovf = _select_compact(
         head, [s_lo, s_hi, s_w, s_e], pair_cap)
-    comp_cap = max(v // (24 if quality else 96), _CAP_FLOOR)
     return _pools_to_state(pm, plo, phi, pw, pe, pair_ovf | extract_ovf, v,
-                           comp_cap, gst.S.reshape(-1), gst.ID.reshape(-1),
-                           gst.bucket, gst.flags)
+                           caps["comp_cap"], gst.S.reshape(-1),
+                           gst.ID.reshape(-1), gst.bucket, gst.flags)
 
 
 def _pool_roots(pm, plo, phi, pw, pe, v, comp_cap):
@@ -703,7 +723,7 @@ def _pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v, comp_cap, SZf, IDf,
     return st, rm, r0
 
 
-def _chunked_pair_extract(lo, hi, w4, eid4, pair_cap, chunk=131072):
+def _chunked_pair_extract(lo, hi, w4, eid4, pair_cap, chunk=PAIR_CHUNK):
     """Extract the live boundary edges and dedup them per pair, chunk by
     chunk (the fastmst and superpixel handoff): each chunk of `chunk`
     slots is sorted by (lo, hi, w, eid) on its own, its pair heads move to
@@ -715,7 +735,7 @@ def _chunked_pair_extract(lo, hi, w4, eid4, pair_cap, chunk=131072):
     invalid."""
     dev = lo.device
     n = lo.shape[0]
-    nch = -(-n // chunk)
+    nch = pair_chunks(n, chunk)
     pad = nch * chunk - n
     if pad:
         lo = torch.cat([lo, lo.new_full((pad,), INT32_MAX)])
@@ -922,8 +942,8 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
     rounds. Quality mode (thresholds: the bucket caps): two warm-up rounds,
     recompact, then the main phase."""
     quality = cfg.weight_buckets > 0
-    comp_cap = v if v <= 1 << 20 else max(v // (24 if quality else 96),
-                                          _CAP_FLOOR)
+    comp_cap = (v if v <= 1 << 20
+                else capacities(v, cfg.weight_buckets)["comp_cap"])
     rec1_cap = max(v // (8 if quality else 64), _CAP_FLOOR)
     s2_iters = 2 * cfg.max_iters + max(cfg.weight_buckets, 1)
 
@@ -1050,8 +1070,8 @@ def segment_turbo_hierarchy_impl(image: torch.Tensor, cfg: SegmentationConfig,
     g_count = min(gst.it, n_levels)
     st, rm, r0 = _extract_stage(gst, weights, cfg)
 
-    comp_cap = v if v <= 1 << 20 else max(v // (24 if quality else 96),
-                                          _CAP_FLOOR)
+    comp_cap = (v if v <= 1 << 20
+                else capacities(v, cfg.weight_buckets)["comp_cap"])
     fins, cur = [None] * n_levels, 0
 
     def on_felz(fin):

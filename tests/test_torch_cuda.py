@@ -958,3 +958,25 @@ def test_ladder_540p_turbo_row_on_card(dev):
     assert labels.is_cuda
     got = canonical_min_labels_np(labels.cpu().numpy())
     assert np.array_equal(got, load_oracle(oracle_path("blobs_540x960_wb0")))
+
+
+def test_parity_protocol_three_seeds_on_card(dev, capsys):
+    """`python -m gseg_tpu_torch.bench.parity --seeds 3 --skip-540p` on
+    cuda:0: every seed flags 0 and the host oracle's partition."""
+    from gseg_tpu_torch.bench import parity
+
+    parity.main(["--seeds", "3", "--skip-540p"])
+    out = capsys.readouterr().out.splitlines()
+    assert out == [f"synthetic{s:03d}: flags=0 equal=True" for s in range(3)
+                   ] + ["ALL PARITY CHECKS PASSED"]
+    row = parity.check(parity.cases(1, skip_540p=True)[0], dev)
+    assert row["equal"] and row["flags"] == 0 and row["components"] > 1
+
+
+def test_spatial_parity_540p_row_on_card(dev):
+    """One row of `bench.spatial_parity` on the card: 540p blobs on 4 ranks
+    sharing cuda:0, speed mode; equal to the dense path, flags 0."""
+    from gseg_tpu_torch.bench import spatial_parity
+
+    row = spatial_parity.run_row("blobs", 540, 960, [dev] * 4, 0, dev)
+    assert spatial_parity.row_ok(row), row

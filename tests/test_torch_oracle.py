@@ -17,9 +17,23 @@
   rungs load as canonical int32 labels of their rung's shape, with the
   sha256 of their label bytes that `tests/check_oracle_4k.py` found equal
   to the reference's NumPy Boruvka.
+- Every committed oracle (the 5K and 8K rungs and the textured ones too)
+  loads as canonical int32 labels of its shape with the component count
+  and label sha256 of `oracles.RECORDED`; `make_oracle`'s recipe (blobs
+  and textured content, the bench's k and min_size or an entry's own)
+  gives the reference's `segment_boruvka_np` + `canonical_min_labels_np`
+  on the reference's own images at small shapes (at 5K and 8K a remake
+  takes minutes, so none runs here).
+- At the 5K and 8K rungs, in speed and quality mode, the turbo and
+  fastmst capacities (`turbo.capacities`, `fastmst.capacities`: the root
+  list and its slices, the candidate and pair pools, the compact root
+  list) and the chunks of the chunked pair extraction (`turbo.pair_chunks`)
+  equal the reference's formulas at its default gates, computed from the
+  shapes alone.
 """
 
 import hashlib
+import inspect
 
 import numpy as np
 import pytest
@@ -28,13 +42,19 @@ from gseg_tpu.config import SegmentationConfig as JConfig
 from gseg_tpu.models import boruvka_cpu as jb
 from gseg_tpu.models import fastmst_np as jf
 from gseg_tpu.models import felzenszwalb_cpu as jk
+from gseg_tpu.models import turbo as jturbo
+from gseg_tpu.utils.labels import canonical_min_labels_np as jcanonical
 from gseg_tpu.utils.synthetic import blobs_image, textured_image
+from gseg_tpu_torch import oracles
 from gseg_tpu_torch.config import SegmentationConfig
 from gseg_tpu_torch.models import boruvka_cpu as tb
+from gseg_tpu_torch.models import fastmst as tfastmst
 from gseg_tpu_torch.models import fastmst_np as tf
 from gseg_tpu_torch.models import felzenszwalb_cpu as tk
+from gseg_tpu_torch.models import turbo as tturbo
 from gseg_tpu_torch.oracles import (
-    LEVEL_ORACLES, ORACLES, load_level_oracle, load_oracle, oracle_path)
+    LEVEL_ORACLES, ORACLES, RECORDED, load_level_oracle, load_oracle,
+    make_oracle, oracle_path)
 
 NP_CASES = [
     dict(img=("blobs", 24, 32, 0), k=100.0, min_size=8),
@@ -174,3 +194,97 @@ def test_load_oracle_reads_the_reference_npy_oracles():
     labels = load_oracle(path)
     assert labels.shape == (1080, 1920)
     assert np.array_equal(labels, np.load(path))
+
+
+def test_every_oracle_has_a_record():
+    assert set(RECORDED) == set(ORACLES)
+    assert set(oracles.RECIPES) <= set(ORACLES)
+
+
+@pytest.mark.parametrize("name", sorted(ORACLES))
+def test_committed_oracles_match_their_record(name):
+    h, w, _ = ORACLES[name]
+    labels = load_oracle(oracle_path(name))
+    assert labels.shape == (h, w) and labels.dtype == np.int32
+    components, digest = RECORDED[name]
+    assert hashlib.sha256(labels.tobytes()).hexdigest() == digest
+    flat = labels.ravel()
+    assert (flat <= np.arange(flat.size)).all()
+    assert (flat[flat] == flat).all()
+    assert np.unique(flat).size == components
+
+
+# small stand-ins for the committed recipes: (h, w, wb), recipe, reference
+# image
+SMALL_RECIPES = {
+    "textured_48x64_k10_wb16": ((48, 64, 16),
+                                dict(content="textured", k=10.0,
+                                     min_size=10),
+                                lambda: textured_image(48, 64, seed=0)),
+    "textured_60x80_wb0": ((60, 80, 0), dict(content="textured"),
+                           lambda: textured_image(60, 80, seed=0)),
+    "blobs_60x80_wb0": ((60, 80, 0), None,
+                        lambda: blobs_image(60, 80, num_blobs=8, noise=8.0,
+                                            seed=0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_RECIPES))
+def test_make_oracle_recipe_equals_the_reference(monkeypatch, name):
+    shape, recipe, image = SMALL_RECIPES[name]
+    monkeypatch.setitem(oracles.ORACLES, name, shape)
+    if recipe is not None:
+        monkeypatch.setitem(oracles.RECIPES, name, recipe)
+    spec = dict(content="blobs", k=300.0, min_size=100) | (recipe or {})
+    ref_cfg = JConfig(sigma=0.8, k=spec["k"], min_size=spec["min_size"],
+                      max_iters=32, weight_buckets=shape[2])
+    want = jcanonical(jb.segment_boruvka_np(image(), ref_cfg))
+    got = make_oracle(name)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def _reference_capacities(v, wb):
+    """The reference's capacity formulas at its default gates:
+    gseg_tpu/models/turbo.py:1118 and :1177 (the root list after the peel
+    rounds), :1141-1143 and :1199 (its slices), :1278-1279 (pair pool),
+    :1297-1300 (candidate pool), :1385-1387 and :1432-1436 (compact root
+    list, stage 2's past 2^20 pixels)."""
+    gd, gdq = jturbo._gate_div(), jturbo._gate_div_q()
+    floor, rfloor = jturbo._CAP_FLOOR, jturbo._RLIST_FLOOR
+    if wb > 0:
+        return {"rcap": v, "rlist_caps": [max(v // 16, rfloor)],
+                "cap_live": max(v // 2, 1 << 16),
+                "pair_cap": max(v // min(6, max(gdq // 5, 2)), floor),
+                "comp_cap": max(v // min(24, max(gdq * 3 // 4, 2)), floor)}
+    return {"rcap": max(v // 4, floor), "rlist_caps": [max(v // 32, rfloor)],
+            "cap_live": max(v if gd < 64 else v // 2, 1 << 16),
+            "pair_cap": max(v // min(24, max(gd // 4, 3)), floor),
+            "comp_cap": max(v // min(96, max(gd * 3 // 4, 2)), floor)}
+
+
+def _reference_chunks(n):
+    """gseg_tpu/models/turbo.py:1220-1222, at its default chunk."""
+    chunk = inspect.signature(jturbo._chunked_pair_extract).parameters[
+        "chunk"].default
+    nch = max(n // chunk, 1)
+    npad = nch * chunk if n % chunk == 0 else (n // chunk + 1) * chunk
+    return npad // chunk
+
+
+@pytest.mark.parametrize("wb", [0, 16])
+@pytest.mark.parametrize("shape", [(2880, 5120), (4320, 7680)])
+def test_capacities_at_5k_and_8k_are_the_reference_formulas(monkeypatch,
+                                                            shape, wb):
+    for var in ("GSEG_GATE_DIV", "GSEG_GATE_DIV_Q", "GSEG_RLIST_TIERS_Q"):
+        monkeypatch.delenv(var, raising=False)
+    v = shape[0] * shape[1]
+    assert tturbo.capacities(v, wb) == _reference_capacities(v, wb)
+    # fastmst: gseg_tpu/models/fastmst.py:123-124, its pairs extracted
+    # from the 4V edge slots in chunks
+    assert tfastmst.capacities(v) == {
+        "pair_cap": max(v + v // 4, 16384), "comp_cap": max(v // 2, 16384)}
+    assert tturbo.pair_chunks(4 * v) == _reference_chunks(4 * v)
+    assert tturbo.PAIR_CHUNK == inspect.signature(
+        jturbo._chunked_pair_extract).parameters["chunk"].default
+    # the 4V edge ids of the pair extraction stay int32
+    assert 4 * v < 2**31
