@@ -208,11 +208,29 @@ arguments). It
      "textured"`), each counted as one path and every row re-run, counted,
      against its committed oracle. Every row: flags 0, 0 pixels off (or
      equal), its recorded launches; no plain sweep may run.
+ 14. runs the reference's evidence tooling on the rows of its records the
+     card had not run, writing its records to `bench_out/torch/step14/`:
+     `python -m gseg_tpu_torch.bench.sweep` in this process at 1080p over
+     the speed configs and (quality mode) baseline and the quality
+     configs, and at 4K over baseline and nofastpad, each sweep counted
+     as one path and each row's warm-up launches held against
+     RECORDED_LAUNCHES: flags 0 and the oracle's partition, or (gate13,
+     gateq8, gateq8nc) FLAG_PAIR_OVERFLOW from the candidate pool alone,
+     shown by a probe of the handoff (candidates over the reference's
+     cap_live, pairs within the pair pool); 4K nofastpad bit-equal to the
+     padded route with no pad or unpad launch; `bench.evidence`'s quality
+     section (the synthetic set, 20 images, 7 algorithms, each counted
+     as one path), every ASA and UE equal to `bench_out/quality.jsonl`;
+     its perf section over superpixel at 540p, 720p and 1080p and
+     atomic_hostsync and turbo_wb16 at 540p, counted as one path, each
+     row flags 0 and its oracle's partition and re-run counted; then
+     `bench.summarize` over the step's records, printed.
 
 `python3 chip_smoke.py --cards`, on a machine with several cards, runs
 only the row-sharded paths with one rank on each card (PERF.md: each
 rank's peak memory). `python3 chip_smoke.py --alternatives` builds the
-kernels and runs step 12 alone, `python3 chip_smoke.py --parity` step 13.
+kernels and runs step 12 alone, `python3 chip_smoke.py --parity` step 13,
+`python3 chip_smoke.py --evidence` step 14.
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -244,8 +262,9 @@ import numpy as np
 import torch
 
 from gseg_tpu_torch.bench import __main__ as bench_main
-from gseg_tpu_torch.bench import (fig3, flagship, harness, parity,
-                                  profile_turbo, spatial_parity)
+from gseg_tpu_torch.bench import (evidence, fig3, flagship, harness, parity,
+                                  profile_turbo, spatial_parity, summarize,
+                                  sweep)
 from gseg_tpu_torch.config import SegmentationConfig
 from gseg_tpu_torch.metrics.compare import asa_ue_best_gt, asa_ue_torch
 from gseg_tpu_torch.models import atomic_boruvka, fastmst, superpixel, turbo
@@ -3660,8 +3679,8 @@ def _step13_launches(path, launches, unrecorded):
     `unrecorded`. A whole-module run must launch the kernels its rows
     recorded and no other, and where its calls are its rows' (STEP13_SUMS)
     the sum of their records."""
-    if path in STEP13_RUNS:
-        rows = STEP13_RUNS[path]
+    if path in MODULE_RUNS:
+        rows = MODULE_RUNS[path]
         if not all(r in RECORDED_LAUNCHES for r in rows):
             return
         if path in STEP13_SUMS:
@@ -3867,6 +3886,302 @@ def _parity_step(dev, card):
     return runs, step
 
 
+# ---------------------------------------------------------------------------
+# step 14: the reference's evidence campaign and knob sweep (bench.sweep,
+# bench.evidence, bench.summarize) on the rows the card had not run
+# ---------------------------------------------------------------------------
+
+STEP14_OUT = ROOT / "bench_out" / "torch" / "step14"
+SWEEP_REPS = 3        # _timed reps of a sweep row, one call each
+STEP14_REPS = 3       # ... of a new ladder row (the harness picks inner)
+# module run -> ((h, w), weight_buckets, configs)
+SWEEP_RUNS = {
+    "sweep_1080p_wb0": ((1080, 1920), 0, tuple(
+        c for c in sweep.CONFIGS if c not in sweep.QUALITY_CONFIGS)),
+    "sweep_1080p_wb16": ((1080, 1920), 16,
+                         ("baseline",) + sweep.QUALITY_CONFIGS),
+    "sweep_4k_wb0": ((2160, 3840), 0, ("baseline", "nofastpad")),
+}
+# (config, weight_buckets) whose checked call may raise FLAG_PAIR_OVERFLOW
+# at 1080p, and only through the candidate pool at the reference's
+# capacity (`turbo.capacities`: cap_live V at gate 13, V/2 in quality
+# mode): the reference's Pallas path recorded the same overflow
+# (bench_out/sweep.jsonl), its XLA path has no candidate pool.
+SWEEP_MAY_OVERFLOW = {("gate13", 0), ("gateq8", 16), ("gateq8nc", 16)}
+# the ladder rows of the reference's record the card had not run
+EVIDENCE_RUN = "evidence_perf_new_rows"
+NEW_LADDERS = [("superpixel", [0, 1, 2], {}, "blobs"),
+               ("atomic_hostsync", [0], {}, "blobs"),
+               ("turbo_wb16", [0], {"weight_buckets": 16}, "blobs")]
+QUALITY_SET_RECORD = ROOT / "bench_out/quality.jsonl"
+SYNTHETIC_PIXELS = 161 * 241  # an image of synthetic_quality_set
+
+
+def _sweep_path(config, h, w, wb):
+    return f"sweep_{config}_{h}x{w}_wb{wb}"
+
+
+def _synthetic_path(name):
+    return f"synthetic_quality_{name}"
+
+
+# step 14 (run 14a). A sweep row's launches are those of its checked
+# warm-up call: the 1080p defaults are 1080p_subsum's and 1080p_wb16's,
+# 4K's 4k_subsum's; an early gate hands off after fewer rounds (gate 13
+# and gate_q 8 up to their candidate pool's overflow); the pointer flood
+# drops the root-list rounds' label floods, the gather the final map's
+# value floods; nofastpad at 4K runs the same passes unpadded. No closure
+# launches at the default warm passes, not even with `_LATE_CLOSURES`.
+# The synthetic set's turbo rows are the parity sweep's seeds (step 13)
+# summed; none took the atomic fallback.
+_SWEEP_1080P = _turbo_launches(16, 8, 23, 17, 8)
+_SWEEP_WB16 = _turbo_launches(114, 0, 179, 46, 0)
+_SWEEP_4K = _turbo_launches(18, 8, 21, 17, 8, pads=10)
+RECORDED_LAUNCHES |= {p: ("14a", launches) for p, launches in {
+    "sweep_baseline_1080x1920_wb0": _SWEEP_1080P,
+    "sweep_nosmall_1080x1920_wb0": _SWEEP_1080P,
+    "sweep_gate13_1080x1920_wb0": _turbo_launches(3, 8, 0, 4, 8),
+    "sweep_gate32_1080x1920_wb0": _turbo_launches(7, 8, 8, 9, 8),
+    "sweep_closures_1080x1920_wb0": _SWEEP_1080P,
+    "sweep_peelcount_1080x1920_wb0": _turbo_launches(16, 0, 31, 17, 0),
+    "sweep_nofastpad_1080x1920_wb0": _SWEEP_1080P,
+    "sweep_floodptr_1080x1920_wb0": _turbo_launches(16, 8, 0, 17, 8),
+    "sweep_finalgather_1080x1920_wb0": _turbo_launches(16, 8, 23, 0, 8),
+    "sweep_floodptr_fg_1080x1920_wb0": _turbo_launches(16, 8, 0, 0, 8),
+    "sweep_baseline_1080x1920_wb16": _SWEEP_WB16,
+    "sweep_gateq16_1080x1920_wb16": _turbo_launches(77, 0, 125, 37, 0),
+    "sweep_gateq8_1080x1920_wb16": _turbo_launches(26, 0, 49, 16, 0),
+    "sweep_qnoclosures_1080x1920_wb16": _SWEEP_WB16,
+    "sweep_gateq8nc_1080x1920_wb16": _turbo_launches(26, 0, 49, 16, 0),
+    "sweep_baseline_2160x3840_wb0": _SWEEP_4K,
+    "sweep_nofastpad_2160x3840_wb0": _SWEEP_4K | dict(pad_fields=0,
+                                                      unpad_fields=0),
+    "synthetic_quality_turbo": _turbo_launches(378, 142, 489, 226, 142,
+                                               extract=20),
+    "synthetic_quality_turbo_wb16": _turbo_launches(2876, 0, 3044, 414, 0,
+                                                    extract=20),
+    "synthetic_quality_fastmst": dict(gossip_value=40),
+    "synthetic_quality_atomic": {},
+    "synthetic_quality_superpixel": dict(gossip_value=42,
+                                         ordered_scatter_add=80),
+    "synthetic_quality_kruskal_native": {},
+    "synthetic_quality_boruvka_cpu": {},
+    "ladder_superpixel_540x960": dict(gossip_value=2, ordered_scatter_add=4),
+    "ladder_superpixel_720x1280": dict(gossip_value=3,
+                                       ordered_scatter_add=4),
+    "ladder_superpixel_1080x1920": dict(gossip_value=3,
+                                        ordered_scatter_add=4),
+    "ladder_atomic_hostsync_540x960": {},
+    "ladder_turbo_wb16_540x960": _turbo_launches(96, 0, 183, 63, 0,
+                                                 closure_labelnd=8),
+}.items()}
+
+
+STEP14_RUNS = {
+    run: [_sweep_path(c, h, w, wb) for c in configs]
+    for run, ((h, w), wb, configs) in SWEEP_RUNS.items()} | {
+    EVIDENCE_RUN: [
+        _ladder_path(name, *harness.RESOLUTION_LADDER[i], content)
+        for name, rungs, _, content in NEW_LADDERS for i in rungs]}
+MODULE_RUNS = STEP13_RUNS | STEP14_RUNS
+
+
+def _handoff_probe(image, cfg):
+    """One flagged turbo call with the handoff recorded: the candidate
+    pool's count, capacity and overflow (`boundary_extract`) and the pair
+    pool's live pairs, capacity and overflow (the first compaction after
+    the extraction). Returns (flags, record)."""
+    rec = {}
+    extract, select = kx.boundary_extract, turbo._select_compact
+
+    def extract_rec(L, weights, cap):
+        out = extract(L, weights, cap)
+        rec.update(candidates=int(out[4]), cap_live=cap,
+                   candidate_overflow=bool(out[5]))
+        return out
+
+    def select_rec(mask, keys, cap):
+        out = select(mask, keys, cap)
+        if "pairs" not in rec:
+            rec.update(pairs=int(mask.sum()), pair_cap=cap,
+                       pair_overflow=bool(out[2]))
+        return out
+
+    kx.boundary_extract, turbo._select_compact = extract_rec, select_rec
+    try:
+        flags = turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)[1]
+    finally:
+        kx.boundary_extract, turbo._select_compact = extract, select
+    return flags, rec
+
+
+def _sweep_rows(run, dev, card, unrecorded):
+    """`bench.sweep` over one SWEEP_RUNS entry as one counted path, then
+    each row: flags 0 and the oracle's partition (or, for
+    SWEEP_MAY_OVERFLOW, FLAG_PAIR_OVERFLOW from the candidate pool alone),
+    its warm-up call's launches against the record."""
+    (h, w), wb, configs = SWEEP_RUNS[run]
+    argv = ["--shapes", f"{h}x{w}", "--configs", ",".join(configs),
+            "--reps", str(SWEEP_REPS), "--out", str(STEP14_OUT / "sweep.jsonl"),
+            "--device", str(dev)] + (["--wb16"] if wb else [])
+    rows, rec = _module_run(run, lambda: sweep.main(argv), card)
+    by = {}
+    for row in rows:
+        path = _sweep_path(row["config"], h, w, wb)
+        _step13_launches(path, row["launches"], unrecorded)
+        if "error" in row:
+            what = f"flags {row.get('flags')}, {row['error']}"
+            if (row["config"], wb) not in SWEEP_MAY_OVERFLOW:
+                raise AssertionError(f"{path}: {row['error']}")
+            image = torch.from_numpy(sweep.image(h, w)).to(dev)
+            with sweep.Knobs(sweep.CONFIGS[row["config"]]):
+                flags, probe = _handoff_probe(image, sweep.config(wb))
+                cap_live = turbo.capacities(h * w, wb)["cap_live"]
+            del image
+            row["handoff"] = probe
+            what += f"; handoff {probe}"
+            if (flags != turbo.FLAG_PAIR_OVERFLOW
+                    or row["flags"] != turbo.FLAG_PAIR_OVERFLOW
+                    or not probe["candidate_overflow"]
+                    or probe["pair_overflow"]
+                    or probe["cap_live"] != cap_live):
+                raise AssertionError(f"{path}: not the candidate pool's "
+                                     f"overflow alone: {what}")
+        else:
+            if row["flags"] or not row.get("oracle_equal"):
+                raise AssertionError(f"{path}: {row}")
+            what = (f"flags 0, the oracle's partition; warm-up "
+                    f"{row['warm_s']:.3f} s; _timed median "
+                    f"{row['median_ms']:.3f} ms (mean {row['mean_ms']:.3f}) "
+                    f"of {row['reps']} reps = {row['mpix_per_s']:.2f} MPix/s")
+        print(f"main path {path}: {what}; launches {row['launches']}, peak "
+              f"memory {row.get('peak_mib', 0.0):.1f} MiB ({card})",
+              flush=True)
+        by[path] = row
+    if run == "sweep_4k_wb0":
+        base, nopad = (by[_sweep_path(c, h, w, wb)]
+                       for c in ("baseline", "nofastpad"))
+        if (base["labels_sha256"] != nopad["labels_sha256"]
+                or any(nopad["launches"][n] for n in PADS)
+                or not all(base["launches"][n] for n in PADS)):
+            raise AssertionError(f"{run}: nofastpad {nopad}, baseline {base}")
+        print(f"check {run}: nofastpad labels bit-equal to the padded "
+              f"route's (sha256 {base['labels_sha256'][:16]}...), pad/unpad "
+              f"launches {[nopad['launches'][n] for n in PADS]} against "
+              f"{[base['launches'][n] for n in PADS]}; B/A of the medians "
+              f"{nopad['median_ms'] / base['median_ms']:.4f} ({card})",
+              flush=True)
+    return {run: rec | {"rows": by}}
+
+
+def _synthetic_quality(dev, card, unrecorded):
+    """`bench.evidence`'s quality section (the synthetic set, 20 images),
+    each algorithm counted as one path: every ASA and UE equal to
+    `bench_out/quality.jsonl`, the overflow policy's atomic route
+    counted."""
+    with open(QUALITY_SET_RECORD) as f:
+        record = {(r["image"], r["algorithm"]): r
+                  for r in map(json.loads, f)}
+    out, rows, bad = {}, [], []
+    for name, extra in evidence.QUALITY_ALGOS:
+        path = _synthetic_path(name)
+        t0 = time.perf_counter()
+        got, launches, _, _, reads, peak = _counted(
+            path, lambda: evidence.section_quality(dev, 20, [(name, extra)]))
+        seconds = time.perf_counter() - t0
+        rows += got
+        for r in got:
+            ref = record[r["image"], name]
+            if "error" in r or (r["asa"], r["ue"]) != (ref["asa"],
+                                                       ref["ue"]):
+                bad.append((name, r["image"]))
+                print(f"  {path} {r['image']}: {r}, record {ref}",
+                      flush=True)
+        fell = sum(r.get("fallback", False) for r in got)
+        ms = statistics.median(r["ms"] for r in got if "ms" in r)
+        print(f"main path {path}: {len(got)} rows, {fell} by the overflow "
+              f"policy's atomic route; launches {launches}, host reads "
+              f"{reads}, peak memory {peak:.1f} MiB, {seconds:.1f} s, median "
+              f"{ms:.3f} ms an image = {SYNTHETIC_PIXELS / 1e3 / ms:.2f} MPix/s "
+              f"({card})", flush=True)
+        out[path] = {"launches": launches, "host_reads": reads,
+                     "peak_mib": peak, "seconds": seconds, "fallback": fell,
+                     "median_ms_per_image": ms}
+        _step13_launches(path, launches, unrecorded)
+    with open(STEP14_OUT / "quality.jsonl", "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    print(f"check synthetic_quality: {len(rows) - len(bad)} of {len(rows)} "
+          f"rows equal to {QUALITY_SET_RECORD.relative_to(ROOT)}", flush=True)
+    if bad or len(rows) != len(record):
+        raise AssertionError(f"synthetic_quality: rows {bad} differ")
+    return out
+
+
+def _new_ladder_rows(dev, card, unrecorded):
+    """`bench.evidence`'s perf section over NEW_LADDERS as one counted path
+    (every row flags 0 and its oracle's partition), then each row once
+    more, counted."""
+    rows, rec = _module_run(EVIDENCE_RUN, lambda: evidence.section_perf(
+        str(STEP14_OUT), dev, STEP14_REPS, NEW_LADDERS), card)
+    runs = {EVIDENCE_RUN: rec}
+    for row in rows:
+        name, h, w = row["algorithm"], row["height"], row["width"]
+        path = _ladder_path(name, h, w, "blobs")
+        if "error" in row or row["flags"] or row.get("oracle_equal") is not True:
+            raise AssertionError(f"{path}: {row}")
+        extra = dict(weight_buckets=16) if name == "turbo_wb16" else {}
+        cfg = SegmentationConfig(k=300.0, min_size=100, **extra)
+        image = torch.from_numpy(harness.ladder_image(h, w)).to(dev)
+        labels, rec = _step13_row(path, lambda: harness.segment_fn(
+            evidence.base_algo(name), cfg, device=dev)(image), card,
+            unrecorded, h * w, reps=0)
+        equal = evidence.oracle_equal(name, "blobs", h, w,
+                                      labels.cpu().numpy())
+        t = row["total"]
+        rec |= {"flags": row["flags"], "oracle_equal": equal,
+                "median_ms": t["median_s"] * 1e3, "reps": t["reps"],
+                "mean_ms": t["mean_s"] * 1e3, "inner": t["inner"],
+                "mpix_per_s": h * w / 1e6 / t["median_s"]}
+        _row_line(path, rec, card, f"flags {row['flags']}, the oracle's "
+                  f"partition {equal}")
+        if not equal:
+            raise AssertionError(f"{path}: partition differs from the "
+                                 "oracle")
+        runs[path] = rec
+        del image, labels
+    return runs
+
+
+def _evidence_step(dev, card):
+    """Step 14. Returns (path records, step record)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    STEP14_OUT.mkdir(parents=True, exist_ok=True)
+    for f in STEP14_OUT.glob("*.jsonl"):
+        f.unlink()
+    unrecorded, step, runs = {}, {}, {}
+    for run in SWEEP_RUNS:
+        runs |= _sweep_rows(run, dev, card, unrecorded)
+        step[f"{run}_s"] = time.perf_counter() - t0 - sum(step.values())
+    runs |= _synthetic_quality(dev, card, unrecorded)
+    step["synthetic_quality_s"] = (time.perf_counter() - t0
+                                   - sum(step.values()))
+    runs |= _new_ladder_rows(dev, card, unrecorded)
+    step["new_ladder_rows_s"] = (time.perf_counter() - t0
+                                 - sum(step.values()))
+    for path in STEP14_RUNS:
+        _step13_launches(path, runs[path]["launches"], unrecorded)
+    print(summarize.summary(str(STEP14_OUT)), flush=True)
+    step["seconds"] = time.perf_counter() - t0
+    print(f"step 14 took {step['seconds']:.1f} s ({card})", flush=True)
+    if unrecorded:
+        print("unrecorded launches: " + json.dumps(unrecorded), flush=True)
+        raise AssertionError(f"launches of paths with no record: "
+                             f"{sorted(unrecorded)}")
+    return runs, step
+
+
 # per-kernel keys of the kernels line beyond the contract's, where measured
 _EXTRA_KEYS = ("library_device_ms", "device_ms_rows", "device_ms_cols",
                "device_ms_fill", "device_ms_bulk", "device_ms_regs", "ms_regs",
@@ -3901,6 +4216,15 @@ def main() -> None:
     if sys.argv[1:] == ["--parity"]:
         runs, step = _parity_step(dev, card)
         print("parity: " + json.dumps(
+            {p: {k: v for k, v in r.items() if k != "launches"}
+             for p, r in runs.items()} | {"step": step}, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if sys.argv[1:] == ["--evidence"]:
+        runs, step = _evidence_step(dev, card)
+        print("evidence: " + json.dumps(
             {p: {k: v for k, v in r.items() if k != "launches"}
              for p, r in runs.items()} | {"step": step}, default=str))
         print(json.dumps({"ok": True, "device": {
@@ -4034,6 +4358,10 @@ def main() -> None:
     runs |= parity_runs
     print(f"parity protocol done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    evidence_runs, evidence_step = _evidence_step(dev, card)
+    runs |= evidence_runs
+    print(f"evidence campaign done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
                                    for m in sys.modules):
@@ -4088,7 +4416,9 @@ def main() -> None:
          for p, r in runs.items()} | {"peel_ab_1080p": ab,
                                        "perf_half": perf_half,
                                        "alternatives": alternatives,
-                                       "parity": parity_step}))
+                                       "parity": parity_step,
+                                       "evidence": evidence_step},
+        default=str))
     print(f"chip_smoke wall time {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

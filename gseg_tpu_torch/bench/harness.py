@@ -86,6 +86,28 @@ def _timed(fn: Callable, reps: int, inner: int | None = None
     }
 
 
+def card(device) -> str:
+    """The name and power limit of `device`'s card as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them (a card
+    set below its maximum power runs slower under load: every time a
+    record keeps stands beside this), or "cpu"."""
+    import subprocess
+
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return f"{torch.cuda.get_device_name(index)}, power limit not read"
+
+
 def segment_fn(algorithm: str, cfg: SegmentationConfig, checked: bool = True,
                device=None):
     """End-to-end segmentation callable for `algorithm` on `device`: the

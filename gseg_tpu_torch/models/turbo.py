@@ -57,8 +57,8 @@ mode (`weight_buckets > 0`, scan closures on):
 
 Every `lax.while_loop` of the reference is a host loop that reads a device
 value each iteration, and every `lax.cond` a host `if`. Capacities are the
-reference's at its default handoff gate (V/128); overflows raise FLAG_* bits
-and are never silent.
+reference's, following its handoff gates (`_GATE_DIV`, V/128 by default;
+`_GATE_DIV_Q`, V/32); overflows raise FLAG_* bits and are never silent.
 """
 
 from __future__ import annotations
@@ -614,15 +614,44 @@ def capacities(v: int, weight_buckets: int) -> dict:
     """The fixed capacities of a turbo run at V pixels (the hierarchy's
     root list aside): the root list after the peel rounds (rcap) and its
     slices (rlist_caps), the handoff's candidate pool (cap_live) and pair
-    pool (pair_cap), and the compact root list (comp_cap)."""
+    pool (pair_cap), and the compact root list (comp_cap). The last three
+    follow the handoff gate (`_GATE_DIV`, `_GATE_DIV_Q`, read at call
+    time), as the reference's do: an earlier gate hands off more
+    components over denser boundaries. At the default gates they are
+    V/2, V/24 (quality V/6) and V/96 (quality V/24)."""
     quality = weight_buckets > 0
+    gd, gdq = _GATE_DIV, _GATE_DIV_Q
     return {
         "rcap": v if quality else max(v // 4, _CAP_FLOOR),
         "rlist_caps": [max(v // d, _RLIST_FLOOR)
                        for d in (_RLIST_TIERS_Q if quality else (32,))],
-        "cap_live": max(v // 2, 1 << 16),
-        "pair_cap": max(v // (6 if quality else 24), _CAP_FLOOR),
-        "comp_cap": max(v // (24 if quality else 96), _CAP_FLOOR),
+        # an early speed gate's run candidates can pass V/2
+        "cap_live": max(v if not quality and gd < 64 else v // 2, 1 << 16),
+        "pair_cap": max(v // min(6, max(gdq // 5, 2)) if quality
+                        else v // min(24, max(gd // 4, 3)), _CAP_FLOOR),
+        "comp_cap": max(v // min(24, max(gdq * 3 // 4, 2)) if quality
+                        else v // min(96, max(gd * 3 // 4, 2)), _CAP_FLOOR),
+    }
+
+
+def _s2_capacities(v: int, quality: bool) -> dict:
+    """Stage 2's gate-following sizes (the reference's `_s2_stage`): the
+    first recompact's cap (rec1_cap), speed mode's second (rec2_cap) and
+    main-phase root list (comp_cap2), and the divisor of the live-count
+    slice (small_div). At the default gates: V/64 (quality V/8), V/128,
+    V/1024 and `_S2_SMALL_DIV(_Q)`."""
+    gd, gdq = _GATE_DIV, _GATE_DIV_Q
+    div = _S2_SMALL_DIV_Q if quality else _S2_SMALL_DIV
+    if not quality and gd < 64:
+        div = min(div, max(gd // 2, 4))   # earlier gates: denser live sets
+    if quality and gdq < 24:
+        div = min(div, max(gdq // 2, 2))
+    return {
+        "rec1_cap": max(v // min(8, max(gdq // 4, 2)) if quality
+                        else v // min(64, max(gd // 2, 4)), _CAP_FLOOR),
+        "rec2_cap": max(v // min(128, gd), _CAP_FLOOR // 2),
+        "comp_cap2": max(v // min(1024, gd * 8), 4096),
+        "small_div": div,
     }
 
 
@@ -944,7 +973,8 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
     quality = cfg.weight_buckets > 0
     comp_cap = (v if v <= 1 << 20
                 else capacities(v, cfg.weight_buckets)["comp_cap"])
-    rec1_cap = max(v // (8 if quality else 64), _CAP_FLOOR)
+    caps = _s2_capacities(v, quality)
+    rec1_cap = caps["rec1_cap"]
     s2_iters = 2 * cfg.max_iters + max(cfg.weight_buckets, 1)
 
     def early(s: CompactState) -> CompactState:
@@ -959,7 +989,7 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
         s = _s2_phase(s, v, comp_cap, cfg.k, cfg.min_size, 2, thresholds,
                       with_minsize=False, flag_exhaustion=False)
         s = _prune_dead(s, v, cfg.k, cfg.min_size)
-        s, rec2_ovf = _recompact_edges(s, max(v // 128, _CAP_FLOOR // 2))
+        s, rec2_ovf = _recompact_edges(s, caps["rec2_cap"])
         return s._replace(flags=_raise_flag(s.flags, rec2_ovf,
                                             FLAG_RECOMPACT_OVERFLOW))
 
@@ -967,14 +997,13 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
     # slice, run the same early rounds on the sliced pool (dead slots past
     # the slice carry no information).
     pair_cap = st.esrc.numel() // 2
-    cs = max(v // (_S2_SMALL_DIV_Q if quality else _S2_SMALL_DIV),
-             -(-rec1_cap // 2))
+    cs = max(v // caps["small_div"], -(-rec1_cap // 2))
     if (_S2_SMALL and cs < pair_cap
             and int(torch.isfinite(st.ew[:pair_cap]).sum()) <= cs):
         st = early(_slice_pool(st, pair_cap, cs))
     else:
         st = early(st)
-    return _s2_phase(st, v, comp_cap if quality else max(v // 1024, 4096),
+    return _s2_phase(st, v, comp_cap if quality else caps["comp_cap2"],
                      cfg.k, cfg.min_size, s2_iters, thresholds,
                      with_minsize=cfg.min_size > 1)
 
@@ -1070,8 +1099,9 @@ def segment_turbo_hierarchy_impl(image: torch.Tensor, cfg: SegmentationConfig,
     g_count = min(gst.it, n_levels)
     st, rm, r0 = _extract_stage(gst, weights, cfg)
 
+    # the reference's hierarchy keeps the default gates' root list
     comp_cap = (v if v <= 1 << 20
-                else capacities(v, cfg.weight_buckets)["comp_cap"])
+                else max(v // (24 if quality else 96), _CAP_FLOOR))
     fins, cur = [None] * n_levels, 0
 
     def on_felz(fin):

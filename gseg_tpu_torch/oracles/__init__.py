@@ -45,6 +45,8 @@ ORACLES = {
     "blobs_1440x2560_wb0": (1440, 2560, 0),
     "blobs_2880x5120_wb0": (2880, 5120, 0),
     "blobs_4320x7680_wb0": (4320, 7680, 0),
+    # the reference record's quality-mode rung at 540p (bench_out/perf.jsonl)
+    "blobs_540x960_wb16": (540, 960, 16),
     # the textured rows of the reference's record (bench_out/perf.jsonl)
     "textured_540x960_wb0": (540, 960, 0),
     "textured_1080x1920_wb0": (1080, 1920, 0),
@@ -76,6 +78,8 @@ RECORDED = {
                                 "a3ce899bb931fe89c1c00b1a208adc91"),
     "blobs_4320x7680_wb0": (72, "82e21017af455f04562b598b90941e41"
                                 "51515e8b558002c6aa9a25dc244cb4a7"),
+    "blobs_540x960_wb16": (5, "c67bd73474848b8553edb787ce795cf0"
+                              "8b5a538857159b397a200fa614b62c2a"),
     "textured_540x960_wb0": (1, "11283ef755895422e6f28b93f3d78cad"
                                 "7539891cf2893c9fdccefb923c5bf70b"),
     "textured_1080x1920_wb0": (1, "788ae0147bdf979a6575938ca2d7d440"
@@ -101,6 +105,17 @@ LEVEL_ORACLES = {
         "image": (1080, 1920, 31),
         "config": dict(sigma=0.8, k=300.0, min_size=100, max_iters=32),
         "oracle": "bench_out/oracle_bench_1080x1920_wb0.npy",
+    },
+    # the superpixel ladder's lower rungs (their final map is level 4)
+    "levels_dpp_blobs_540x960": {
+        "image": (540, 960, 8),
+        "config": dict(sigma=0.8, k=300.0, min_size=100, max_iters=32),
+        "oracle": "gseg_tpu_torch/oracles/blobs_540x960_wb0.npz",
+    },
+    "levels_dpp_blobs_720x1280": {
+        "image": (720, 1280, 14),
+        "config": dict(sigma=0.8, k=300.0, min_size=100, max_iters=32),
+        "oracle": "gseg_tpu_torch/oracles/blobs_720x1280_wb0.npz",
     },
 }
 

@@ -172,7 +172,7 @@ def _extract_spatial(comm, gst, weights, vidg, v, cfg):
     live4 = torch.isfinite(ew4) & (la != lb) & (lb >= 0)
     lo = torch.where(live4, torch.minimum(la, lb), INT32_MAX)
     hi = torch.where(live4, torch.maximum(la, lb), INT32_MAX)
-    # the dense pool divisors at the default gates, halved per tile for
+    # the dense pool divisors (following the gates), halved per tile for
     # cross-tile duplicate headroom.
     pair_div = (min(6, max(turbo._GATE_DIV_Q // 5, 2)) if quality
                 else min(24, max(turbo._GATE_DIV // 4, 3)))
@@ -198,7 +198,9 @@ def _extract_spatial(comm, gst, weights, vidg, v, cfg):
     IDf = rank.all_gather_rows(gst.ID).reshape(-1)
     Lg = rank.all_gather_rows(gst.L)
     base_flags = turbo._raise_flag(gst.flags, ovf_l, turbo.FLAG_PAIR_OVERFLOW)
-    comp_cap = max(v // (24 if quality else 96), turbo._CAP_FLOOR)
+    # the dense handoff's gate-following root list (the reference builds
+    # this state with the dense `_pools_to_state`)
+    comp_cap = turbo.capacities(v, cfg.weight_buckets)["comp_cap"]
     st, rm, r0 = turbo._pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v,
                                        comp_cap, SZf, IDf, gst.bucket,
                                        base_flags)

@@ -42,6 +42,15 @@ root ids, int32, C order) to
 `gseg_tpu_torch/oracles/levels_dpp_blobs_1080x1920.json`. It reports,
 without failing on it, how the planes of the reference's NumPy spec
 `superpixel_hierarchy_np` (float64 colour sums) differ from the model's.
+
+With `--shape HxW` the --dpp mode runs the ladder's image at that rung
+(`blobs_image(h, w, max(8, h * w // 65536), 8.0, 0)`), holds the fastmst
+final partition against the rung's committed oracle and writes
+`gseg_tpu_torch/oracles/levels_dpp_blobs_<h>x<w>.json`; 540x960 (about
+1 minute) and 720x1280 (about 2) have one each, the superpixel ladder's
+oracle at those rungs (its final map is level 4):
+
+    JAX_PLATFORMS=cpu python tests/make_level_oracles.py --dpp --shape 540x960
 """
 
 import hashlib
@@ -103,9 +112,26 @@ def _write(name, record):
     print(f"{path.relative_to(ROOT)}: file sha256 {digest}", flush=True)
 
 
+def _shape_arg():
+    """The --shape HxW argument's level oracle name (default 1080p's)."""
+    args = sys.argv[1:]
+    if "--shape" not in args:
+        return DPP
+    return f"levels_dpp_blobs_{args[args.index('--shape') + 1]}"
+
+
+def _load_labels(path):
+    data = np.load(path)
+    if isinstance(data, np.ndarray):
+        return data
+    with data:
+        return data["labels"]
+
+
 def dpp_main() -> int:
     """The --dpp mode (module note)."""
-    spec = LEVEL_ORACLES[DPP]
+    name = _shape_arg()
+    spec = LEVEL_ORACLES[name]
     h, w, blobs = spec["image"]
     cfg = SegmentationConfig(**spec["config"])
     img_np = blobs_image(h, w, blobs, 8.0, 0)
@@ -121,7 +147,7 @@ def dpp_main() -> int:
     s_levels = np.asarray(s_levels)
     print(f"superpixel hierarchy {time.perf_counter() - t0:.1f} s (flags "
           f"{int(s_flags)}), {s_levels.shape[0]} planes", flush=True)
-    oracle = np.load(ROOT / spec["oracle"])
+    oracle = _load_labels(ROOT / spec["oracle"])
     nd = int((canonical_min_labels_np(f_labels) != oracle).sum())
     print(f"fastmst final labels: {nd} pixels off the oracle", flush=True)
     ok = int(f_flags) == 0 and int(s_flags) == 0 and nd == 0
@@ -131,7 +157,7 @@ def dpp_main() -> int:
           f"superpixel {[e['components'] for e in sp]}", flush=True)
     if not ok:
         return 1
-    _write(DPP, {
+    _write(name, {
         "image": f"blobs_image({h}, {w}, {blobs}, 8.0, 0)",
         "config": spec["config"],
         "canonical": "canonical_min_labels_np, int32, C order",

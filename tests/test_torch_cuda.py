@@ -980,3 +980,42 @@ def test_spatial_parity_540p_row_on_card(dev):
 
     row = spatial_parity.run_row("blobs", 540, 960, [dev] * 4, 0, dev)
     assert spatial_parity.row_ok(row), row
+
+
+def test_sweep_rows_on_card(dev, tmp_path):
+    """`python -m gseg_tpu_torch.bench.sweep` at 540p on cuda:0 (no
+    --device): each row flags 0, the oracle's partition, the card's name
+    and a median; the same labels under every config."""
+    from gseg_tpu_torch.bench import sweep
+
+    rows = sweep.main(["--shapes", "540x960", "--configs",
+                       "baseline,nofastpad,finalgather", "--reps", "1",
+                       "--out", str(tmp_path / "sweep.jsonl")])
+    for row in rows:
+        assert "error" not in row, row
+        assert row["flags"] == 0 and row["oracle_equal"] is True
+        assert row["card"].startswith(torch.cuda.get_device_name(0))
+        assert row["median_ms"] > 0 and row["launches"]["gossip_compmin"]
+    assert len({r["labels_sha256"] for r in rows}) == 1
+
+
+def test_evidence_quality_rows_on_card(dev, tmp_path):
+    """`bench.evidence --sections quality` on cuda:0, two images: every
+    ASA and UE equal to bench_out/quality.jsonl."""
+    import json
+    import pathlib
+
+    from gseg_tpu_torch.bench import evidence
+
+    assert evidence.main(["--sections", "quality", "--quality-n", "2",
+                          "--out", str(tmp_path)]) == 0
+    root = pathlib.Path(__file__).resolve().parents[1]
+    record = {(r["image"], r["algorithm"]): r for r in map(
+        json.loads, (root / "bench_out/quality.jsonl").read_text()
+        .splitlines())}
+    rows = [json.loads(line) for line in
+            (tmp_path / "quality.jsonl").read_text().splitlines()]
+    assert len(rows) == 2 * len(evidence.QUALITY_ALGOS)
+    for r in rows:
+        ref = record[r["image"], r["algorithm"]]
+        assert (r["asa"], r["ue"]) == (ref["asa"], ref["ue"]), r
