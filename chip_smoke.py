@@ -255,6 +255,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path as FsPath
 from typing import NamedTuple
 
@@ -717,7 +718,38 @@ def _reset_counts():
         _wrapper(name).launches = 0
     for name in CLOSURES:
         _wrapper(name).axis_launches[:] = [0, 0]
-    kg.HYBRID_LOG.clear()
+
+
+@contextlib.contextmanager
+def _traced():
+    """The program's tracing (`utils.timing`) on for the block, what it
+    held before dropped; yields a holder whose `rec` is what the block
+    recorded, once the block has ended."""
+    holder = types.SimpleNamespace(rec=None)
+    timing.take()
+    timing.enable()
+    try:
+        yield holder
+    finally:
+        timing.disable()
+        holder.rec = timing.take()
+
+
+def _hybrid(rec):
+    """(variant, warm step passes, closure pairs) of each fixpoint of a
+    record that took the hybrid route: its gseg.fixpoint span's passes
+    less the two of each pair."""
+    return [(a["variant"], a["passes"] - 2 * a["pairs"], a["pairs"])
+            for a in (sp.attrs for sp in rec.spans
+                      if sp.name == "gseg.fixpoint") if a["closures"]]
+
+
+def _tiles(rec):
+    """Tiles the step kernel was launched over in a record, per variant:
+    [every pass, seeded first passes]."""
+    c = rec.counters
+    return {v: [c.get(f"tiles.{v}", 0), c.get(f"tiles_seeded.{v}", 0)]
+            for v in kg._VARIANTS}
 
 
 def _event_ms(fn):
@@ -1133,9 +1165,10 @@ def _serpentine_check(dev, card):
     for name, args in cases.items():
         closure = next(c for c, f in CLOSURE_OF.items() if f == name)
         before = list(_wrapper(closure).axis_launches)
-        kg.HYBRID_LOG.clear()
         t0 = time.perf_counter()
-        errs[name] = _compare(name, (*args, 4 * (h + w)), {"closures": True})
+        with _traced() as traced:
+            errs[name] = _compare(name, (*args, 4 * (h + w)),
+                                  {"closures": True})
         after = _wrapper(closure).axis_launches
         if not (after[0] > before[0] and after[1] > before[1]):
             raise AssertionError(f"serpentine {name}: closure launches "
@@ -1143,7 +1176,7 @@ def _serpentine_check(dev, card):
         errs[closure] = _compare(closure, args)
         print(f"check {name} closures=True serpentine {h}x{w} (geodesic "
               f"diameter {diam} px): equal to plain; hybrid "
-              f"(variant, step passes, pairs) {list(kg.HYBRID_LOG)}, closure "
+              f"(variant, step passes, pairs) {_hybrid(traced.rec)}, closure "
               f"launches rows {after[1] - before[1]} columns "
               f"{after[0] - before[0]}; check took "
               f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
@@ -1258,10 +1291,12 @@ def _run_path(path, image, card):
     cfg = _cfg(path)
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    labels, flags = turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)
-    torch.cuda.synchronize()
+    with _traced() as traced:
+        labels, flags = turbo.segment_turbo_flagged(image, cfg,
+                                                    GOSSIP_ROUNDS)
+        torch.cuda.synchronize()
     launches, axis = _counts(), _axis_counts()
-    hybrid = list(kg.HYBRID_LOG)
+    hybrid = _hybrid(traced.rec)
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"main path {path}: flags {flags} ({turbo.describe_flags(flags)}),"
           f" launches {launches}, peak memory {peak:.1f} MiB", flush=True)
@@ -1377,11 +1412,12 @@ def _step_call(name, kfn, rec, calls):
     finally:
         kg.TILE_SKIP = skip
     kg.reset_tile_counts()
-    kfn()
-    torch.cuda.synchronize()
+    with _traced() as traced:
+        kfn()
+        torch.cuda.synchronize()
     v = STEP[name]
     c0, c1, steps = kg.tile_counts()[v]
-    rec["tile_share_call"] = (c0 + c1) / kg.TILE_LAUNCHES[v][0]
+    rec["tile_share_call"] = (c0 + c1) / _tiles(traced.rec)[v][0]
     rec["steps_per_tile_call"] = steps / (c0 + c1)
     p = rec["passes"]
     return (f": per launch gated {rec['device_ms'] / p:.4f}, ungated "
@@ -1483,11 +1519,11 @@ def _closure_route_check(fields, path, errs):
     kg.WARM_PASSES = 0
     try:
         for f in CLOSURE_OF.values():
-            kg.HYBRID_LOG.clear()
-            errs[f] = max(errs[f], _compare(f, *fields[f]))
+            with _traced() as traced:
+                errs[f] = max(errs[f], _compare(f, *fields[f]))
             print(f"check {f} {path} main-path fields closures=True "
                   f"WARM_PASSES=0: equal to plain; hybrid (variant, step "
-                  f"passes, pairs) {list(kg.HYBRID_LOG)}", flush=True)
+                  f"passes, pairs) {_hybrid(traced.rec)}", flush=True)
     finally:
         kg.WARM_PASSES = warm
 
@@ -1627,7 +1663,7 @@ def _step_run(image, cfg):
     _reset_counts()
     kg.reset_tile_counts()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
+    with _traced() as traced, torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         labels, flags = turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS)
         torch.cuda.synchronize()
@@ -1638,7 +1674,7 @@ def _step_run(image, cfg):
             if pat.search(e.key):
                 ms[n] += e.device_time_total / 1e3
     return (labels, flags, _counts(), ms, kg.tile_counts(),
-            {v: list(c) for v, c in kg.TILE_LAUNCHES.items()})
+            _tiles(traced.rec))
 
 
 def _step_ab(path, image, card):
@@ -1959,12 +1995,13 @@ def _turbo_hierarchy_path(image, card):
     path = TURBO_HIERARCHY
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    levels, labels, flags = turbo.segment_turbo_hierarchy_flagged(
-        image, CFG, GOSSIP_ROUNDS)
-    torch.cuda.synchronize()
+    with _traced() as traced:
+        levels, labels, flags = turbo.segment_turbo_hierarchy_flagged(
+            image, CFG, GOSSIP_ROUNDS)
+        torch.cuda.synchronize()
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2**20
-    hybrid = list(kg.HYBRID_LOG)
+    hybrid = _hybrid(traced.rec)
     print(f"main path {path}: flags {flags} ({turbo.describe_flags(flags)}),"
           f" launches {launches}, {len(hybrid)} hybrid fixpoints "
           f"(variant, step passes, pairs) {hybrid}; peak memory "
@@ -2138,11 +2175,11 @@ def _dpp_path(path, image, card, run):
     record)."""
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    with _host_reads() as reads:
+    with _traced() as traced, _host_reads() as reads:
         out = run()
         torch.cuda.synchronize()
     launches = _counts()
-    hybrid = list(kg.HYBRID_LOG)
+    hybrid = _hybrid(traced.rec)
     peak = torch.cuda.max_memory_allocated() / 2**20
     flags = out[-1]
     print(f"main path {path}: flags {flags} ({turbo.describe_flags(flags)}),"
@@ -2490,14 +2527,14 @@ def _bsds_quality(dev, card, errs):
               else harness.segment_level_fn(base, cfg, level=4))
         _reset_counts()
         labels, ms = [], []
-        with _host_reads() as reads:
+        with _traced() as traced, _host_reads() as reads:
             for image in images:
                 t0 = time.perf_counter()
                 labels.append(fn(image))
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
         launches, axis = _counts(), _axis_counts()
-        hybrid = list(kg.HYBRID_LOG)
+        hybrid = _hybrid(traced.rec)
         rows = []
         for (iname, _, gts), lab, dgts in zip(samples, labels, dev_gts):
             host = asa_ue_best_gt(compact_labels_np(lab.cpu().numpy()), gts)
@@ -3307,10 +3344,10 @@ def _counted(path, fn):
     orientation, hybrid fixpoints, host reads, peak MiB)."""
     _reset_counts()
     base = _peak_reset()
-    with _no_sweeps(path), _host_reads() as reads:
+    with _traced() as traced, _no_sweeps(path), _host_reads() as reads:
         out = fn()
         torch.cuda.synchronize()
-    return (out, _counts(), _axis_counts(), list(kg.HYBRID_LOG), reads[0],
+    return (out, _counts(), _axis_counts(), _hybrid(traced.rec), reads[0],
             _peak_since(base))
 
 

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from .config import ALGORITHMS, SegmentationConfig
+from .utils import timing
 from .utils.labels import colorize, colorize_hierarchy, compact_labels_np
 
 __version__ = "0.1.0"
@@ -125,10 +126,16 @@ def segment(image, sigma=0.8, k=300.0, min_size=100, algorithm="atomic",
     kruskal_cpu oracles and the kruskal_native C++ baseline run on the
     host and return their labels on `device`. The superpixel route
     returns one level of its hierarchy (cfg.hierarchy_levels, default
-    4)."""
+    4). With the tracing on (`utils.timing`) the call is the span
+    gseg.segment, a frame of its own."""
     cfg = _config(config, sigma=sigma, k=k, min_size=min_size,
                   algorithm=algorithm)
-    device = _device(device)
+    h, w = np.shape(image)[:2]
+    with timing.span("gseg.segment", algorithm=cfg.algorithm, h=h, w=w):
+        return _segment(image, cfg, _device(device))
+
+
+def _segment(image, cfg: SegmentationConfig, device):
     if cfg.algorithm == "turbo":
         from .models.turbo import segment_turbo
 

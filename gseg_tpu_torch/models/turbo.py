@@ -56,9 +56,12 @@ mode (`weight_buckets > 0`, scan closures on):
   (GSEG_S2_SMALL_DIV). Each gives the same labels and flags.
 
 Every `lax.while_loop` of the reference is a host loop that reads a device
-value each iteration, and every `lax.cond` a host `if`. Capacities are the
-reference's, following its handoff gates (`_GATE_DIV`, V/128 by default;
-`_GATE_DIV_Q`, V/32); overflows raise FLAG_* bits and are never silent.
+value each iteration (through `utils.timing.host_read`, a span of its own
+when the tracing is on), and every `lax.cond` a host `if`. The stages,
+rounds and fixpoints are spans of the tracing (`utils.timing`).
+Capacities are the reference's, following its handoff gates (`_GATE_DIV`,
+V/128 by default; `_GATE_DIV_Q`, V/32); overflows raise FLAG_* bits and
+are never silent.
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ from ..ops import grid_graph as gg
 from ..ops.kernels import extract as kx
 from ..ops.kernels import gossip as kg
 from ..ops.kernels import runs as kr
+from ..utils import timing
+from ..utils.timing import host_read
 
 INT32_MAX = gg.INT32_MAX
 BIGDIST = kg.BIGDIST
@@ -211,7 +216,11 @@ class Comm(NamedTuple):
         return self.rank is None
 
 
-DENSE = Comm(shift=gg.shift_plane, shifts8=_shifts8, reduce_any=bool,
+def _read_any(x):
+    return host_read(x, "g_merged")
+
+
+DENSE = Comm(shift=gg.shift_plane, shifts8=_shifts8, reduce_any=_read_any,
              reduce_sum=int, rank=None)
 
 
@@ -315,7 +324,7 @@ def _runs_sizes(L):
     elsewhere, overflow=False)."""
     h, w = L.shape
     lab, cnt, _, ovf = kr.run_extract(L, max(h * w // _RUNS_DIV, 1024))
-    if bool(ovf):
+    if host_read(ovf, "runs_ovf"):
         return _component_sizes(L)
     return _sum_by_label(lab, cnt, h, w)[0], False
 
@@ -381,7 +390,7 @@ def _flood_pointer(L, id_init, pass8, nbrL, rlist):
     changed, i = True, 0
     while changed and i < 24:
         pn = par[inv[par.to(torch.int64)].to(torch.int64)]
-        changed = bool((pn != par).any())
+        changed = host_read((pn != par).any(), "ptr_changed")
         par, i = pn, i + 1
     # 3. the min old root of each hook tree, per slot, then per root id.
     minid = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
@@ -420,86 +429,89 @@ def _ground(state: GossipState, w8, eid8, k, max_sweeps, rlist=None,
     comm: a row tile's halo shifts and reductions (`parallel.turbo_spatial`;
     sizes "subsum" only, no closures), with vid the tile's global vertex
     ids (None: the dense plane's)."""
-    L, S, ID = state.L, state.S, state.ID
-    if not comm.dense and (sizes != "subsum" or closures):
-        raise ValueError("a spatial round takes sizes='subsum' and no "
-                         "closures")
+    with timing.span("gseg.g_round", it=state.it, sizes=sizes):
+        L, S, ID = state.L, state.S, state.ID
+        if not comm.dense and (sizes != "subsum" or closures):
+            raise ValueError("a spatial round takes sizes='subsum' and no "
+                             "closures")
 
-    vminw, veid, nbrL = _vertex_min_outgoing(L, w8, eid8, tau, comm)
-    if comm.dense:
-        cw, ce, SZ, unconv = kg.compmin_gossip(L, vminw, veid, S, max_sweeps,
-                                               idle=idle_compmin,
-                                               closures=closures)
-    else:
-        cw, ce, SZ, unconv = kg.compmin_gossip_spatial(
-            L, vminw, veid, S, max_sweeps, comm.rank, idle=idle_compmin)
-
-    # Multiply-form predicate (w - Int) * |C| <= k, as separate float32 ops.
-    kf = torch.tensor(k, dtype=torch.float32, device=L.device)
-    SZf = SZ.to(torch.float32)
-    my_ok = (cw - ID) * SZf <= kf
-    ID8 = torch.stack(comm.shifts8(ID, 0.0))
-    SZ8 = torch.stack(comm.shifts8(SZf, 0.0))
-    owner8 = (nbrL != L[None]) & (w8 == cw[None]) & (eid8 == ce[None])
-    pass8 = owner8 & my_ok[None] & ((cw[None] - ID8) * SZ8 <= kf)
-
-    new_mark4 = [pass8[dc] | comm.shift(pass8[dc + 4], dy, dx, False)
-                 for dc, (dy, dx) in enumerate(gg.DIRS4)]
-    merged = comm.reduce_any(torch.stack(new_mark4).any())
-
-    allow = []
-    for d in range(8):
-        if d < 4:
-            am = new_mark4[d]
-        else:
-            dy, dx = gg.DIRS4[d - 4]
-            am = comm.shift(new_mark4[d - 4], -dy, -dx, False)
-        allow.append((nbrL[d] == L) | am)
-    allow8 = torch.stack(allow)
-
-    hook8 = allow8 & (nbrL != L[None])
-    used_w8 = torch.where(hook8, torch.where(torch.isfinite(w8), w8, 0.0), 0.0)
-    id_init = torch.maximum(ID, used_w8.amax(0))
-
-    bits = kg.pack_allow_bits(allow)
-    size_unconv = False
-    if sizes == "subsum":
-        # dist seeded 0 at the old roots: the new cluster root (an old root
-        # that keeps its label) keeps 0, absorbed roots take over on
-        # adoption.
-        if vid is None:
-            vid = torch.arange(L.numel(), dtype=torch.int32,
-                               device=L.device).reshape(L.shape)
-        dist0 = torch.full_like(L, BIGDIST).masked_fill(L == vid, 0)
+        vminw, veid, nbrL = _vertex_min_outgoing(L, w8, eid8, tau, comm)
         if comm.dense:
-            Lnew, IDnew, dist, lab_unconv = kg.label_gossip(
-                bits, L, id_init, dist0, max_sweeps)
+            cw, ce, SZ, unconv = kg.compmin_gossip(
+                L, vminw, veid, S, max_sweeps, idle=idle_compmin,
+                closures=closures)
         else:
-            Lnew, IDnew, dist, lab_unconv = kg.label_gossip_spatial(
-                bits, L, id_init, dist0, max_sweeps, comm.rank)
-        Snew, size_unconv = _subtree_sizes(Lnew, dist, max_sweeps, comm)
-    elif sizes == "rlist" and comm.dense and _FLOOD_PTR:
-        Lnew, IDnew, lab_unconv = _flood_pointer(L, id_init, pass8, nbrL,
-                                                 rlist)
-    else:
-        # Away from hook pixels Lc (= L) and Int are uniform per old
-        # component, so hook-free tiles start at a local fixpoint: the
-        # first pass runs near the hooks only.
-        Lnew, IDnew, lab_unconv = kg.label_flood(bits, L, id_init,
-                                                 max_sweeps,
-                                                 closures=closures,
-                                                 seed_mask=hook8.any(0))
-    if sizes == "rlist":
-        Snew, rlist_new = _rlist_sizes(rlist, Lnew, S)
-    elif sizes == "count":
-        Snew, _ = _component_sizes(Lnew)
-    elif sizes == "runs":
-        Snew, _ = _runs_sizes(Lnew)
-    flags = _raise_flag(state.flags, unconv or lab_unconv or size_unconv,
-                        FLAG_GOSSIP_UNCONVERGED)
-    out = GossipState(L=Lnew, S=Snew, ID=IDnew, merged=merged,
-                      it=state.it + 1, bucket=state.bucket, flags=flags)
-    return (out, rlist_new) if sizes == "rlist" else out
+            cw, ce, SZ, unconv = kg.compmin_gossip_spatial(
+                L, vminw, veid, S, max_sweeps, comm.rank, idle=idle_compmin)
+
+        # Multiply-form predicate (w - Int) * |C| <= k, as separate float32
+        # ops.
+        kf = torch.tensor(k, dtype=torch.float32, device=L.device)
+        SZf = SZ.to(torch.float32)
+        my_ok = (cw - ID) * SZf <= kf
+        ID8 = torch.stack(comm.shifts8(ID, 0.0))
+        SZ8 = torch.stack(comm.shifts8(SZf, 0.0))
+        owner8 = (nbrL != L[None]) & (w8 == cw[None]) & (eid8 == ce[None])
+        pass8 = owner8 & my_ok[None] & ((cw[None] - ID8) * SZ8 <= kf)
+
+        new_mark4 = [pass8[dc] | comm.shift(pass8[dc + 4], dy, dx, False)
+                     for dc, (dy, dx) in enumerate(gg.DIRS4)]
+        merged = comm.reduce_any(torch.stack(new_mark4).any())
+
+        allow = []
+        for d in range(8):
+            if d < 4:
+                am = new_mark4[d]
+            else:
+                dy, dx = gg.DIRS4[d - 4]
+                am = comm.shift(new_mark4[d - 4], -dy, -dx, False)
+            allow.append((nbrL[d] == L) | am)
+        allow8 = torch.stack(allow)
+
+        hook8 = allow8 & (nbrL != L[None])
+        used_w8 = torch.where(hook8, torch.where(torch.isfinite(w8), w8, 0.0),
+                              0.0)
+        id_init = torch.maximum(ID, used_w8.amax(0))
+
+        bits = kg.pack_allow_bits(allow)
+        size_unconv = False
+        if sizes == "subsum":
+            # dist seeded 0 at the old roots: the new cluster root (an old root
+            # that keeps its label) keeps 0, absorbed roots take over on
+            # adoption.
+            if vid is None:
+                vid = torch.arange(L.numel(), dtype=torch.int32,
+                                   device=L.device).reshape(L.shape)
+            dist0 = torch.full_like(L, BIGDIST).masked_fill(L == vid, 0)
+            if comm.dense:
+                Lnew, IDnew, dist, lab_unconv = kg.label_gossip(
+                    bits, L, id_init, dist0, max_sweeps)
+            else:
+                Lnew, IDnew, dist, lab_unconv = kg.label_gossip_spatial(
+                    bits, L, id_init, dist0, max_sweeps, comm.rank)
+            Snew, size_unconv = _subtree_sizes(Lnew, dist, max_sweeps, comm)
+        elif sizes == "rlist" and comm.dense and _FLOOD_PTR:
+            Lnew, IDnew, lab_unconv = _flood_pointer(L, id_init, pass8, nbrL,
+                                                     rlist)
+        else:
+            # Away from hook pixels Lc (= L) and Int are uniform per old
+            # component, so hook-free tiles start at a local fixpoint: the
+            # first pass runs near the hooks only.
+            Lnew, IDnew, lab_unconv = kg.label_flood(bits, L, id_init,
+                                                     max_sweeps,
+                                                     closures=closures,
+                                                     seed_mask=hook8.any(0))
+        if sizes == "rlist":
+            Snew, rlist_new = _rlist_sizes(rlist, Lnew, S)
+        elif sizes == "count":
+            Snew, _ = _component_sizes(Lnew)
+        elif sizes == "runs":
+            Snew, _ = _runs_sizes(Lnew)
+        flags = _raise_flag(state.flags, unconv or lab_unconv or size_unconv,
+                            FLAG_GOSSIP_UNCONVERGED)
+        out = GossipState(L=Lnew, S=Snew, ID=IDnew, merged=merged,
+                          it=state.it + 1, bucket=state.bucket, flags=flags)
+        return (out, rlist_new) if sizes == "rlist" else out
 
 
 def _rlist_loop(gcond, gbody, gst, rlist, vid, caps):
@@ -509,7 +521,8 @@ def _rlist_loop(gcond, gbody, gst, rlist, vid, caps):
     the component count only decreases, so this runs exactly the rounds a
     single loop would, which is what `_RLIST_SPLIT = False` runs."""
     for cap in [c for c in caps if c < rlist.numel() and _RLIST_SPLIT]:
-        while gcond(gst) and int((gst.L == vid).sum()) > cap:
+        while gcond(gst) and host_read((gst.L == vid).sum(),
+                                       "rlist_live") > cap:
             gst, rlist = gbody(gst, rlist)
         # dead slots sit interleaved in the list: sort them to the tail.
         rlist = torch.sort(rlist).values[:cap]
@@ -536,21 +549,21 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
     dev = image.device
     max_sweeps = 4 * (h + w)
 
-    if weights_override is not None:
-        if not isinstance(weights_override, torch.Tensor):
-            weights_override = torch.tensor(np.asarray(weights_override))
-        weights = weights_override.to(dev, torch.float32).contiguous()
-    else:
-        smoothed = filters.gaussian_smooth(image, cfg.sigma)
-        weights, _ = gg.edge_weight_planes(smoothed, cfg.connectivity,
-                                           cfg.quantize_weight_bits)
-    w8, eid8 = gg.incident_views(weights)
-    vid = torch.arange(v, dtype=torch.int32, device=dev).reshape(h, w)
-
     quality = cfg.weight_buckets > 0
     closures = quality and _Q_CLOSURES
     nb = max(cfg.weight_buckets, 1)
-    thresholds = bucket_thresholds(weights, nb) if quality else None
+    with timing.span("gseg.weights"):
+        if weights_override is not None:
+            if not isinstance(weights_override, torch.Tensor):
+                weights_override = torch.tensor(np.asarray(weights_override))
+            weights = weights_override.to(dev, torch.float32).contiguous()
+        else:
+            smoothed = filters.gaussian_smooth(image, cfg.sigma)
+            weights, _ = gg.edge_weight_planes(smoothed, cfg.connectivity,
+                                               cfg.quantize_weight_bits)
+        w8, eid8 = gg.incident_views(weights)
+        vid = torch.arange(v, dtype=torch.int32, device=dev).reshape(h, w)
+        thresholds = bucket_thresholds(weights, nb) if quality else None
 
     def tau(s):
         return thresholds[s.bucket] if quality else None
@@ -586,14 +599,16 @@ def _stage_g(image, cfg: SegmentationConfig, gossip_rounds: int,
         rcap = v if quality or v <= 1 << 20 else max(v // 2, _CAP_FLOOR)
     else:
         rcap = caps["rcap"]
-    rlist, rovf = _build_rlist(gst.L, rcap)
+    with timing.span("gseg.rlist"):
+        rlist, rovf = _build_rlist(gst.L, rcap)
     gst = gst._replace(flags=_raise_flag(gst.flags, rovf, FLAG_COMP_OVERFLOW))
 
     gate_c = v // (_GATE_DIV_Q if quality else _GATE_DIV)
 
     def gcond(s):
         return s.merged and (s.it < gossip_rounds
-                             or int((s.L == vid).sum()) > gate_c)
+                             or host_read((s.L == vid).sum(),
+                                          "gate_live") > gate_c)
 
     def gbody(s, rl):
         s2, rl2 = _ground(s, w8, eid8, cfg.k, max_sweeps, rlist=rl,
@@ -703,7 +718,8 @@ def _extract_stage(gst: GossipState, weights, cfg: SegmentationConfig):
     # count is an upper bound); results do not.
     small_cap = max(cap_live // 4, pair_cap)
     n = cap_live
-    if _EX_SMALL and small_cap < cap_live and int(cnt) <= small_cap:
+    if _EX_SMALL and small_cap < cap_live \
+            and host_read(cnt, "extract_cnt") <= small_cap:
         n = small_cap
     lo, hi, ew4, eid4 = lo[:n], hi[:n], ew4[:n], eid4[:n]
     perm = _lexsort(_key64(lo, hi), _key64(ew4, eid4))
@@ -834,59 +850,65 @@ def _s2_round(st: CompactState, v, comp_cap, k, min_size,
     no cap). canonical: relabel each merged cluster to its min member root
     (turbo's labels), else keep the hook-chain sink root (the root-id
     labels of the atomic path and the oracles, which fastmst gives)."""
-    esrc, edst, ew = st.esrc, st.edst, st.ew
-    dev = esrc.device
-    live = (esrc != edst) & torch.isfinite(ew)
-    if tau is not None:
-        live &= ew <= tau
-    k1 = torch.where(live, esrc, INT32_MAX)
-    kw = torch.where(live, ew, torch.inf)
-    perm = _lexsort(_key64(k1, kw), st.eeid)
-    s_src, s_w, s_dst = k1[perm], kw[perm], edst[perm]
-    head = _run_heads(s_src) & (s_src != INT32_MAX)
-    hm, (hsrc, hw, hdst), head_ovf = _select_compact(
-        head, [s_src, s_w, s_dst], comp_cap)
+    with timing.span("gseg.s2_round",
+                     kind="felz" if is_felz else "min_size"):
+        esrc, edst, ew = st.esrc, st.edst, st.ew
+        dev = esrc.device
+        live = (esrc != edst) & torch.isfinite(ew)
+        if tau is not None:
+            live &= ew <= tau
+        k1 = torch.where(live, esrc, INT32_MAX)
+        kw = torch.where(live, ew, torch.inf)
+        perm = _lexsort(_key64(k1, kw), st.eeid)
+        s_src, s_w, s_dst = k1[perm], kw[perm], edst[perm]
+        head = _run_heads(s_src) & (s_src != INT32_MAX)
+        hm, (hsrc, hw, hdst), head_ovf = _select_compact(
+            head, [s_src, s_w, s_dst], comp_cap)
 
-    if is_felz:
-        kf = torch.tensor(k, dtype=torch.float32, device=dev)
-        lhs_s = (hw - _gather(st.IDf, hsrc)) * _gather(st.SZf, hsrc).float()
-        lhs_d = (hw - _gather(st.IDf, hdst)) * _gather(st.SZf, hdst).float()
-        ok = (lhs_s <= kf) & (lhs_d <= kf)
-    else:
-        ok = _gather(st.SZf, hsrc) < min_size
-    succ, nr = _hook_roots(hm, hsrc, torch.where(hm & ok, hdst, hsrc), v)
-    hsrc_safe = torch.where(hm, hsrc, v)
-    iota = torch.arange(v, dtype=torch.int32, device=dev)
+        if is_felz:
+            kf = torch.tensor(k, dtype=torch.float32, device=dev)
+            lhs_s = ((hw - _gather(st.IDf, hsrc))
+                     * _gather(st.SZf, hsrc).float())
+            lhs_d = ((hw - _gather(st.IDf, hdst))
+                     * _gather(st.SZf, hdst).float())
+            ok = (lhs_s <= kf) & (lhs_d <= kf)
+        else:
+            ok = _gather(st.SZf, hsrc) < min_size
+        succ, nr = _hook_roots(hm, hsrc, torch.where(hm & ok, hdst, hsrc), v)
+        hsrc_safe = torch.where(hm, hsrc, v)
+        iota = torch.arange(v, dtype=torch.int32, device=dev)
 
-    if canonical:
-        # relabel each cluster to its min member root.
-        canon = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
-                                    device=dev),
-                         torch.where(hm, nr, v),
-                         torch.where(hm, hsrc, INT32_MAX), "amin")
-        nr_canon = torch.where(hm, _gather(canon, nr), hsrc)
-    else:
-        nr_canon = nr
-    changed = hm & (nr_canon != hsrc)
+        if canonical:
+            # relabel each cluster to its min member root.
+            canon = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
+                                        device=dev),
+                             torch.where(hm, nr, v),
+                             torch.where(hm, hsrc, INT32_MAX), "amin")
+            nr_canon = torch.where(hm, _gather(canon, nr), hsrc)
+        else:
+            nr_canon = nr
+        changed = hm & (nr_canon != hsrc)
 
-    M = _scatter(iota, hsrc_safe, nr_canon)
-    tgt = torch.where(changed, nr_canon, v)
-    SZf = _scatter(st.SZf, tgt,
-                   torch.where(changed, _gather(st.SZf, hsrc), 0), "sum")
-    IDf = _scatter(st.IDf, tgt,
-                   torch.where(changed, _gather(st.IDf, hsrc), 0.0), "amax")
-    # used hook edges contribute their weight to the new root's Int.
-    used = hm & (succ != hsrc)
-    IDf = _scatter(IDf, torch.where(used, nr_canon, v),
-                   torch.where(used, hw, 0.0), "amax")
+        M = _scatter(iota, hsrc_safe, nr_canon)
+        tgt = torch.where(changed, nr_canon, v)
+        SZf = _scatter(st.SZf, tgt,
+                       torch.where(changed, _gather(st.SZf, hsrc), 0), "sum")
+        IDf = _scatter(st.IDf, tgt,
+                       torch.where(changed, _gather(st.IDf, hsrc), 0.0),
+                       "amax")
+        # used hook edges contribute their weight to the new root's Int.
+        used = hm & (succ != hsrc)
+        IDf = _scatter(IDf, torch.where(used, nr_canon, v),
+                       torch.where(used, hw, 0.0), "amax")
 
-    return CompactState(
-        esrc=M[esrc.to(torch.int64)], edst=M[edst.to(torch.int64)],
-        ew=st.ew, eeid=st.eeid, SZf=SZf, IDf=IDf,
-        fin=M[st.fin.to(torch.int64)],
-        merged=bool(changed.any()), it=st.it + 1, bucket=st.bucket,
-        phase=st.phase,
-        flags=_raise_flag(st.flags, head_ovf, FLAG_COMP_OVERFLOW))
+        return CompactState(
+            esrc=M[esrc.to(torch.int64)], edst=M[edst.to(torch.int64)],
+            ew=st.ew, eeid=st.eeid, SZf=SZf, IDf=IDf,
+            fin=M[st.fin.to(torch.int64)],
+            merged=host_read(changed.any(), "s2_merged"), it=st.it + 1,
+            bucket=st.bucket,
+            phase=st.phase,
+            flags=_raise_flag(st.flags, head_ovf, FLAG_COMP_OVERFLOW))
 
 
 def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
@@ -924,7 +946,9 @@ def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
 
 def _recompact_edges(st: CompactState, cap):
     """Dedup + shrink the edge buffers to a smaller capacity."""
-    o1, o2, ow, oe, ovf = _pair_dedup(st.esrc, st.edst, st.ew, st.eeid, cap)
+    with timing.span("gseg.recompact"):
+        o1, o2, ow, oe, ovf = _pair_dedup(st.esrc, st.edst, st.ew, st.eeid,
+                                          cap)
     return st._replace(esrc=o1, edst=o2, ew=ow, eeid=oe), ovf
 
 
@@ -936,22 +960,23 @@ def _prune_dead(st: CompactState, v, k, min_size):
     frozen and neither is small (min-size rounds only hook from small
     components, and the small[edst] term keeps every min-size hook target
     a head). Returns st with dead edges' weights set to +inf."""
-    live = (st.esrc != st.edst) & torch.isfinite(st.ew)
-    key = torch.where(live, st.esrc, INT32_MAX)
-    kw = torch.where(live, st.ew, torch.inf)
-    perm = torch.sort(_key64(key, kw), stable=True).indices
-    s_src, s_w = key[perm], kw[perm]
-    head = _run_heads(s_src) & (s_src != INT32_MAX)
-    minw = _scatter(torch.full((v,), torch.inf, dtype=torch.float32,
-                               device=key.device),
-                    torch.where(head, s_src, v), s_w, "amin")
-    kf = torch.tensor(k, dtype=torch.float32, device=key.device)
-    frozen = (minw - st.IDf) * torch.clamp(st.SZf.to(torch.float32),
-                                           min=1.0) > kf
-    small = st.SZf < min_size
-    src, dst = st.esrc.to(torch.int64), st.edst.to(torch.int64)
-    keep = ~(frozen[src] & frozen[dst]) | small[src] | small[dst]
-    return st._replace(ew=torch.where(live & ~keep, torch.inf, st.ew))
+    with timing.span("gseg.prune"):
+        live = (st.esrc != st.edst) & torch.isfinite(st.ew)
+        key = torch.where(live, st.esrc, INT32_MAX)
+        kw = torch.where(live, st.ew, torch.inf)
+        perm = torch.sort(_key64(key, kw), stable=True).indices
+        s_src, s_w = key[perm], kw[perm]
+        head = _run_heads(s_src) & (s_src != INT32_MAX)
+        minw = _scatter(torch.full((v,), torch.inf, dtype=torch.float32,
+                                   device=key.device),
+                        torch.where(head, s_src, v), s_w, "amin")
+        kf = torch.tensor(k, dtype=torch.float32, device=key.device)
+        frozen = (minw - st.IDf) * torch.clamp(st.SZf.to(torch.float32),
+                                               min=1.0) > kf
+        small = st.SZf < min_size
+        src, dst = st.esrc.to(torch.int64), st.edst.to(torch.int64)
+        keep = ~(frozen[src] & frozen[dst]) | small[src] | small[dst]
+        return st._replace(ew=torch.where(live & ~keep, torch.inf, st.ew))
 
 
 def _slice_pool(st: CompactState, pair_cap: int, cs: int) -> CompactState:
@@ -999,7 +1024,8 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
     pair_cap = st.esrc.numel() // 2
     cs = max(v // caps["small_div"], -(-rec1_cap // 2))
     if (_S2_SMALL and cs < pair_cap
-            and int(torch.isfinite(st.ew[:pair_cap]).sum()) <= cs):
+            and host_read(torch.isfinite(st.ew[:pair_cap]).sum(),
+                          "s2_live") <= cs):
         st = early(_slice_pool(st, pair_cap, cs))
     else:
         st = early(st)
@@ -1051,15 +1077,19 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
     weights_override: see _stage_g (parity-testing hook)."""
     h, w = image.shape[0], image.shape[1]
     v = h * w
-    gst, weights, thresholds = _stage_g(image, cfg, gossip_rounds,
-                                        weights_override)
-    st, rm, r0 = _extract_stage(gst, weights, cfg)
-    st = _s2_stage(st, v, cfg, thresholds)
-    labels, fm_unconv = _final_map(
-        gst, st, rm, r0, 4 * (h + w),
-        closures=cfg.weight_buckets > 0 and _Q_CLOSURES)
+    with timing.span("gseg.stage_g"):
+        gst, weights, thresholds = _stage_g(image, cfg, gossip_rounds,
+                                            weights_override)
+    with timing.span("gseg.extract"):
+        st, rm, r0 = _extract_stage(gst, weights, cfg)
+    with timing.span("gseg.stage2"):
+        st = _s2_stage(st, v, cfg, thresholds)
+    with timing.span("gseg.final_map"):
+        labels, fm_unconv = _final_map(
+            gst, st, rm, r0, 4 * (h + w),
+            closures=cfg.weight_buckets > 0 and _Q_CLOSURES)
     flags = _raise_flag(st.flags, fm_unconv, FLAG_GOSSIP_UNCONVERGED)
-    return labels, int(flags)
+    return labels, host_read(flags, "flags")
 
 
 segment_turbo_flagged = segment_turbo_impl
@@ -1156,7 +1186,7 @@ def segment_turbo_hierarchy_impl(image: torch.Tensor, cfg: SegmentationConfig,
                                    closures=True)
     flags = _raise_flag(st.flags, unconv or fm_unconv,
                         FLAG_GOSSIP_UNCONVERGED)
-    return levels, labels, int(flags)
+    return levels, labels, host_read(flags, "flags")
 
 
 segment_turbo_hierarchy_flagged = segment_turbo_hierarchy_impl

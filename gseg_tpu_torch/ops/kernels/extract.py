@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from .. import grid_graph as gg
+from ...utils.timing import host_read
 from . import _build
 
 INT32_MAX = gg.INT32_MAX
@@ -66,7 +67,7 @@ def boundary_extract_plain(L, weights, cap: int):
         eid = (vid * 4 + d).reshape(-1).to(torch.int64)
         key = (wd.reshape(-1).view(torch.int32).to(torch.int64) << 32) | eid
         livef = live.reshape(-1)
-        nrun = int(head.sum())
+        nrun = host_read(head.sum(), "extract_runs")
         runmin = torch.full((nrun,), torch.iinfo(torch.int64).max,
                             dtype=torch.int64, device=L.device)
         runmin.scatter_reduce_(0, run[livef], key[livef], "amin")

@@ -41,9 +41,17 @@ closure only lowers mins and raises maxes of a semilattice fixpoint whose
 solution is unique, and a
 round in which nothing changed contains a full step, so the exit
 certifies the same fixpoint as the step-only route: the results are
-bit-equal to it and to the plain version. `HYBRID_LOG` records each
-hybrid call's step passes and pairs on the card. `label_gossip` and
+bit-equal to it and to the plain version. `label_gossip` and
 `subtree_sums` stay step-only, as in the reference.
+
+With the tracing on (`utils.timing`), each dense fixpoint is a
+`gseg.fixpoint` span whose `passes` and `pairs` attributes give its step
+passes (the plain version's sweeps) and closure pairs; the counters
+`fixpoint_passes.<variant>`, `closure_launches.<variant>`,
+`tiles.<variant>` and `tiles_seeded.<variant>` add up the step passes,
+the closure launches and the tiles the step kernel was launched over (in
+every pass, in seeded first passes), and every read of a `changed` word
+or flag is a `host_read`.
 
 Steps per pass: STEPS on images narrower than PAD_MIN_WIDTH, STEPS_WIDE on
 wider ones (the reference's `_pick_t`: 8, and 16 at w >= 2560; the port
@@ -70,12 +78,13 @@ unique fixpoint.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import torch
 
 from .. import grid_graph as gg
+from ...utils import timing
+from ...utils.timing import host_read
 from . import _build
 from . import pad as kp
 
@@ -105,10 +114,6 @@ WARM_PASSES = 64
 # DIRS8 bits of the closure reach links (gseg_tpu/ops/pallas/gossip.py:
 # 86-91): flow from the left, right, above, below.
 _BIT_L, _BIT_R, _BIT_U, _BIT_D = 4, 0, 5, 1
-# (variant, step passes, closure pairs) of the latest hybrid calls on the
-# card; bounded, so a long-running caller does not grow it without end.
-HYBRID_LOG: collections.deque[tuple[str, int, int]] = collections.deque(
-    maxlen=4096)
 
 
 def pack_allow_bits(allow8_list) -> torch.Tensor:
@@ -145,8 +150,10 @@ def compmin_gossip_plain(L, bw, be, sz, max_sweeps):
             bw = torch.where(take, nbw[d], bw)
             be = torch.where(take, nbe[d], be)
             sz = torch.where(same[d] & (nsz[d] > sz), nsz[d], sz)
-        changed = bool(((bw0 != bw) | (be0 != be) | (sz0 != sz)).any())
+        changed = host_read(((bw0 != bw) | (be0 != be) | (sz0 != sz)).any(),
+                            "sweep_changed")
         i += 1
+    _passes_done("compmin", i)
     return bw, be, sz, changed
 
 
@@ -162,8 +169,10 @@ def label_flood_plain(allow_bits, Lc, idf, max_sweeps):
         for d in range(8):
             Lc = torch.where(allow[d] & (nL[d] < Lc), nL[d], Lc)
             idf = torch.where(allow[d] & (nid[d] > idf), nid[d], idf)
-        changed = bool(((L0 != Lc) | (id0 != idf)).any())
+        changed = host_read(((L0 != Lc) | (id0 != idf)).any(),
+                            "sweep_changed")
         i += 1
+    _passes_done("labelnd", i)
     return Lc, idf, changed
 
 
@@ -186,8 +195,10 @@ def label_gossip_plain(allow_bits, Lc, idf, dist, max_sweeps):
             dist = torch.where(adopt | relax, cand, dist)
             Lc = torch.where(adopt, nL[d], Lc)
             idf = torch.where(allow[d] & (nid[d] > idf), nid[d], idf)
-        changed = bool(((L0 != Lc) | (id0 != idf) | (d0 != dist)).any())
+        changed = host_read(((L0 != Lc) | (id0 != idf) | (d0 != dist)).any(),
+                            "sweep_changed")
         i += 1
+    _passes_done("labeldist", i)
     return Lc, idf, dist, changed
 
 
@@ -202,8 +213,9 @@ def value_flood_plain(L, val, max_sweeps):
         v0 = val
         for d in range(8):
             val = torch.where(same[d] & (nv[d] < val), nv[d], val)
-        changed = bool((v0 != val).any())
+        changed = host_read((v0 != val).any(), "sweep_changed")
         i += 1
+    _passes_done("value", i)
     return val, changed
 
 
@@ -218,9 +230,10 @@ def subtree_sums_plain(pdir, s, max_sweeps):
         total = torch.ones_like(s)
         for d in range(8):
             total = total + torch.where(child[d], ns[d], 0)
-        changed = bool((total != s).any())
+        changed = host_read((total != s).any(), "sweep_changed")
         s = total
         i += 1
+    _passes_done("subsum", i)
     return s, changed
 
 
@@ -293,7 +306,8 @@ def _value_join(cands, fields, ok):
 def _closure_plain(kind, join, fills, ro, fields, axis):
     out = _seg_closure_plain(_reach(ro, kind, axis), join, fields, fills,
                              axis)
-    changed = any(bool((a != b).any()) for a, b in zip(out, fields))
+    changed = any(host_read((a != b).any(), "closure_changed")
+                  for a, b in zip(out, fields))
     return (*out, changed)
 
 
@@ -442,7 +456,7 @@ def step_pass_plain(variant, ro, src, dst, act_in=None, t=None):
         diff[:h, :w] |= _word_bits(new) != _word_bits(x_src)
         x_dst.copy_(torch.where(px_run, new, x_dst))
     act_out = diff.view(th, _TILE, tw, _TILE).any(3).any(1).to(torch.uint8)
-    return dst, act_out, bool(act_out.any())
+    return dst, act_out, bool(host_read(act_out.any(), "step_changed"))
 
 
 # ---------------------------------------------------------------------------
@@ -462,10 +476,19 @@ _VARIANTS = {
 # variant -> what its read-only plane holds (csrc/gossip.cu, Ro)
 _RO_KIND = {"compmin": "label", "labeldist": "allow", "labelnd": "allow",
             "value": "label", "subsum": "pdir"}
-# Tiles launched by the step kernel per variant, counted on the host:
-# [every pass, seeded first passes]. The device counts the tiles computed
-# (tile_counts); chip_smoke.py reads both.
-TILE_LAUNCHES = {v: [0, 0] for v in _VARIANTS}
+# variant -> its counters (utils.timing): step passes, closure launches,
+# tiles launched over in every pass and in seeded first passes. The device
+# counts the tiles computed (tile_counts).
+_COUNTERS = {v: tuple(f"{c}.{v}" for c in (
+    "fixpoint_passes", "closure_launches", "tiles", "tiles_seeded"))
+    for v in _VARIANTS}
+
+
+def _passes_done(variant, passes, pairs=0):
+    """Counts a fixpoint's step passes (the plain version's sweeps) and
+    gives them, with its closure pairs, to its gseg.fixpoint span."""
+    timing.count(_COUNTERS[variant][0], passes)
+    timing.annotate("gseg.fixpoint", passes=passes, pairs=pairs)
 
 
 # variant -> C entry point of its closure launch (csrc/closure.cu)
@@ -514,12 +537,9 @@ def tile_counts():
 
 
 def reset_tile_counts():
-    """Zero the device's computed-tile counts and TILE_LAUNCHES."""
+    """Zero the device's computed-tile counts."""
     _build.check(_lib().gseg_gossip_reset_tile_counts(),
                  "gseg_gossip_reset_tile_counts")
-    with _build.LOCK:
-        for counts in TILE_LAUNCHES.values():
-            counts[:] = [0, 0]
 
 
 def _closure_lib():
@@ -568,8 +588,8 @@ def _check_contiguous(variant, planes):
 def _fixpoint(variant, plain, ro, fields, max_sweeps, closures=False,
               seed_mask=None):
     """The plain version for CPU tensors (it ignores seed_mask), the kernel
-    passes for CUDA tensors (the hybrid route with closures). Returns
-    (*fields, unconverged)."""
+    passes for CUDA tensors (the hybrid route with closures); a
+    gseg.fixpoint span when traced. Returns (*fields, unconverged)."""
     _check_fields(variant, ro, fields)
     extra = []
     if seed_mask is not None:
@@ -577,10 +597,16 @@ def _fixpoint(variant, plain, ro, fields, max_sweeps, closures=False,
             raise ValueError(f"{variant}: seed_mask must be a bool plane of "
                              f"shape {tuple(ro.shape)}")
         extra = [seed_mask]
-    if _build.on_cpu(ro, *fields, *extra):
-        return plain(ro, *fields, max_sweeps)
-    out, unconv = _run_fixpoint(variant, ro, fields, max_sweeps, closures,
-                                seed_mask)
+    h, w = ro.shape
+    cpu = _build.on_cpu(ro, *fields, *extra)
+    with timing.span("gseg.fixpoint", variant=variant, h=h, w=w,
+                     fields=len(fields),
+                     padded=int(not cpu and w >= PAD_MIN_WIDTH),
+                     closures=int(not cpu and closures)):
+        if cpu:
+            return plain(ro, *fields, max_sweeps)
+        out, unconv = _run_fixpoint(variant, ro, fields, max_sweeps,
+                                    closures, seed_mask)
     return (*out, unconv)
 
 
@@ -664,7 +690,7 @@ def _pass_loop(step, close, fields, bufs, acts, changed, max_passes, warm,
     for _ in range(warm):
         changed.zero_()
         run(step)
-        if int(changed.item()) == 0:
+        if host_read(changed, "pass_changed") == 0:
             return src, False, n, 0
     if close is None:
         return src, True, n, 0
@@ -676,7 +702,7 @@ def _pass_loop(step, close, fields, bufs, acts, changed, max_passes, warm,
             close(src, axis)
             act_in = None
         pairs += 1
-        if int(changed.item()) == 0:
+        if host_read(changed, "pair_changed") == 0:
             return src, False, n, pairs
     return src, True, n, pairs
 
@@ -692,7 +718,7 @@ def _launch_pass(variant, ro, src, dst, act_in, act_out, changed, stream, t):
     _build.check(err, f"gseg_{variant}_pass")
     with _build.LOCK:
         _WRAPPERS[variant].launches += 1
-        TILE_LAUNCHES[variant][0] += act_out.numel()
+    timing.count(_COUNTERS[variant][2], act_out.numel())
 
 
 def _passes(variant, ro, fields, max_passes, closures, seed_act, t):
@@ -715,8 +741,7 @@ def _passes(variant, ro, fields, max_passes, closures, seed_act, t):
             _launch_pass(variant, ro, src, dst, act_in, act_out, changed,
                          stream, t)
             if act_in is not None and act_in is seed_act:
-                with _build.LOCK:
-                    TILE_LAUNCHES[variant][1] += act_out.numel()
+                timing.count(_COUNTERS[variant][3], act_out.numel())
 
         def scan_step(src, dst, act_in, act_out):
             step(src, dst, act_in, act_out, t_scan)
@@ -727,8 +752,7 @@ def _passes(variant, ro, fields, max_passes, closures, seed_act, t):
         out, unconv, n, pairs = _pass_loop(
             step, close if closures else None, fields, bufs, acts, changed,
             max_passes, warm, seed_act, TILE_SKIP, scan_step)
-    if closures:
-        HYBRID_LOG.append((variant, min(n, warm), pairs))
+    _passes_done(variant, n, pairs)
     return out, unconv
 
 
@@ -757,7 +781,7 @@ def step_pass(variant, ro, src, dst, act_in=None, t=None):
     with torch.cuda.device(ro.device):
         _launch_pass(variant, ro, src, dst, act_in, act_out, changed,
                      torch.cuda.current_stream().cuda_stream, t)
-    return dst, act_out, bool(changed.item())
+    return dst, act_out, bool(host_read(changed, "step_changed"))
 
 
 def _closure_launch(variant, lib, ro, fields, axis, changed, stream):
@@ -779,6 +803,7 @@ def _closure_launch(variant, lib, ro, fields, axis, changed, stream):
     with _build.LOCK:
         wrapper.launches += 1
         wrapper.axis_launches[axis] += 1
+    timing.count(_COUNTERS[variant][1])
 
 
 def _closure(variant, plain, ro, fields, axis):
@@ -796,7 +821,7 @@ def _closure(variant, plain, ro, fields, axis):
     with torch.cuda.device(ro.device):
         _closure_launch(variant, _closure_lib(), ro, out, axis, changed,
                         torch.cuda.current_stream().cuda_stream)
-    return (*out, bool(changed.item()))
+    return (*out, bool(host_read(changed, "closure_changed")))
 
 
 def compmin_closure(L, bw, be, sz, axis):

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from ...utils.timing import host_read
 from . import _build
 
 MAX_COLS = 4   # csrc/scatter.cu, MAX_C
@@ -57,7 +58,7 @@ def ordered_scatter_add_plain(base, idx, vals):
     added in index order."""
     slots = base.shape[0]
     sidx, order = _sorted_targets(idx, slots)
-    n = int((sidx < slots).sum())
+    n = host_read((sidx < slots).sum(), "scatter_live")
     sidx, order = sidx[:n].long(), order[:n]
     pos = torch.arange(n, device=base.device)
     head = torch.ones(n, dtype=torch.bool, device=base.device)

@@ -1,19 +1,59 @@
-"""Phase timing and a profiler trace (port of `gseg_tpu.utils.timing`).
+"""Phase timing, the program's spans and counters, and a profiler trace
+(port of `gseg_tpu.utils.timing`, plus the tracing).
 
 The reference wraps pipeline phases in wall-clock timers that fence the
 device with a scalar fetch, and traces with `jax.profiler` for xprof.
 Here a phase that hands back a CUDA tensor waits for its card with
 `torch.cuda.synchronize`, which blocks until the card is done; nothing is
-subtracted. `profile_trace` is `torch.profiler` writing a Chrome trace.
+subtracted. `profile_trace` is `torch.profiler` writing a Chrome trace,
+with the program's spans in it.
+
+The tracing (`enable`, `disable`, `span`, `count`, `host_read`, `take`)
+is off by default. Off, `span` returns one shared no-op context manager,
+`count` and `annotate` return at once and `host_read(x, site)` is
+`x.item()`: nothing is recorded, allocated or locked. On, each span
+records its name, its start and end on `time.perf_counter_ns()`, its
+parent and a frame id (the outermost open span of a thread starts a new
+frame), and a few attributes (small ints or strings); counters add up by
+name. Everything stays in memory until `take()`. A sink given to `enable`
+also receives `(name, start_ns, end_ns)` for each finished span, as it
+finishes.
+
+The turbo path's spans (`gseg.` names) and counters:
+
+  gseg.segment      the body of `gseg_tpu_torch.segment`: the frame
+                    (algorithm, h, w)
+  gseg.stage_g, gseg.extract, gseg.stage2, gseg.final_map
+                    the four stages, around their calls in
+                    `models.turbo.segment_turbo_impl`
+  gseg.weights, gseg.rlist
+                    stage G's smoothing and edge weights, its root list
+  gseg.g_round      each stage-G round, `turbo._ground` (it, sizes)
+  gseg.s2_round     each stage-2 round, `turbo._s2_round` (kind: felz or
+                    min_size)
+  gseg.recompact, gseg.prune
+                    stage 2's pool recompactions and dead-edge prune
+  gseg.fixpoint     each dense fixpoint, `kernels.gossip._fixpoint`
+                    (variant, h, w, fields, padded, closures, passes,
+                    pairs)
+  gseg.read.<site>  each read of a device value into the host
+                    (`host_read`), counted as host_reads.<site>
+  fixpoint_passes.<variant>   step passes (the plain versions' sweeps)
+  closure_launches.<variant>  closure launches
+  tiles.<variant>, tiles_seeded.<variant>
+                    tiles the step kernel was launched over, in every
+                    pass and in seeded first passes
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Dict
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -56,12 +96,188 @@ class PhaseTimer:
         return json.dumps({k: round(v, 5) for k, v in self.phases.items()})
 
 
+# ---------------------------------------------------------------------------
+# the program's spans and counters
+# ---------------------------------------------------------------------------
+
+
+class SpanRecord(NamedTuple):
+    """One finished span: its id, name, start and end (perf_counter_ns),
+    the id of the span it was opened in (None: none), its frame id and its
+    attributes."""
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    frame: int
+    attrs: dict
+
+
+class Record(NamedTuple):
+    """What `take` hands back: the finished spans in the order they
+    finished, and the counters by name."""
+    spans: list
+    counters: dict
+
+
+_on = False
+_sink: Optional[Callable] = None
+_spans: list = []
+_counters: Dict[str, int] = {}
+_lock = threading.Lock()
+_local = threading.local()
+_ids = itertools.count(1)
+_frames = itertools.count(1)
+_read_names: Dict[str, tuple] = {}
+
+
+def _stack() -> list:
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "frame", "start")
+
+    def __init__(self, name, attrs):
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self):
+        stack = _stack()
+        self.id = next(_ids)
+        if stack:
+            self.parent, self.frame = stack[-1].id, stack[-1].frame
+        else:
+            self.parent, self.frame = None, next(_frames)
+        stack.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        _stack().pop()
+        rec = SpanRecord(self.id, self.name, self.start, end, self.parent,
+                         self.frame, self.attrs)
+        with _lock:
+            _spans.append(rec)
+        sink = _sink
+        if sink is not None:
+            sink((self.name, self.start, end))
+        return False
+
+
+class _NoSpan:
+    """The span of tracing off: enters and exits, recording nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def enable(sink: Optional[Callable] = None) -> None:
+    """Turn the tracing on (again: the same), with `sink` (None: none)
+    receiving (name, start_ns, end_ns) of each span as it finishes."""
+    global _on, _sink
+    _sink = sink
+    _on = True
+
+
+def disable() -> None:
+    """Turn the tracing off; what was recorded stays until `take`."""
+    global _on, _sink
+    _on = False
+    _sink = None
+
+
+def enabled() -> bool:
+    """Whether the tracing is on."""
+    return _on
+
+
+def span(name: str, **attrs):
+    """A context manager timing the block as a span called `name`, with
+    the attributes `attrs` (`annotate` adds more from inside it)."""
+    if not _on:
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def annotate(name: str, **attrs) -> None:
+    """Add attributes to this thread's innermost open span if it is called
+    `name` (a callee filling in what only it knows)."""
+    if not _on:
+        return
+    stack = _stack()
+    if stack and stack[-1].name == name:
+        stack[-1].attrs.update(attrs)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name`."""
+    if not _on:
+        return
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def host_read(x, site: str):
+    """x.item(): a read of a device value into the host, which waits for
+    the card. Traced, it is the span gseg.read.<site>, counted as
+    host_reads.<site>."""
+    if not _on:
+        return x.item()
+    names = _read_names.get(site)
+    if names is None:
+        names = _read_names.setdefault(
+            site, ("gseg.read." + site, "host_reads." + site))
+    with _Span(names[0], {}):
+        value = x.item()
+    count(names[1])
+    return value
+
+
+def take() -> Record:
+    """What was recorded since the last take, which is cleared."""
+    global _spans, _counters
+    with _lock:
+        rec = Record(_spans, _counters)
+        _spans, _counters = [], {}
+    return rec
+
+
+def _clock_offset() -> int:
+    """Unix-epoch ns (the profiler's clock) minus perf_counter_ns, from
+    the tightest of a few paired readings."""
+    best = None
+    for _ in range(7):
+        a = time.perf_counter_ns()
+        u = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, u - (a + b) // 2)
+    return best[1]
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str = TRACE_DIR):
     """Profile the block with `torch.profiler` (CPU activity, and CUDA
     activity when a card is present) and write its Chrome trace to
     `log_dir/<pid>.<ns>.pt.trace.json` when the block ends: the
-    counterpart of the reference's xprof trace. Yields the profiler, whose
+    counterpart of the reference's xprof trace. The program's tracing is
+    on for the block (a sink given before goes on receiving), and its
+    spans are written into the trace on the profiler's clock (category
+    "gseg", on the block's thread). Yields the profiler, whose
     `key_averages()` hold the block's events once it has ended. The card
     is synchronised before the profiler stops, so the work the block
     queued is in the trace."""
@@ -70,12 +286,40 @@ def profile_trace(log_dir: str = TRACE_DIR):
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-        if cuda:
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+    was_on, sink = _on, _sink
+    spans = []
+
+    def keep(s):
+        spans.append(s)
+        if sink is not None:
+            sink(s)
+
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            offset = _clock_offset()
+            enable(keep)
+            yield prof
+            if cuda:
+                torch.cuda.synchronize()
+    finally:
+        if was_on:
+            enable(sink)
+        else:
+            disable()
+    path = os.path.join(log_dir,
+                        f"{os.getpid()}.{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    # Chrome trace times: microseconds since the trace's base (Unix ns)
+    base = int(trace.get("baseTimeNanoseconds", 0)) - offset
+    pid, tid = os.getpid(), threading.get_native_id()
+    trace["traceEvents"] += [
+        {"ph": "X", "cat": "gseg", "name": name, "pid": pid, "tid": tid,
+         "ts": (start - base) / 1e3, "dur": (end - start) / 1e3}
+        for name, start, end in spans]
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def device_seconds(prof) -> float:

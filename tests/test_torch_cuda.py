@@ -23,6 +23,7 @@ from gseg_tpu_torch.ops.kernels import extract as kx  # noqa: E402
 from gseg_tpu_torch.ops.kernels import gossip as kg  # noqa: E402
 from gseg_tpu_torch.ops.kernels import pad as kp  # noqa: E402
 from gseg_tpu_torch.ops.kernels import runs as kr  # noqa: E402
+from gseg_tpu_torch.utils import timing  # noqa: E402
 from gseg_tpu_torch.utils.synthetic import blobs_image  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -429,15 +430,73 @@ def test_closure_route_engages_past_the_warm_passes(dev):
     val = torch.from_numpy(rng.integers(0, 1 << 30, (h, w)).astype(
         np.int32)).to(dev)
     ms = 4 * (h + w)
-    kg.HYBRID_LOG.clear()
     n0 = list(kg.value_closure.axis_launches)
-    got, unconv = kg.value_flood(L, val, ms, closures=True)
+    timing.take()
+    timing.enable()
+    try:
+        got, unconv = kg.value_flood(L, val, ms, closures=True)
+    finally:
+        timing.disable()
+    rec = timing.take()
     ref, ref_unconv = kg.value_flood_plain(L, val, ms)
     assert torch.equal(got, ref) and unconv is ref_unconv is False
-    assert [(v, s) for v, s, _ in kg.HYBRID_LOG] == [("value",
-                                                      kg.WARM_PASSES)]
-    assert kg.HYBRID_LOG[0][2] > 0
+    (fix,) = [s.attrs for s in rec.spans if s.name == "gseg.fixpoint"]
+    assert (fix["variant"], fix["closures"]) == ("value", 1)
+    # the warm passes, then two step passes a pair
+    assert fix["pairs"] > 0
+    assert fix["passes"] - 2 * fix["pairs"] == kg.WARM_PASSES
+    assert rec.counters["fixpoint_passes.value"] == fix["passes"]
+    assert rec.counters["closure_launches.value"] == 2 * fix["pairs"]
     assert all(b > a for a, b in zip(n0, kg.value_closure.axis_launches))
+
+
+@pytest.mark.parametrize("wb", [0, 16])
+def test_traced_frame_on_the_card(dev, monkeypatch, wb):
+    """A traced turbo frame on the card (quality mode with the closures
+    from the first pass): the labels equal the untraced frame's; the
+    host-read counters equal a count of CUDA tensor reads; each
+    fixpoint's passes add up to the pass counters and its pairs to the
+    closure launches; the tile counters count the step kernel's
+    launches."""
+    if wb:
+        monkeypatch.setattr(kg, "WARM_PASSES", 0)
+    cfg = SegmentationConfig(algorithm="turbo", weight_buckets=wb,
+                             on_overflow="ignore")
+    image = blobs_image(270, 480, 8, 8.0, 5)
+    off = gseg_tpu_torch.segment(image, config=cfg, device=dev)
+    seen = [0]
+
+    def make(fn):
+        def read(self, *args, **kwargs):
+            seen[0] += self.is_cuda
+            return fn(self, *args, **kwargs)
+        return read
+
+    for m in ("item", "__bool__", "__int__", "__float__", "tolist"):
+        monkeypatch.setattr(torch.Tensor, m, make(getattr(torch.Tensor, m)))
+    timing.take()
+    timing.enable()
+    try:
+        on = gseg_tpu_torch.segment(image, config=cfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        timing.disable()
+    rec = timing.take()
+    assert torch.equal(off, on)
+    c = rec.counters
+    assert sum(v for k, v in c.items() if k.startswith("host_reads.")) \
+        == seen[0] > 0
+    fix = [s.attrs for s in rec.spans if s.name == "gseg.fixpoint"]
+    for v in {a["variant"] for a in fix}:
+        assert sum(a["passes"] for a in fix if a["variant"] == v) == \
+            c[f"fixpoint_passes.{v}"]
+    pairs = sum(a["pairs"] for a in fix)
+    assert pairs * 2 == sum(
+        v for k, v in c.items() if k.startswith("closure_launches."))
+    assert (pairs > 0) == (wb > 0)
+    assert all(c[f"tiles.{v}"] >= c[f"fixpoint_passes.{v}"]
+               for v in {a["variant"] for a in fix})
+    assert c.get("tiles_seeded.labelnd", 0) > 0
 
 
 @pytest.mark.parametrize("shape", SHAPES + [(1080, 1920)])
