@@ -225,12 +225,30 @@ arguments). It
      atomic_hostsync and turbo_wb16 at 540p, counted as one path, each
      row flags 0 and its oracle's partition and re-run counted; then
      `bench.summarize` over the step's records, printed.
+ 15. holds stage 2's graphed rounds (`turbo._S2Graphs`) on the
+     benchmark's four frames (blobs 1080p in speed and quality mode,
+     blobs 4K, the 321x481 photo-like scene): `_s2_stage` V-indexed (no
+     root list), in root-index space op by op (no workspace) and on a
+     new workspace three times (the size's first frame runs op by op,
+     the second captures, the third only replays): fin, the flags and
+     the final labels bit-equal, every round of the plan's phases
+     replayed, the graphs' bytes, their memory pool counted, within
+     `turbo._S2_GRAPH_BYTES` a pixel and the plan's bytes; it prints the
+     held bytes, the pool's, the reserved MiB each frame adds, captures
+     and replays a frame, stage 2's and the frame's milliseconds graphed
+     and not, and each stage's peak allocation. Whole frames with the
+     graphs on and off; the 540p row-sharded turbo path on 4 ranks
+     (which pass no workspace) against its V-indexed rounds and dense,
+     timed both ways, and taking turns against running free; the turbo
+     hierarchy and fastmst at 1080p the same with the graphs on and off
+     (they capture and replay none).
 
 `python3 chip_smoke.py --cards`, on a machine with several cards, runs
 only the row-sharded paths with one rank on each card (PERF.md: each
 rank's peak memory). `python3 chip_smoke.py --alternatives` builds the
 kernels and runs step 12 alone, `python3 chip_smoke.py --parity` step 13,
-`python3 chip_smoke.py --evidence` step 14.
+`python3 chip_smoke.py --evidence` step 14, `python3 chip_smoke.py
+--s2-graphs` step 15.
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -1246,13 +1264,16 @@ def _stage_split(image, cfg, reps):
     wts = weights()
     gst, _, thr = turbo._stage_g(image, cfg, GOSSIP_ROUNDS, wts)
     st, rm, r0 = turbo._extract_stage(gst, wts, cfg)
-    st2 = turbo._s2_stage(st, v, cfg, thr)
+    ws = turbo._s2_workspace(image.device)
+    for _ in range(2):   # a size's second frame captures the graphs
+        st2 = turbo._s2_stage(st, v, cfg, thr, r0, ws)
     out["weights"] = _cuda_ms(weights, reps)
     out["stage_g"] = _cuda_ms(
         lambda: turbo._stage_g(image, cfg, GOSSIP_ROUNDS, wts), reps)
     out["handoff"] = _cuda_ms(lambda: turbo._extract_stage(gst, wts, cfg),
                               reps)
-    out["stage_2"] = _cuda_ms(lambda: turbo._s2_stage(st, v, cfg, thr), reps)
+    out["stage_2"] = _cuda_ms(
+        lambda: turbo._s2_stage(st, v, cfg, thr, r0, ws), reps)
     out["final_map"] = _cuda_ms(
         lambda: turbo._final_map(gst, st2, rm, r0, 4 * (h + w),
                                  closures=quality), reps)
@@ -4229,6 +4250,279 @@ _KEYS_8K = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "max_abs_err")
 
 
+# ---------------------------------------------------------------------------
+# step 15: stage 2's graphed rounds (models/turbo.py `_S2Graphs`)
+# ---------------------------------------------------------------------------
+
+# the benchmark's four frames: (h, w, weight_buckets, content)
+S2_FRAMES = {
+    "speed_1080p": (1080, 1920, 0, "blobs"),
+    "quality_1080p": (1080, 1920, 16, "blobs"),
+    "speed_4k": (2160, 3840, 0, "blobs"),
+    "speed_photos": (321, 481, 0, "bsds_like"),
+}
+
+
+@contextlib.contextmanager
+def _s2_graphs(on):
+    """Stage 2's graphs on or off (no workspace: every round op by op) for
+    the block."""
+    was = turbo._s2_workspace
+    if not on:
+        turbo._s2_workspace = lambda device: None
+    try:
+        yield
+    finally:
+        turbo._s2_workspace = was
+
+
+def _s2_frame(h, w, content, dev, seed=0):
+    from gseg_tpu_torch.utils.synthetic import bsds_like_scene
+
+    img = (blobs_image(h, w, max(8, h * w // 65536), 8.0, seed)
+           if content == "blobs" else bsds_like_scene(h, w, 90, seed)[0])
+    return torch.from_numpy(np.ascontiguousarray(img)).to(dev)
+
+
+def _s2_counted(fn):
+    """fn() with the tracing on: (result, s2_graph and s2_merged counts,
+    graphed rounds)."""
+    with _traced() as t:
+        out = fn()
+        torch.cuda.synchronize()
+    c = t.rec.counters
+    spans = [sp for sp in t.rec.spans if sp.name == "gseg.s2_round"]
+    return out, {"captures": c.get("s2_graph.captures", 0),
+                 "replays": c.get("s2_graph.replays", 0),
+                 "rounds": c.get("host_reads.s2_merged", 0),
+                 "graphed": sum(sp.attrs["graphed"] for sp in spans)}
+
+
+def _stage_peaks(image, cfg):
+    """MiB allocated at the peak of each stage of one frame of
+    segment_turbo_impl (the peak statistic reset as each stage starts),
+    and the MiB allocated before the frame."""
+    h, w = image.shape[:2]
+    v = h * w
+    base = _peak_reset() / 2**20
+    peaks = {}
+
+    def stage(name, fn):
+        _peak_reset()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**20
+        return out
+
+    gst, wts, thr = stage("stage_g", lambda: turbo._stage_g(
+        image, cfg, GOSSIP_ROUNDS))
+    st, rm, r0 = stage("extract", lambda: turbo._extract_stage(gst, wts,
+                                                               cfg))
+    st2 = stage("stage2", lambda: turbo._s2_stage(
+        st, v, cfg, thr, r0, turbo._s2_workspace(image.device)))
+    stage("final_map", lambda: turbo._final_map(
+        gst, st2, rm, r0, 4 * (h + w),
+        closures=cfg.weight_buckets > 0 and turbo._Q_CLOSURES))
+    return peaks, base
+
+
+def _fresh_workspace(device):
+    """A new workspace for the card, the last one's graphs and memory pool
+    handed back to the card: what a process of one frame size holds."""
+    ws = turbo._S2Graphs(device)
+    turbo._S2_WORKSPACES[device.index or 0] = ws
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ws
+
+
+def _s2_graph_check(name, image, cfg, card):
+    """Stage 2 of one frame three ways: V-indexed (no root list), in
+    root-index space op by op (no workspace), graphed (three times: the
+    size's first frame runs op by op, the second captures, the third only
+    replays). fin and the flags must be bit-equal, and so the final
+    labels; the graphs' bytes, their memory pool counted, at most
+    `turbo._S2_GRAPH_BYTES` a pixel and at most the plan's; then whole
+    frames with the graphs on and off, their labels equal, and each
+    stage's peak."""
+    h, w = image.shape[:2]
+    v = h * w
+    ws = _fresh_workspace(image.device)
+    gst, wts, thr = turbo._stage_g(image, cfg, GOSSIP_ROUNDS)
+    st, rm, r0 = turbo._extract_stage(gst, wts, cfg)
+    vidx = turbo._s2_stage(st, v, cfg, thr)
+    eager = turbo._s2_stage(st, v, cfg, thr, r0)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        runs.append(_s2_counted(
+            lambda: turbo._s2_stage(st, v, cfg, thr, r0, ws)))
+        runs[-1] += ((torch.cuda.memory_reserved() - reserved) / 2**20,)
+    plan, held = turbo._s2_graph_plan(v, cfg, st.esrc.numel() // 2)
+    keys = {key for key in plan.values() if key is not None}
+    maps = [turbo._final_map(gst, s, rm, r0, 4 * (h + w))[0]
+            for s in [vidx, eager] + [r[0] for r in runs]]
+    for what, s, lab in zip(("root-space eager", "first frame",
+                             "second frame (captures)", "third frame"),
+                            [eager] + [r[0] for r in runs], maps[1:]):
+        if not (torch.equal(s.fin, vidx.fin) and int(s.flags) ==
+                int(vidx.flags) and s.it == vidx.it
+                and torch.equal(lab, maps[0])):
+            raise AssertionError(f"s2 graphs {name}: {what} stage 2 differs "
+                                 "from the V-indexed one")
+    c1, c2, c3 = (r[1] for r in runs)
+    if (c1["captures"] or c1["replays"] or c2["captures"] != len(keys)
+            or c3["captures"] or c3["replays"] != c3["graphed"]
+            or bool(c3["graphed"]) != bool(keys)):
+        raise AssertionError(f"s2 graphs {name}: frames {c1} {c2} {c3}, "
+                             f"{len(keys)} keys")
+    pool = turbo._pool_reserved(ws.pool)
+    if not ws.held_bytes() <= min(held, turbo._S2_GRAPH_BYTES * v):
+        raise AssertionError(f"s2 graphs {name}: {ws.held_bytes()} bytes "
+                             f"held (pool {pool}), plan {held}, over "
+                             f"{turbo._S2_GRAPH_BYTES} a pixel")
+    graphed_ms, eager_ms, vidx_ms = _turns_ms([
+        lambda: turbo._s2_stage(st, v, cfg, thr, r0, ws),
+        lambda: turbo._s2_stage(st, v, cfg, thr, r0),
+        lambda: turbo._s2_stage(st, v, cfg, thr)], 7)
+    # whole frames, graphs on and off
+    (lab_on, fl_on), c_on = _s2_counted(
+        lambda: turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS))
+    with _s2_graphs(False):
+        lab_off, fl_off = turbo.segment_turbo_flagged(image, cfg,
+                                                      GOSSIP_ROUNDS)
+    if fl_on or fl_off or not torch.equal(lab_on, lab_off):
+        raise AssertionError(f"s2 graphs {name}: whole frame flags "
+                             f"{fl_on}/{fl_off}, labels equal "
+                             f"{torch.equal(lab_on, lab_off)}")
+    frame_on, frame_off = _turns_ms([
+        lambda: turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS),
+        lambda: _with_graphs_off(turbo.segment_turbo_flagged, image, cfg,
+                                 GOSSIP_ROUNDS)], 5)
+    peaks, base = _stage_peaks(image, cfg)
+    with _s2_graphs(False):
+        peaks_off, base_off = _stage_peaks(image, cfg)
+    rec = {"flags": int(vidx.flags), "rounds": c3["rounds"],
+           "graphed_rounds": c3["graphed"], "replays": c3["replays"],
+           "captures": [c1["captures"], c2["captures"], c3["captures"]],
+           "frame_counts": c_on,
+           "graphed_phases": sorted(p for p, k in plan.items() if k),
+           "held_bytes": ws.held_bytes(), "pool_bytes": pool,
+           "plan_bytes": held, "held_per_pixel": ws.held_bytes() / v,
+           "reserved_delta_mib": [r[2] for r in runs],
+           "stage2_ms": {"graphed": graphed_ms, "root_eager": eager_ms,
+                         "v_indexed": vidx_ms},
+           "frame_ms": {"graphs_on": frame_on, "graphs_off": frame_off},
+           "stage_peak_mib": peaks, "stage_peak_mib_graphs_off": peaks_off,
+           "allocated_before_mib": [base, base_off]}
+    print(f"check s2 graphs {name}: fin, flags ({rec['flags']}) and final "
+          f"labels bit-equal V-indexed / root-space eager / graphed; "
+          f"{c3['rounds']} rounds a frame, {c3['graphed']} graphed, "
+          f"{c3['replays']} replays, captures {rec['captures']} (frames "
+          f"1-3); graphed phases {rec['graphed_phases']}; held "
+          f"{ws.held_bytes()} B ({ws.held_bytes() / v:.3f} B a pixel; "
+          f"memory pool {pool} B; plan {held}), reserved MiB a frame "
+          f"{_round(dict(enumerate(rec['reserved_delta_mib'])))}",
+          flush=True)
+    print(f"  s2 graphs {name}: stage 2 ms graphed {graphed_ms:.3f}, root "
+          f"eager {eager_ms:.3f}, V-indexed {vidx_ms:.3f}; frame ms graphs "
+          f"on {frame_on:.3f}, off {frame_off:.3f}; whole frame "
+          f"{c_on}; stage peaks MiB {_round(peaks)} (graphs off "
+          f"{_round(peaks_off)}), allocated before {base:.2f} / "
+          f"{base_off:.2f} ({card})", flush=True)
+    return rec
+
+
+def _round(d):
+    return {k: round(x, 2) for k, x in d.items()}
+
+
+def _with_graphs_off(fn, *args):
+    with _s2_graphs(False):
+        return fn(*args)
+
+
+@contextlib.contextmanager
+def _v_indexed():
+    """Stage 2 without the root list (its rounds V-indexed, as before root
+    space) for the block."""
+    was = turbo._s2_stage
+    turbo._s2_stage = lambda st, v, cfg, thr=None, r0=None, ws=None: was(
+        st, v, cfg, thr)
+    try:
+        yield
+    finally:
+        turbo._s2_stage = was
+
+
+def _s2_unchanged(name, run):
+    """A path that passes no workspace: the same output with the graphs
+    on and off, and no graph captured or replayed."""
+    out_on, c = _s2_counted(run)
+    with _s2_graphs(False):
+        out_off = run()
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(out_on, out_off))
+    print(f"check s2 graphs {name}: graphs on and off equal {same}, "
+          f"counts {c}", flush=True)
+    if not same or c["captures"] or c["replays"]:
+        raise AssertionError(f"s2 graphs {name}: changed by the graphs")
+    return {"equal": same} | c
+
+
+def _s2_graphs_step(dev, card):
+    """Step 15: returns (runs, step record)."""
+    t0 = time.perf_counter()
+    rows = {}
+    for name, (h, w, wb, content) in S2_FRAMES.items():
+        cfg = dataclasses.replace(CFG, weight_buckets=wb)
+        rows[name] = _s2_graph_check(name, _s2_frame(h, w, content, dev),
+                                     cfg, card)
+    img1080 = _s2_frame(1080, 1920, "blobs", dev)
+    img540 = _s2_frame(540, 960, "blobs", dev)
+    mesh = spatial.spatial_mesh(["cuda:0"] * 4)
+
+    def spatial_run():
+        return turbo_spatial.segment_turbo_spatial(img540, CFG, mesh)
+
+    # the ranks pass no workspace: their rounds run op by op in root space
+    (lab, fl), c = _s2_counted(spatial_run)
+    with _v_indexed():
+        lab_v, fl_v = spatial_run()
+    dense, dfl = turbo.segment_turbo_flagged(img540, CFG, GOSSIP_ROUNDS)
+    if fl or fl_v or c["captures"] or c["replays"] or not (
+            torch.equal(lab, lab_v) and torch.equal(lab, dense)):
+        raise AssertionError(f"s2 graphs spatial: rows differ or graphed "
+                             f"({c})")
+    root_ms, vidx_ms = _turns_ms([
+        lambda: spatial_run(),
+        lambda: _in_v_indexed(spatial_run)], 5)
+    print(f"check s2 graphs spatial_540p_4ranks: flags {fl}, labels equal "
+          f"V-indexed and dense; counts {c}; ms a call root space "
+          f"{root_ms:.3f}, V-indexed {vidx_ms:.3f} ({card})", flush=True)
+    # the ranks running free
+    rows["spatial_540p_4ranks"] = {
+        "equal": True, "ms_root_space": root_ms, "ms_v_indexed": vidx_ms,
+        "turns_free_ms": _turns_ab("s2 graphs spatial_540p_4ranks",
+                                   spatial_run, card, pairs=1)} | c
+    rows["turbo_hierarchy_1080p"] = _s2_unchanged(
+        "turbo_hierarchy_1080p",
+        lambda: turbo.segment_turbo_hierarchy_flagged(img1080, CFG,
+                                                      GOSSIP_ROUNDS))
+    rows["fastmst_1080p"] = _s2_unchanged(
+        "fastmst_1080p", lambda: fastmst.segment_fastmst_flagged(img1080,
+                                                                 CFG))
+    step = {"seconds": time.perf_counter() - t0}
+    print(f"step 15 took {step['seconds']:.1f} s", flush=True)
+    return {f"s2_graphs_{k}": v for k, v in rows.items()}, step
+
+
+def _in_v_indexed(fn):
+    with _v_indexed():
+        return fn()
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4264,6 +4558,13 @@ def main() -> None:
         print("evidence: " + json.dumps(
             {p: {k: v for k, v in r.items() if k != "launches"}
              for p, r in runs.items()} | {"step": step}, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if sys.argv[1:] == ["--s2-graphs"]:
+        runs, step = _s2_graphs_step(dev, card)
+        print("s2 graphs: " + json.dumps(runs | {"step": step}, default=str))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4399,6 +4700,9 @@ def main() -> None:
     runs |= evidence_runs
     print(f"evidence campaign done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    s2_runs, s2_step = _s2_graphs_step(dev, card)
+    print(f"stage 2 graphs done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
                                    for m in sys.modules):
@@ -4454,7 +4758,9 @@ def main() -> None:
                                        "perf_half": perf_half,
                                        "alternatives": alternatives,
                                        "parity": parity_step,
-                                       "evidence": evidence_step},
+                                       "evidence": evidence_step,
+                                       "s2_graphs": s2_runs | {
+                                           "step": s2_step}},
         default=str))
     print(f"chip_smoke wall time {time.perf_counter() - t0:.1f} s",
           flush=True)

@@ -33,7 +33,12 @@ mode (`weight_buckets > 0`, scan closures on):
   component pair.
 
   STAGE 2 — compact Boruvka rounds on the edge pool (sorts, compaction,
-  pointer doubling), then the min-size rounds.
+  pointer doubling), then the min-size rounds. The rounds run in
+  root-index space: each label becomes its position in the handoff's
+  sorted root list, so the state is sized by the root list, not by V. On
+  a CUDA card the rounds whose graphs, buffers and memory pool together
+  fit `_S2_GRAPH_BYTES` bytes a pixel replay CUDA graphs over that state
+  (`_S2Graphs`), from a frame size's second frame in a row on.
 
   FINAL — each component's final root is placed on its root pixel and
   value-flooded over the stage-G components (`value_flood`).
@@ -66,6 +71,7 @@ are never silent.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -111,6 +117,7 @@ _RLIST_SPLIT = True     # root-list rounds: slice the list as roots thin out
 _RLIST_TIERS_Q = (16,)  # quality mode: the slices, V / each (a tier ladder)
 _LATE_CLOSURES = False  # speed mode: root-list rounds on the closure route
 _Q_CLOSURES = True      # quality mode: fixpoints on the closure route
+_S2_GRAPH_BYTES = 3     # stage 2's graphs: bytes kept a pixel, at most
 
 
 class GossipState(NamedTuple):
@@ -842,85 +849,107 @@ def _hook_roots(hm, hsrc, succ, v):
     return succ, hsrc[croot]
 
 
+def _s2_round_ops(st: CompactState, v, comp_cap, k, min_size,
+                  is_felz: bool, tau, canonical: bool):
+    """The ops of one compact round (`_s2_round`), with no host read:
+    (esrc, edst, SZf, IDf, fin, merged, flags), merged a 0-d device bool.
+    k and tau: numbers or 0-d device tensors."""
+    esrc, edst, ew = st.esrc, st.edst, st.ew
+    dev = esrc.device
+    live = (esrc != edst) & torch.isfinite(ew)
+    if tau is not None:
+        live &= ew <= tau
+    k1 = torch.where(live, esrc, INT32_MAX)
+    kw = torch.where(live, ew, torch.inf)
+    perm = _lexsort(_key64(k1, kw), st.eeid)
+    s_src, s_w, s_dst = k1[perm], kw[perm], edst[perm]
+    head = _run_heads(s_src) & (s_src != INT32_MAX)
+    hm, (hsrc, hw, hdst), head_ovf = _select_compact(
+        head, [s_src, s_w, s_dst], comp_cap)
+
+    if is_felz:
+        kf = (k if isinstance(k, torch.Tensor)
+              else torch.tensor(k, dtype=torch.float32, device=dev))
+        lhs_s = ((hw - _gather(st.IDf, hsrc))
+                 * _gather(st.SZf, hsrc).float())
+        lhs_d = ((hw - _gather(st.IDf, hdst))
+                 * _gather(st.SZf, hdst).float())
+        ok = (lhs_s <= kf) & (lhs_d <= kf)
+    else:
+        ok = _gather(st.SZf, hsrc) < min_size
+    succ, nr = _hook_roots(hm, hsrc, torch.where(hm & ok, hdst, hsrc), v)
+    hsrc_safe = torch.where(hm, hsrc, v)
+    iota = torch.arange(v, dtype=torch.int32, device=dev)
+
+    if canonical:
+        # relabel each cluster to its min member root.
+        canon = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
+                                    device=dev),
+                         torch.where(hm, nr, v),
+                         torch.where(hm, hsrc, INT32_MAX), "amin")
+        nr_canon = torch.where(hm, _gather(canon, nr), hsrc)
+    else:
+        nr_canon = nr
+    changed = hm & (nr_canon != hsrc)
+
+    M = _scatter(iota, hsrc_safe, nr_canon)
+    tgt = torch.where(changed, nr_canon, v)
+    SZf = _scatter(st.SZf, tgt,
+                   torch.where(changed, _gather(st.SZf, hsrc), 0), "sum")
+    IDf = _scatter(st.IDf, tgt,
+                   torch.where(changed, _gather(st.IDf, hsrc), 0.0), "amax")
+    # used hook edges contribute their weight to the new root's Int.
+    used = hm & (succ != hsrc)
+    IDf = _scatter(IDf, torch.where(used, nr_canon, v),
+                   torch.where(used, hw, 0.0), "amax")
+    return (M[esrc.to(torch.int64)], M[edst.to(torch.int64)], SZf, IDf,
+            M[st.fin.to(torch.int64)], changed.any(),
+            _raise_flag(st.flags, head_ovf, FLAG_COMP_OVERFLOW))
+
+
 def _s2_round(st: CompactState, v, comp_cap, k, min_size,
-              is_felz: bool, tau=None, canonical: bool = True
+              is_felz: bool, tau=None, canonical: bool = True, ws=None
               ) -> CompactState:
     """One compact round. is_felz: the predicate-gated felz round vs a
     min-size round. tau: the felz round's weight cap (quality mode; None:
     no cap). canonical: relabel each merged cluster to its min member root
     (turbo's labels), else keep the hook-chain sink root (the root-id
-    labels of the atomic path and the oracles, which fastmst gives)."""
-    with timing.span("gseg.s2_round",
-                     kind="felz" if is_felz else "min_size"):
-        esrc, edst, ew = st.esrc, st.edst, st.ew
-        dev = esrc.device
-        live = (esrc != edst) & torch.isfinite(ew)
-        if tau is not None:
-            live &= ew <= tau
-        k1 = torch.where(live, esrc, INT32_MAX)
-        kw = torch.where(live, ew, torch.inf)
-        perm = _lexsort(_key64(k1, kw), st.eeid)
-        s_src, s_w, s_dst = k1[perm], kw[perm], edst[perm]
-        head = _run_heads(s_src) & (s_src != INT32_MAX)
-        hm, (hsrc, hw, hdst), head_ovf = _select_compact(
-            head, [s_src, s_w, s_dst], comp_cap)
-
-        if is_felz:
-            kf = torch.tensor(k, dtype=torch.float32, device=dev)
-            lhs_s = ((hw - _gather(st.IDf, hsrc))
-                     * _gather(st.SZf, hsrc).float())
-            lhs_d = ((hw - _gather(st.IDf, hdst))
-                     * _gather(st.SZf, hdst).float())
-            ok = (lhs_s <= kf) & (lhs_d <= kf)
+    labels of the atomic path and the oracles, which fastmst gives).
+    ws: the thread's `_S2Graphs` on the state's card (None: the ops run
+    one by one); a round it holds a graph for is replayed on its buffers,
+    in place, and the state comes back on them."""
+    graph = None if ws is None else ws.graph(st, comp_cap, min_size,
+                                             is_felz, tau, canonical)
+    with timing.span("gseg.s2_round", kind="felz" if is_felz else "min_size",
+                     graphed=graph is not None):
+        if graph is None:
+            esrc, edst, SZf, IDf, fin, merged, flags = _s2_round_ops(
+                st, v, comp_cap, k, min_size, is_felz, tau, canonical)
         else:
-            ok = _gather(st.SZf, hsrc) < min_size
-        succ, nr = _hook_roots(hm, hsrc, torch.where(hm & ok, hdst, hsrc), v)
-        hsrc_safe = torch.where(hm, hsrc, v)
-        iota = torch.arange(v, dtype=torch.int32, device=dev)
-
-        if canonical:
-            # relabel each cluster to its min member root.
-            canon = _scatter(torch.full((v,), INT32_MAX, dtype=torch.int32,
-                                        device=dev),
-                             torch.where(hm, nr, v),
-                             torch.where(hm, hsrc, INT32_MAX), "amin")
-            nr_canon = torch.where(hm, _gather(canon, nr), hsrc)
-        else:
-            nr_canon = nr
-        changed = hm & (nr_canon != hsrc)
-
-        M = _scatter(iota, hsrc_safe, nr_canon)
-        tgt = torch.where(changed, nr_canon, v)
-        SZf = _scatter(st.SZf, tgt,
-                       torch.where(changed, _gather(st.SZf, hsrc), 0), "sum")
-        IDf = _scatter(st.IDf, tgt,
-                       torch.where(changed, _gather(st.IDf, hsrc), 0.0),
-                       "amax")
-        # used hook edges contribute their weight to the new root's Int.
-        used = hm & (succ != hsrc)
-        IDf = _scatter(IDf, torch.where(used, nr_canon, v),
-                       torch.where(used, hw, 0.0), "amax")
-
+            st = ws.bind(st)
+            if tau is not None:
+                ws.tau.copy_(tau)
+            graph.replay()
+            timing.count("s2_graph.replays")
+            esrc, edst, SZf, IDf, fin = st.esrc, st.edst, st.SZf, st.IDf, \
+                st.fin
+            merged, flags = ws.merged, ws.flags
         return CompactState(
-            esrc=M[esrc.to(torch.int64)], edst=M[edst.to(torch.int64)],
-            ew=st.ew, eeid=st.eeid, SZf=SZf, IDf=IDf,
-            fin=M[st.fin.to(torch.int64)],
-            merged=host_read(changed.any(), "s2_merged"), it=st.it + 1,
-            bucket=st.bucket,
-            phase=st.phase,
-            flags=_raise_flag(st.flags, head_ovf, FLAG_COMP_OVERFLOW))
+            esrc=esrc, edst=edst, ew=st.ew, eeid=st.eeid, SZf=SZf, IDf=IDf,
+            fin=fin, merged=host_read(merged, "s2_merged"), it=st.it + 1,
+            bucket=st.bucket, phase=st.phase, flags=flags)
 
 
 def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
               thresholds, with_minsize: bool, flag_exhaustion: bool = True,
-              capture=None, canonical: bool = True):
+              capture=None, canonical: bool = True, ws=None):
     """Felz rounds to convergence, then (optionally) min-size rounds; the
     phase flips 0 -> 1 when a felz round merges nothing with every bucket
     open. thresholds: the bucket caps (quality mode) or None.
     flag_exhaustion=False for deliberately round-capped warm-up phases.
     capture: called with the root map `fin` after each felz round (the
     hierarchy's levels; min-size rounds refine the last level).
-    canonical: see _s2_round."""
+    canonical, ws: see _s2_round."""
     nb = 1 if thresholds is None else thresholds.numel()
     st = st._replace(merged=True, it=0)
     while st.merged and st.it < max_iters:
@@ -928,13 +957,13 @@ def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
         tau = (thresholds[st.bucket]
                if is_felz and thresholds is not None else None)
         s2 = _s2_round(st, v, comp_cap, k, min_size, is_felz, tau,
-                       canonical)
+                       canonical, ws=ws)
         if is_felz:
             # bucket ramp: the cap rises one bucket per felz round.
             s2 = s2._replace(bucket=min(st.bucket + 1, nb - 1),
                              merged=s2.merged or st.bucket + 1 < nb)
             if capture is not None:
-                capture(s2.fin)
+                capture(s2.fin if ws is None else s2.fin.clone())
         if with_minsize and is_felz and not s2.merged:
             s2 = s2._replace(phase=1, merged=True)
         st = s2
@@ -959,7 +988,8 @@ def _prune_dead(st: CompactState, v, k, min_size):
     round can merge it again. An edge is dead when both endpoints are
     frozen and neither is small (min-size rounds only hook from small
     components, and the small[edst] term keeps every min-size hook target
-    a head). Returns st with dead edges' weights set to +inf."""
+    a head). k: a number or a 0-d device tensor. Returns st with dead
+    edges' weights set to +inf."""
     with timing.span("gseg.prune"):
         live = (st.esrc != st.edst) & torch.isfinite(st.ew)
         key = torch.where(live, st.esrc, INT32_MAX)
@@ -970,7 +1000,8 @@ def _prune_dead(st: CompactState, v, k, min_size):
         minw = _scatter(torch.full((v,), torch.inf, dtype=torch.float32,
                                    device=key.device),
                         torch.where(head, s_src, v), s_w, "amin")
-        kf = torch.tensor(k, dtype=torch.float32, device=key.device)
+        kf = (k if isinstance(k, torch.Tensor)
+              else torch.tensor(k, dtype=torch.float32, device=key.device))
         frozen = (minw - st.IDf) * torch.clamp(st.SZf.to(torch.float32),
                                                min=1.0) > kf
         small = st.SZf < min_size
@@ -989,49 +1020,370 @@ def _slice_pool(st: CompactState, pair_cap: int, cs: int) -> CompactState:
                        ew=take(st.ew), eeid=take(st.eeid))
 
 
+def _to_root_space(st: CompactState, r0) -> CompactState:
+    """The stage-2 entry state in root-index space: each label becomes its
+    position in the sorted root list r0 (which holds every endpoint of a
+    live edge unless it overflowed; dead slots' label 0 goes to position
+    0), SZf and IDf are taken at the roots, and each slot of fin holds its
+    own position. Positions order as the labels do, so the rounds make the
+    same merges, canonical labels and flags with len(r0) in place of V."""
+    at = r0.clamp(max=st.SZf.numel() - 1).to(torch.int64)
+    return st._replace(
+        esrc=torch.searchsorted(r0, st.esrc, out_int32=True),
+        edst=torch.searchsorted(r0, st.edst, out_int32=True),
+        SZf=st.SZf[at], IDf=st.IDf[at],
+        fin=torch.arange(r0.numel(), dtype=torch.int32, device=r0.device))
+
+
+def _from_root_space(st: CompactState, r0, v: int) -> CompactState:
+    """fin back as labels, as the V-indexed rounds leave it: each root
+    slot's final root, and the slots past the roots what label 0 became
+    (0 unless 0 is a root). The flags are copied off the workspace."""
+    lab = r0[st.fin.to(torch.int64)]
+    rest = torch.where(r0[0] == 0, lab[0], 0)
+    return st._replace(fin=torch.where(r0 != v, lab, rest),
+                       flags=st.flags.clone())
+
+
+class _S2Shape(NamedTuple):
+    """Stage 2's shapes at V pixels (`_s2_shape`), from the capacities
+    alone: the head capacity of the early rounds (comp_cap) and of the
+    main phase (main_cap), the recompacts' caps, the live-count slice (cs
+    pairs a half; small: whether it may be taken), the main phase's round
+    budget, and phases: each phase's rounds as (pool length, head
+    capacity, felz, weight-capped), the shapes `_s2_graph_plan` graphs.
+    warm_full / warm_slice: the first warm-up rounds on the whole or the
+    sliced pool; warm_rec1: speed mode's two rounds after the first
+    recompact; main_felz, main_min_size: the main phase."""
+    comp_cap: int
+    main_cap: int
+    rec1_cap: int
+    rec2_cap: int
+    cs: int
+    small: bool
+    iters: int
+    phases: dict
+
+
+def _s2_shape(v: int, cfg: SegmentationConfig, pair_cap: int) -> _S2Shape:
+    """See _S2Shape. pair_cap: the handoff pool's pairs."""
+    quality = cfg.weight_buckets > 0
+    caps = _s2_capacities(v, quality)
+    comp_cap = (v if v <= 1 << 20
+                else capacities(v, cfg.weight_buckets)["comp_cap"])
+    rec1_cap, rec2_cap = caps["rec1_cap"], caps["rec2_cap"]
+    cs = max(v // caps["small_div"], -(-rec1_cap // 2))
+    small = _S2_SMALL and cs < pair_cap
+    main = (rec1_cap, comp_cap) if quality else (rec2_cap, caps["comp_cap2"])
+    phases = {"warm_full": (2 * pair_cap, comp_cap, True, quality)}
+    if small:
+        phases["warm_slice"] = (2 * cs, comp_cap, True, quality)
+    if not quality:
+        phases["warm_rec1"] = (rec1_cap, comp_cap, True, False)
+    phases["main_felz"] = main + (True, quality)
+    if cfg.min_size > 1:
+        phases["main_min_size"] = main + (False, False)
+    return _S2Shape(comp_cap, main[1], rec1_cap, rec2_cap, cs, small,
+                    2 * cfg.max_iters + max(cfg.weight_buckets, 1), phases)
+
+
+def _s2_graph_key(e, c, head_cap, is_felz, capped, canonical, min_size):
+    """The graph of a round: pool length, root-list length, head capacity,
+    felz or min-size, whether a weight cap applies, the label convention,
+    and min_size (a constant of a min-size round's graph)."""
+    return (e, c, head_cap, is_felz, capped, canonical,
+            None if is_felz else min_size)
+
+
+_S2_SCALAR_BYTES = 4 * 512   # flags, merged, tau, k: one allocator block each
+_SEGMENT = 2 << 20           # the CUDA caching allocator's small segment,
+_SEGMENT_LARGE = 20 << 20    # and its segment for a block of 1-10 MiB
+
+
+def _s2_pool_bytes(e: int, c: int, head_cap: int) -> int:
+    """The private memory pool a round's graph reserves, at most (pool
+    length e, c roots): its intermediates at their peak, about 72 bytes a
+    pool entry, 25 a root and 18 a head (H100, PyTorch 2.x), a quarter
+    more for packing them into 2 MiB segments, and a 20 MiB segment once
+    the sort's scratch, about 24 bytes an entry, passes 1 MiB."""
+    peak = (72 * e + 25 * c + 18 * min(head_cap, e)) * 5 // 4
+    return (-(-peak // _SEGMENT) * _SEGMENT
+            + (_SEGMENT_LARGE if 24 * e > 1 << 20 else 0))
+
+
+def _s2_graph_plan(v: int, cfg: SegmentationConfig, pair_cap=None):
+    """Which of `_s2_stage`'s phases (`_s2_shape`) replay CUDA graphs at V
+    pixels, from the capacities alone. Returns (plan, held): plan maps
+    each phase to its graph key, or to None where its rounds run op by
+    op; held, the bytes the graphs keep from frame to frame: the static
+    buffers (4-byte words: one pool of the largest graphed length, esrc,
+    edst, ew, eeid; SZf, IDf, fin at the root list's length C; four
+    scalars) and the graphs' private memory pool, which replays one at a
+    time share (the largest `_s2_pool_bytes`). Phases are taken shortest
+    pool first while held stays at most `_S2_GRAPH_BYTES` a pixel.
+    pair_cap: the handoff pool's pairs (default the capacity)."""
+    cp = capacities(v, cfg.weight_buckets)
+    c = cp["comp_cap"]
+    shape = _s2_shape(v, cfg, cp["pair_cap"] if pair_cap is None
+                      else pair_cap)
+    plan = dict.fromkeys(shape.phases)
+    held = n_pool = pool = 0
+    for p, (e, hc, felz, capped) in sorted(shape.phases.items(),
+                                           key=lambda kv: kv[1][0]):
+        n2, pool2 = max(n_pool, e), max(pool, _s2_pool_bytes(e, c, hc))
+        need = 12 * c + _S2_SCALAR_BYTES + 16 * n2 + pool2
+        if need <= _S2_GRAPH_BYTES * v:
+            plan[p] = _s2_graph_key(e, c, hc, felz, capped, True,
+                                    cfg.min_size)
+            held, n_pool, pool = need, n2, pool2
+    return plan, held
+
+
+def _pool_reserved(pool) -> int:
+    """Bytes of the segments of a graph memory pool (None: 0)."""
+    if pool is None:
+        return 0
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id") or ()) == tuple(pool))
+
+
+class _S2Graphs:
+    """Stage 2's CUDA graphs on one card (`_s2_workspace`), for one frame
+    size at a time.
+
+    Static buffers, which the graphed rounds read and update in place: one
+    pool (esrc, edst, ew, eeid) of the largest graphed length, whose
+    prefixes the shorter pools use; SZf, IDf and fin at the root list's
+    length; the flags and merged scalars; tau, a capped felz round's
+    weight cap, copied in before each replay; k. One `torch.cuda.CUDAGraph`
+    per round key (`_s2_graph_key`), all captured on one stream into one
+    private memory pool: a graph's intermediates are dead when it ends,
+    and the graphs replay one at a time, so they share the pool's blocks.
+
+    `prepare` holds one size's plan: a size's first frame runs op by op,
+    its second in a row captures the plan's graphs (a capture records the
+    ops and runs none of them) and drops another size's, and later frames
+    replay them. A stream of mixed sizes thus captures nothing. One thread
+    at a time uses the workspace (`acquire`); another finds it busy and
+    runs op by op."""
+
+    def __init__(self, device):
+        self.device = device
+        self.busy = threading.Lock()
+        self.done = None      # event: the last user's work on the buffers
+        self.stream = None    # the captures' stream
+        self.keys = self.seen = None
+        self._drop()
+
+    def _drop(self) -> None:
+        # with the last graph its pool goes back to the allocator's cache
+        self.graphs, self.pool, self.buffers = {}, None, ()
+
+    def acquire(self) -> bool:
+        """Take the workspace for this thread's stage 2, unless another
+        thread holds it; this stream then waits for that thread's work."""
+        if not self.busy.acquire(blocking=False):
+            return False
+        if self.done is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.done)
+        return True
+
+    def release(self) -> None:
+        if self.device.type == "cuda":
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(self.device))
+        self.busy.release()
+
+    def prepare(self, plan: dict, k, budget: int) -> bool:
+        """Hold the graphs of `plan` (`_s2_graph_plan`), capturing them
+        when the same plan came on the previous call too, and set k.
+        Graphs whose bytes (`held_bytes`) pass `budget` are dropped, and
+        their plan then runs op by op. Returns whether graphs are held."""
+        keys = tuple(plan.values())
+        seen, self.seen = self.seen, keys
+        if keys != self.keys:
+            if keys != seen or not any(keys):
+                return False
+            self._drop()
+            self._alloc(max(key[0] for key in keys if key),
+                        max(key[1] for key in keys if key))
+            for key in dict.fromkeys(key for key in keys if key):
+                self.graphs[key] = self._capture(key)
+                timing.count("s2_graph.captures")
+            self.keys = keys
+            if self.held_bytes() > budget:
+                self._drop()
+        if self.graphs and k != self.k_val:
+            self.k.fill_(k)
+            self.k_val = k
+        return bool(self.graphs)
+
+    def _alloc(self, n_pool: int, n_root: int) -> None:
+        def buf(dtype, n=()):
+            return torch.zeros(n, dtype=dtype, device=self.device)
+
+        self.esrc, self.edst, self.eeid = (buf(torch.int32, n_pool)
+                                           for _ in range(3))
+        self.ew = buf(torch.float32, n_pool)
+        self.SZf, self.fin = (buf(torch.int32, n_root) for _ in range(2))
+        self.IDf = buf(torch.float32, n_root)
+        self.flags, self.merged = buf(torch.int32), buf(torch.bool)
+        self.tau, self.k, self.k_val = buf(torch.float32), \
+            buf(torch.float32), None
+        self.buffers = (self.esrc, self.edst, self.ew, self.eeid, self.SZf,
+                        self.IDf, self.fin, self.flags, self.merged,
+                        self.tau, self.k)
+
+    def held_bytes(self) -> int:
+        """Bytes the graphs keep: the static buffers and the segments of
+        their private memory pool."""
+        return (sum(t.untyped_storage().nbytes() for t in self.buffers)
+                + _pool_reserved(self.pool))
+
+    def _state(self, e: int, c: int) -> CompactState:
+        return CompactState(
+            esrc=self.esrc[:e], edst=self.edst[:e], ew=self.ew[:e],
+            eeid=self.eeid[:e], SZf=self.SZf[:c], IDf=self.IDf[:c],
+            fin=self.fin[:c], merged=True, it=0, bucket=0, phase=0,
+            flags=self.flags)
+
+    def _record(self, key) -> None:
+        """A graphed round's ops on the static buffers, updating them in
+        place: what a capture records."""
+        e, c, head_cap, is_felz, capped, canonical, min_size = key
+        st = self._state(e, c)
+        out = _s2_round_ops(st, c, head_cap, self.k, min_size, is_felz,
+                            self.tau if capped else None, canonical)
+        for dst, x in zip((st.esrc, st.edst, st.SZf, st.IDf, st.fin,
+                           self.merged, self.flags), out):
+            dst.copy_(x)
+
+    def _capture(self, key):
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(self.device)
+        # no device-wide synchronise: another thread's work on this card
+        # would fail on it
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
+            self._record(key)
+            graph.capture_end()
+        current.wait_stream(self.stream)
+        return graph
+
+    def graph(self, st: CompactState, comp_cap, min_size, is_felz, tau,
+              canonical):
+        """The graph of this round, or None (it runs op by op)."""
+        return self.graphs.get(_s2_graph_key(
+            st.esrc.numel(), st.SZf.numel(), comp_cap, is_felz,
+            tau is not None, canonical, min_size))
+
+    def bind(self, st: CompactState) -> CompactState:
+        """st on the static buffers: each array not there yet copied in."""
+        e, c = st.esrc.numel(), st.SZf.numel()
+        bound = self._state(e, c)
+        for name in ("esrc", "edst", "ew", "eeid", "SZf", "IDf", "fin",
+                     "flags"):
+            x, view = getattr(st, name), getattr(bound, name)
+            if x.data_ptr() != view.data_ptr():
+                view.copy_(x)
+        return bound._replace(merged=st.merged, it=st.it, bucket=st.bucket,
+                              phase=st.phase)
+
+
+_S2_WORKSPACES = {}
+_S2_WORKSPACES_LOCK = threading.Lock()
+
+
+def _s2_workspace(device):
+    """The card's `_S2Graphs` (one a card, whichever thread asks); None
+    off a CUDA card."""
+    if device.type != "cuda":
+        return None
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    with _S2_WORKSPACES_LOCK:
+        if index not in _S2_WORKSPACES:
+            _S2_WORKSPACES[index] = _S2Graphs(torch.device("cuda", index))
+        return _S2_WORKSPACES[index]
+
+
 def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
-              thresholds=None):
+              thresholds=None, r0=None, ws=None):
     """All stage-2 compact rounds. Speed mode: warm-up round, recompact,
     two rounds, prune, recompact, then the main phase with the min-size
     rounds. Quality mode (thresholds: the bucket caps): two warm-up rounds,
-    recompact, then the main phase."""
+    recompact, then the main phase.
+
+    r0: the handoff's sorted initial-root list (`_pools_to_state`). Given
+    it, the rounds run in root-index space (`_to_root_space`) unless a
+    root list overflowed, and fin and the flags come back as the V-indexed
+    rounds give them; of the state only these two are the caller's (the
+    pool, SZf and IDf stay root-indexed, and may lie in the workspace's
+    buffers). Without r0 every round runs V-indexed. ws: the card's
+    `_S2Graphs` (`_s2_workspace`), whose graphs then replay the rounds of
+    `_s2_graph_plan` in root-index space; None: every round op by op."""
+    pair_cap = st.esrc.numel() // 2
+    shape = _s2_shape(v, cfg, pair_cap)
+    # one read: the live pairs (the slice's test) and whether a root list
+    # overflowed (its endpoints then lack a position: V-indexed rounds)
+    live, roots = None, False
+    if shape.small or r0 is not None:
+        read = host_read(torch.isfinite(st.ew[:pair_cap]).sum() * 2
+                         + ((st.flags & FLAG_COMP_OVERFLOW) != 0), "s2_live")
+        live, roots = read >> 1, r0 is not None and not read & 1
+    n, k, graphs = v, cfg.k, None
+    if roots:
+        n, st = r0.numel(), _to_root_space(st, r0)
+    ws = ws if roots and ws is not None and ws.acquire() else None
+    try:
+        if ws is not None and ws.prepare(_s2_graph_plan(v, cfg, pair_cap)[0],
+                                         cfg.k, _S2_GRAPH_BYTES * v):
+            k, graphs = ws.k, ws
+        st = _s2_rounds(st, n, cfg, thresholds, shape, live, k, graphs)
+        return _from_root_space(st, r0, v) if roots else st
+    finally:
+        if ws is not None:
+            ws.release()
+
+
+def _s2_rounds(st: CompactState, n: int, cfg: SegmentationConfig,
+               thresholds, shape: _S2Shape, live, k, ws):
+    """`_s2_stage`'s rounds on n label slots: the early rounds on the
+    sliced pool when the live pairs fit it, else on the whole pool, then
+    the main phase."""
     quality = cfg.weight_buckets > 0
-    comp_cap = (v if v <= 1 << 20
-                else capacities(v, cfg.weight_buckets)["comp_cap"])
-    caps = _s2_capacities(v, quality)
-    rec1_cap = caps["rec1_cap"]
-    s2_iters = 2 * cfg.max_iters + max(cfg.weight_buckets, 1)
 
     def early(s: CompactState) -> CompactState:
-        s = _s2_phase(s, v, comp_cap, cfg.k, cfg.min_size,
+        s = _s2_phase(s, n, shape.comp_cap, k, cfg.min_size,
                       2 if quality else 1, thresholds, with_minsize=False,
-                      flag_exhaustion=False)
-        s, rec_ovf = _recompact_edges(s, rec1_cap)
+                      flag_exhaustion=False, ws=ws)
+        s, rec_ovf = _recompact_edges(s, shape.rec1_cap)
         s = s._replace(flags=_raise_flag(s.flags, rec_ovf,
                                          FLAG_RECOMPACT_OVERFLOW))
         if quality:
             return s
-        s = _s2_phase(s, v, comp_cap, cfg.k, cfg.min_size, 2, thresholds,
-                      with_minsize=False, flag_exhaustion=False)
-        s = _prune_dead(s, v, cfg.k, cfg.min_size)
-        s, rec2_ovf = _recompact_edges(s, caps["rec2_cap"])
+        s = _s2_phase(s, n, shape.comp_cap, k, cfg.min_size, 2, thresholds,
+                      with_minsize=False, flag_exhaustion=False, ws=ws)
+        s = _prune_dead(s, n, k, cfg.min_size)
+        s, rec2_ovf = _recompact_edges(s, shape.rec2_cap)
         return s._replace(flags=_raise_flag(s.flags, rec2_ovf,
                                             FLAG_RECOMPACT_OVERFLOW))
 
     # live-count small path: when every live pair fits a much smaller
     # slice, run the same early rounds on the sliced pool (dead slots past
     # the slice carry no information).
-    pair_cap = st.esrc.numel() // 2
-    cs = max(v // caps["small_div"], -(-rec1_cap // 2))
-    if (_S2_SMALL and cs < pair_cap
-            and host_read(torch.isfinite(st.ew[:pair_cap]).sum(),
-                          "s2_live") <= cs):
-        st = early(_slice_pool(st, pair_cap, cs))
+    if shape.small and live <= shape.cs:
+        st = early(_slice_pool(st, st.esrc.numel() // 2, shape.cs))
     else:
         st = early(st)
-    return _s2_phase(st, v, comp_cap if quality else caps["comp_cap2"],
-                     cfg.k, cfg.min_size, s2_iters, thresholds,
-                     with_minsize=cfg.min_size > 1)
+    return _s2_phase(st, n, shape.main_cap, k, cfg.min_size, shape.iters,
+                     thresholds, with_minsize=cfg.min_size > 1, ws=ws)
 
 
 def _value_flood(L, seed, max_sweeps, closures=False, comm=DENSE):
@@ -1083,7 +1435,8 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
     with timing.span("gseg.extract"):
         st, rm, r0 = _extract_stage(gst, weights, cfg)
     with timing.span("gseg.stage2"):
-        st = _s2_stage(st, v, cfg, thresholds)
+        st = _s2_stage(st, v, cfg, thresholds, r0,
+                       _s2_workspace(image.device))
     with timing.span("gseg.final_map"):
         labels, fm_unconv = _final_map(
             gst, st, rm, r0, 4 * (h + w),

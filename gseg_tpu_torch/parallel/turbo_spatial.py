@@ -224,7 +224,7 @@ def _turbo_rank(rank, tile, cfg: SegmentationConfig, gossip_rounds: int,
     gst = _stage_g_spatial(w8, eid8, vidg, v, max_sweeps, cfg, gossip_rounds,
                            thresholds, comm)
     st, rm, r0, Lg = _extract_spatial(comm, gst, weights, vidg, v, cfg)
-    st = turbo._s2_stage(st, v, cfg, thresholds)
+    st = turbo._s2_stage(st, v, cfg, thresholds, r0)
     # the final map: the replicated root table seeds the tile's root
     # pixels, then the spatial value flood; under turbo._FINAL_GATHER each
     # pixel gathers its root's entry (the tile's labels are global root

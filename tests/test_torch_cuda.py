@@ -1078,3 +1078,48 @@ def test_evidence_quality_rows_on_card(dev, tmp_path):
     for r in rows:
         ref = record[r["image"], r["algorithm"]]
         assert (r["asa"], r["ue"]) == (ref["asa"], ref["ue"]), r
+
+
+@pytest.mark.parametrize("wb", [0, 16])
+def test_s2_graphs_equal_eager_on_card(dev, wb):
+    """Stage 2's graphed rounds on the card (1080p, speed and quality
+    mode): fin, the flags and the round count equal the rounds run op by
+    op in root-index space and V-indexed. The size's first frame captures
+    nothing, its second every graph of its plan, the third none, and a
+    round replays for each graphed round; the graphs keep at most 3 bytes
+    a pixel, their memory pool counted. (Quality mode's plan graphs
+    nothing: each of its rounds needs a 20 MiB segment of pool.)"""
+    cfg = SegmentationConfig(algorithm="turbo", weight_buckets=wb)
+    image = torch.from_numpy(blobs_image(1080, 1920, 31, 8.0, 3)).to(dev)
+    v = 1080 * 1920
+    gst, wts, thr = turbo._stage_g(image, cfg, 2)
+    st, rm, r0 = turbo._extract_stage(gst, wts, cfg)
+    vidx = turbo._s2_stage(st, v, cfg, thr)
+    eager = turbo._s2_stage(st, v, cfg, thr, r0)
+    ws = turbo._S2Graphs(dev)
+    plan, held = turbo._s2_graph_plan(v, cfg, st.esrc.numel() // 2)
+    keys = {key for key in plan.values() if key is not None}
+    assert bool(keys) == (wb == 0)
+    for frame in range(3):
+        timing.take()
+        timing.enable()
+        try:
+            got = turbo._s2_stage(st, v, cfg, thr, r0, ws)
+            torch.cuda.synchronize()
+        finally:
+            timing.disable()
+        rec = timing.take()
+        graphed = [sp.attrs["graphed"] for sp in rec.spans
+                   if sp.name == "gseg.s2_round"]
+        for ref in (eager, vidx):
+            assert torch.equal(got.fin, ref.fin)
+            assert int(got.flags) == int(ref.flags) == 0
+            assert got.it == ref.it
+        assert rec.counters.get("s2_graph.captures", 0) == (
+            len(keys) if frame == 1 else 0)
+        assert rec.counters.get("s2_graph.replays", 0) == sum(graphed)
+        assert (sum(graphed) > 0) == (frame > 0 and bool(keys))
+    if keys:
+        assert 0 < ws.held_bytes() <= held <= 3 * v
+    else:
+        assert ws.held_bytes() == 0
