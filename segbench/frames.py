@@ -24,6 +24,8 @@ CONTENT = {
         t["height"], t["width"], t["num_blobs"], t["noise"], s)),
     "bsds_like": (("n_regions",), lambda t, s: synthetic.bsds_like_image(
         t["height"], t["width"], t["n_regions"], s)),
+    "textured": ((), lambda t, s: synthetic.textured_image(
+        t["height"], t["width"], s)),
 }
 # every mix's keys besides its content's parameters
 COMMON = ("name", "source", "loop", "callers", "content", "height", "width",

@@ -12,7 +12,8 @@ made anew in every run, so it counts; its time is printed on a line of
 its own beside the others.
 
 The window: one caller hands frame after frame, cycling through the pool,
-to `gseg_tpu_torch.segment(frame, config=cfg, device="cuda:0")`; a frame's
+to `gseg_tpu_torch.segment(frame, config=cfg, device="cuda:0")`, on the
+path the configuration's `algorithm` names (one of EXACT); a frame's
 latency runs from the call until its labels are ready on the card
 (`torch.cuda.synchronize`). The frames of the window's first pool cycle
 and of two more cycles, starting at times drawn from the seed, are
@@ -83,9 +84,28 @@ def program_config(config: dict, overrides: dict | None = None):
 
 # configuration keys with the one value that the harness and the
 # reference implement, and keys that only describe the file
-FIXED = {"entry": "gseg_tpu_torch.segment", "algorithm": "turbo",
-         "hierarchy_levels": 0, "quantize_weight_bits": 0,
-         "on_overflow": "raise", "precision": "float32"}
+FIXED = {"entry": "gseg_tpu_torch.segment", "hierarchy_levels": 0,
+         "quantize_weight_bits": 0, "on_overflow": "raise",
+         "precision": "float32"}
+# the values of `algorithm` the harness runs: exact device paths of
+# `segment()`, each with why the frozen reference decides its answer
+EXACT = {
+    "turbo": "staged gossip and compact rounds, held to the sequential "
+             "Boruvka oracle's partition (canonical min-pixel ids)",
+    "atomic": "scatter-min Boruvka-Felzenszwalb rounds with canonical "
+              "edge-id ties, the reference's own schedule (root ids)",
+    "fastmst": "the same rounds in the DPP schedule, labels byte-equal to "
+               "atomic's (root ids)",
+}
+# the other values of `algorithm`, and why the harness refuses each
+REFUSED = {
+    "superpixel": "a different criterion, which the reference does not "
+                  "compute",
+    "atomic_hostsync": "the same code as atomic in the port",
+    "boruvka_cpu": "a host-only path, not the device path",
+    "kruskal_cpu": "a host-only path, not the device path",
+    "kruskal_native": "a host-only path, not the device path",
+}
 REQUIRED = reference.KEYS + ("algorithm", "on_overflow", "precision")
 DESCRIBE = ("name", "source", "deployment", "guarantees", "assumed",
             "reduced")
@@ -95,11 +115,11 @@ OFFERED = {"loop": "closed", "callers": 1}
 
 def check_cell(config: dict, traffic: dict) -> None:
     """Refuses a configuration or a mix that asks for anything the harness
-    or the reference does not implement, rather than measure something
-    else. gossip_rounds, which `segment()` does not take, has to be the
-    turbo entry's default."""
-    from gseg_tpu_torch.models import turbo
-
+    or the reference does not implement, or that the chosen path would
+    refuse frame by frame, rather than measure something else.
+    gossip_rounds, which `segment()` does not take, has to be the turbo
+    entry's default, and names nothing on the other paths; they raise on
+    weight_buckets > 0 (only turbo runs the bucket ramp)."""
     name = config.get("name")
     missing = [k for k in REQUIRED if k not in config]
     if missing:
@@ -108,16 +128,31 @@ def check_cell(config: dict, traffic: dict) -> None:
         if key in FIXED and value != FIXED[key]:
             raise ValueError(f"configuration {name!r}: {key} {value!r}; the "
                              f"harness implements only {FIXED[key]!r}")
-        if key not in FIXED and key not in reference.KEYS \
+        if key not in FIXED and key not in REQUIRED \
                 and key not in DESCRIBE and key != "gossip_rounds":
             raise ValueError(f"configuration {name!r}: the harness reads no "
                              f"key {key!r}")
-    default = inspect.signature(turbo.segment_turbo).parameters[
-        "gossip_rounds"].default
-    if config.get("gossip_rounds", default) != default:
-        raise ValueError(f"configuration {name!r} asks for gossip_rounds "
-                         f"{config['gossip_rounds']}; segment() runs "
-                         f"{default}")
+    algorithm = config["algorithm"]
+    if algorithm not in EXACT:
+        why = REFUSED.get(algorithm, "not a path of segment()")
+        raise ValueError(f"configuration {name!r}: algorithm {algorithm!r}, "
+                         f"{why}; the harness implements {sorted(EXACT)}")
+    if algorithm == "turbo":
+        from gseg_tpu_torch.models import turbo
+
+        default = inspect.signature(turbo.segment_turbo).parameters[
+            "gossip_rounds"].default
+        if config.get("gossip_rounds", default) != default:
+            raise ValueError(f"configuration {name!r} asks for gossip_rounds"
+                             f" {config['gossip_rounds']}; segment() runs "
+                             f"{default}")
+    elif "gossip_rounds" in config:
+        raise ValueError(f"configuration {name!r}: gossip_rounds; the "
+                         f"{algorithm} path does not read it")
+    elif config["weight_buckets"] > 0:
+        raise ValueError(f"configuration {name!r}: weight_buckets "
+                         f"{config['weight_buckets']}; the {algorithm} path "
+                         "has no bucket ramp and segment() refuses it")
     for key, value in OFFERED.items():
         if traffic.get(key) != value:
             raise ValueError(f"traffic {traffic.get('name')!r}: {key} "

@@ -88,24 +88,117 @@ def test_discovery_by_name(tiny_root):
                                      "per_layer"]]
 
 
-@pytest.mark.parametrize("file, key, value", [
-    ("traffic/blobs-1080p.json", "loop", "open"),
-    ("traffic/blobs-1080p.json", "callers", 2),
-    ("traffic/blobs-1080p.json", "rate_hz", 30),
-    ("configs/turbo-speed.json", "precision", "bfloat16"),
-    ("configs/turbo-speed.json", "quantize_weight_bits", 16),
-    ("configs/turbo-speed.json", "hierarchy_levels", 4),
-])
-def test_what_the_harness_does_not_implement_is_refused(tiny_root, file,
-                                                        key, value):
+def add_cell(root, name, changes, traffic="blobs-1080p"):
+    """A cell `name` over a configuration of its own: turbo-speed's file
+    with `changes` (a value None takes the key out), as new files and
+    new entries only."""
+    config = json.loads((root / "segbench/configs/turbo-speed.json")
+                        .read_text())
+    config.update(changes, name=name)
+    config = {k: v for k, v in config.items() if v is not None}
+    (root / "segbench/configs" / f"{name}.json").write_text(
+        json.dumps(config))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": name, "source": "a stub",
+                             "file": f"segbench/configs/{name}.json",
+                             "reduced": [], "why": "a stub"})
+    bench["workloads"].append({"name": name, "config": name,
+                               "traffic": traffic, "chips": 1,
+                               "why": "a stub"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+NOT_TURBO = {"gossip_rounds": None}  # a key only the turbo path reads
+REFUSALS = [
+    ("traffic/blobs-1080p.json", "loop", "open", {}),
+    ("traffic/blobs-1080p.json", "callers", 2, {}),
+    ("traffic/blobs-1080p.json", "rate_hz", 30, {}),
+    ("configs/turbo-speed.json", "precision", "bfloat16", {}),
+    ("configs/turbo-speed.json", "quantize_weight_bits", 16, {}),
+    ("configs/turbo-speed.json", "hierarchy_levels", 4, {}),
+    ("configs/turbo-speed.json", "algorithm", "superpixel", NOT_TURBO),
+    ("configs/turbo-speed.json", "algorithm", "boruvka_cpu", NOT_TURBO),
+    ("configs/turbo-speed.json", "algorithm", "kruskal_cpu", NOT_TURBO),
+    ("configs/turbo-speed.json", "algorithm", "kruskal_native", NOT_TURBO),
+    ("configs/turbo-speed.json", "algorithm", "atomic_hostsync", NOT_TURBO),
+    ("configs/turbo-speed.json", "weight_buckets", 16,
+     NOT_TURBO | {"algorithm": "atomic"}),
+    ("configs/turbo-speed.json", "weight_buckets", 16,
+     NOT_TURBO | {"algorithm": "fastmst"}),
+    ("configs/turbo-speed.json", "gossip_rounds", 2,
+     {"algorithm": "fastmst"}),
+]
+
+
+@pytest.mark.parametrize("file, key, value, base", REFUSALS, ids=[
+    "-".join([f, k, str(v)] + [f"no-{bk}" if bv is None else f"{bk}={bv}"
+                               for bk, bv in b.items()])
+    for f, k, v, b in REFUSALS])
+def test_what_the_harness_does_not_implement_is_refused(tiny_root,
+                                                        monkeypatch, file,
+                                                        key, value, base):
     """A mix or configuration that asks for something the harness does not
-    implement stops the run before any frame, with no result."""
+    implement, or that its path would refuse frame by frame, stops the
+    run before any frame, with no result, naming the key (and, for an
+    algorithm, why)."""
+    import gseg_tpu_torch
+
     path = tiny_root / "segbench" / file
     data = json.loads(path.read_text())
-    data[key] = value
+    data.update(base | {key: value})
+    data = {k: v for k, v in data.items() if v is not None}
     path.write_text(json.dumps(data))
-    with pytest.raises(ValueError, match=key):
+    called = []
+    monkeypatch.setattr(gseg_tpu_torch, "segment",
+                        lambda *a, **kw: called.append(a))
+    with pytest.raises(ValueError, match=key) as e:
         run_line(tiny_root)
+    assert called == []
+    if key == "algorithm":
+        assert harness.REFUSED[value] in str(e.value)
+
+
+@pytest.mark.parametrize("fault", [None, "answer_altered", "half_left_out"])
+@pytest.mark.parametrize("algorithm", ["atomic", "fastmst"])
+def test_atomic_and_fastmst_held_to_the_reference(tiny_root, monkeypatch,
+                                                  algorithm, fault):
+    """The other exact device paths run through the harness as a
+    configuration's file chooses them; their root-id labels read 0 pixels
+    off, and an altered answer reads not correct."""
+    import gseg_tpu_torch
+
+    add_cell(tiny_root, f"{algorithm}-speed",
+             NOT_TURBO | {"algorithm": algorithm})
+    ran = set()
+    segment = gseg_tpu_torch.segment
+
+    def recorded(*a, config, **kw):
+        ran.add(config.algorithm)
+        return segment(*a, config=config, **kw)
+
+    wrap = {None: lambda f: f, "answer_altered": _alter_one_pixel,
+            "half_left_out": _top_half_only}[fault]
+    monkeypatch.setattr(gseg_tpu_torch, "segment", wrap(recorded))
+    line, _ = run_line(tiny_root, f"{algorithm}-speed")
+    assert ran == {algorithm}
+    c = line["checks"]
+    assert c["frames_checked"]["value"] >= 2 and c["frames_failed"][
+        "value"] == 0
+    if fault is None:
+        assert line["correct"] is True and c["pixels_off"]["value"] == 0
+    else:
+        assert line["correct"] is False and c["pixels_off"]["value"] > 0
+
+
+def test_textured_mix_on_turbo_is_correct(tiny_root):
+    (tiny_root / "segbench/traffic/textured-stub.json").write_text(
+        json.dumps({"name": "textured-stub", "content": "textured",
+                    "height": 48, "width": 64, "pool": 2, "loop": "closed",
+                    "callers": 1}))
+    add_cell(tiny_root, "textured-cell", {}, traffic="textured-stub")
+    line, _ = run_line(tiny_root, "textured-cell")
+    assert line["correct"] is True
+    assert line["checks"]["pixels_off"] == {"value": 0, "limit": 0}
 
 
 def test_every_named_file_exists():

@@ -42,6 +42,17 @@ def test_bsds_like_and_textured_byte_equal_to_program(seed):
                           program_synthetic.textured_image(50, 70, seed))
 
 
+@pytest.mark.parametrize("seed", [0, 41, 3_000_000_017])
+@pytest.mark.parametrize("h,w", [(48, 64), (96, 160)])
+def test_textured_byte_equal_to_program(h, w, seed):
+    got = frames.make_pool({"content": "textured", "height": h, "width": w,
+                            "pool": 1}, seed)[0]
+    assert np.array_equal(got, synthetic.textured_image(
+        h, w, frames.frame_seeds(seed, 1)[0]))
+    assert np.array_equal(synthetic.textured_image(h, w, seed),
+                          program_synthetic.textured_image(h, w, seed))
+
+
 def test_pool_is_a_function_of_the_seed():
     t = {"content": "blobs", "height": 30, "width": 40, "num_blobs": 4,
          "noise": 8.0, "pool": 3}
