@@ -24,7 +24,16 @@ The reference's data-parallel-primitive Boruvka schedule:
 Labels are hook-sink root vertex ids: byte-equal to `segment_atomic` and
 the NumPy oracles, where turbo gives canonical min-vertex ids; the
 partition equals turbo's. Every `lax.while_loop` / `lax.cond` of the
-reference is a host loop or `if`.
+reference is a host loop or `if`. `models/fastmst_plain.py` computes the
+same labels from the published schedule in plain torch ops.
+
+Traced (`utils.timing`), a frame is four spans in turn: gseg.dpp_round1,
+gseg.dpp_extract, gseg.dpp_rounds (turbo's gseg.s2_round, gseg.recompact
+and gseg.prune nested inside) and gseg.dpp_final, each timed on the device
+too (the counters device_ns.gseg.dpp_*); its host reads are the sites
+dpp_merged, dpp_live and flags; the counters dpp.recompactions and
+dpp.small_runout count the pool's recompactions and the frames whose
+run-out took the V/16 slice.
 """
 
 from __future__ import annotations
@@ -42,43 +51,48 @@ from ..ops.primitives import (
     scatter_drop,
     segment_sum,
 )
+from ..utils import timing
+from ..utils.timing import host_read
 from . import turbo
 
 _FLOOR = 16384   # the reference's capacity floor on this path
 
 
 def _round1_dense(image: torch.Tensor, cfg: SegmentationConfig):
-    """The first Boruvka-Felzenszwalb round at pixel scale. Returns (gst:
-    turbo.GossipState with hook-sink labels and stats after round 1,
-    weights (4, H, W))."""
-    h, w = image.shape[0], image.shape[1]
-    v = h * w
-    dev = image.device
-    smoothed = filters.gaussian_smooth(image, cfg.sigma)
-    weights, _ = gg.edge_weight_planes(smoothed, cfg.connectivity,
-                                       cfg.quantize_weight_bits)
-    w8, eid8 = gg.incident_views(weights)
-    vid = torch.arange(v, dtype=torch.int32, device=dev)
+    """The first Boruvka-Felzenszwalb round at pixel scale (span
+    gseg.dpp_round1). Returns (gst: turbo.GossipState with hook-sink
+    labels and stats after round 1, weights (4, H, W))."""
+    with timing.span("gseg.dpp_round1", device=image.device):
+        h, w = image.shape[0], image.shape[1]
+        v = h * w
+        dev = image.device
+        smoothed = filters.gaussian_smooth(image, cfg.sigma)
+        weights, _ = gg.edge_weight_planes(smoothed, cfg.connectivity,
+                                           cfg.quantize_weight_bits)
+        w8, eid8 = gg.incident_views(weights)
+        vid = torch.arange(v, dtype=torch.int32, device=dev)
 
-    # round-1 predicate: all sizes 1, Int 0, so both sides test w <= k.
-    vminw = w8.amin(0)
-    veid = torch.where(w8 == vminw[None], eid8, INT32_MAX).amin(0)
-    ok = torch.isfinite(vminw) & (
-        vminw <= torch.tensor(cfg.k, dtype=torch.float32, device=dev))
-    a, b = gg.edge_endpoints(veid.reshape(-1), w)
-    succ = remove_mutual_hooks(torch.where(ok.reshape(-1), a + b - vid, vid))
-    used = succ != vid
-    parent1 = pointer_double(succ)
-    size1 = segment_sum(torch.ones(v, dtype=torch.int32, device=dev),
-                        parent1, v)
-    id1 = scatter_drop(torch.zeros(v, dtype=torch.float32, device=dev),
-                       torch.where(used, parent1, v),
-                       torch.where(used, vminw.reshape(-1), 0.0), "amax")
-    gst = turbo.GossipState(
-        L=parent1.reshape(h, w), S=size1.reshape(h, w), ID=id1.reshape(h, w),
-        merged=bool(used.any()), it=1, bucket=0,
-        flags=torch.zeros((), dtype=torch.int32, device=dev))
-    return gst, weights
+        # round-1 predicate: all sizes 1, Int 0, so both sides test w <= k.
+        vminw = w8.amin(0)
+        veid = torch.where(w8 == vminw[None], eid8, INT32_MAX).amin(0)
+        ok = torch.isfinite(vminw) & (
+            vminw <= torch.tensor(cfg.k, dtype=torch.float32, device=dev))
+        a, b = gg.edge_endpoints(veid.reshape(-1), w)
+        succ = remove_mutual_hooks(torch.where(ok.reshape(-1), a + b - vid,
+                                               vid))
+        used = succ != vid
+        parent1 = pointer_double(succ)
+        size1 = segment_sum(torch.ones(v, dtype=torch.int32, device=dev),
+                            parent1, v)
+        id1 = scatter_drop(torch.zeros(v, dtype=torch.float32, device=dev),
+                           torch.where(used, parent1, v),
+                           torch.where(used, vminw.reshape(-1), 0.0), "amax")
+        gst = turbo.GossipState(
+            L=parent1.reshape(h, w), S=size1.reshape(h, w),
+            ID=id1.reshape(h, w),
+            merged=host_read(used.any(), "dpp_merged"), it=1, bucket=0,
+            flags=torch.zeros((), dtype=torch.int32, device=dev))
+        return gst, weights
 
 
 def capacities(v: int) -> dict:
@@ -112,13 +126,15 @@ def boundary_pairs(L, w4, dead_inf=False):
 def _extract_compact(gst, weights, v: int):
     """Dense planes -> deduped compact edge pool + root list + stats (pair
     cap 1.25 V and comp cap V/2: round-1 components are small, so distinct
-    pairs run at about 1.05-1.10 V). Returns (st, rm, r0)."""
-    w4 = torch.stack([weights[d] for d in range(4)], -1).reshape(-1)
-    pm, plo, phi, pw, pe, pair_ovf = boundary_pairs(gst.L, w4)
-    return turbo._pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v,
-                                 capacities(v)["comp_cap"],
-                                 gst.S.reshape(-1), gst.ID.reshape(-1), 0,
-                                 gst.flags)
+    pairs run at about 1.05-1.10 V); span gseg.dpp_extract. Returns (st,
+    rm, r0)."""
+    with timing.span("gseg.dpp_extract", device=weights.device):
+        w4 = torch.stack([weights[d] for d in range(4)], -1).reshape(-1)
+        pm, plo, phi, pw, pe, pair_ovf = boundary_pairs(gst.L, w4)
+        return turbo._pools_to_state(pm, plo, phi, pw, pe, pair_ovf, v,
+                                     capacities(v)["comp_cap"],
+                                     gst.S.reshape(-1), gst.ID.reshape(-1),
+                                     0, gst.flags)
 
 
 def _compact_phase(st, v, cfg, rounds, runout=False, capture=None):
@@ -138,6 +154,7 @@ def _early_rounds(st, v, cfg, capture=None):
     st, rec_ovf = turbo._recompact_edges(st, max(v, _FLOOR))
     st = _compact_phase(st, v, cfg, 2, capture=capture)
     st, rec2_ovf = turbo._recompact_edges(st, max(v // 4, _FLOOR))
+    timing.count("dpp.recompactions", 2)
     return st._replace(flags=turbo._raise_flag(
         st.flags, rec_ovf | rec2_ovf, turbo.FLAG_RECOMPACT_OVERFLOW))
 
@@ -149,19 +166,24 @@ def _runout(st, v, cfg, capture=None):
 
 
 def _compact_rounds(st, v, cfg):
-    """All compact rounds: the early rounds, then the run-out. Sorts cost
-    by capacity while live pairs keep decaying, so when every live pair
-    fits a V/16 slice of the front-compacted pool the run-out runs on the
-    slice (lossless); only fin and flags come back from it."""
-    st = _early_rounds(st, v, cfg)
-    cs = max(v // 16, _FLOOR)
-    if (turbo._S2_SMALL and cs < st.esrc.numel()
-            and int(torch.isfinite(st.ew).sum()) <= cs):
-        out = _runout(st._replace(esrc=st.esrc[:cs], edst=st.edst[:cs],
-                                  ew=st.ew[:cs], eeid=st.eeid[:cs]), v, cfg)
-    else:
-        out = _runout(st, v, cfg)
-    return st._replace(fin=out.fin, flags=out.flags)
+    """All compact rounds (span gseg.dpp_rounds): the early rounds, then
+    the run-out. Sorts cost by capacity while live pairs keep decaying, so
+    when every live pair fits a V/16 slice of the front-compacted pool the
+    run-out runs on the slice (lossless; counted as dpp.small_runout);
+    only fin and flags come back from it."""
+    with timing.span("gseg.dpp_rounds", device=st.esrc.device):
+        st = _early_rounds(st, v, cfg)
+        cs = max(v // 16, _FLOOR)
+        if (turbo._S2_SMALL and cs < st.esrc.numel()
+                and host_read(torch.isfinite(st.ew).sum(), "dpp_live")
+                <= cs):
+            timing.count("dpp.small_runout")
+            out = _runout(st._replace(esrc=st.esrc[:cs],
+                                      edst=st.edst[:cs], ew=st.ew[:cs],
+                                      eeid=st.eeid[:cs]), v, cfg)
+        else:
+            out = _runout(st, v, cfg)
+        return st._replace(fin=out.fin, flags=out.flags)
 
 
 def segment_fastmst_impl(image: torch.Tensor, cfg: SegmentationConfig):
@@ -172,11 +194,12 @@ def segment_fastmst_impl(image: torch.Tensor, cfg: SegmentationConfig):
     gst, weights = _round1_dense(image, cfg)
     st, rm, r0 = _extract_compact(gst, weights, v)
     st = _compact_rounds(st, v, cfg)
-    labels, fm_unconv = turbo._final_map(gst, st, rm, r0, 4 * (h + w),
-                                         closures=True)
+    with timing.span("gseg.dpp_final", device=image.device):
+        labels, fm_unconv = turbo._final_map(gst, st, rm, r0, 4 * (h + w),
+                                             closures=True)
     flags = turbo._raise_flag(st.flags, fm_unconv,
                               turbo.FLAG_GOSSIP_UNCONVERGED)
-    return labels, int(flags)
+    return labels, host_read(flags, "flags")
 
 
 segment_fastmst_flagged = segment_fastmst_impl
@@ -228,7 +251,8 @@ def segment_fastmst_hierarchy_impl(image: torch.Tensor,
         fins[min(cur, n_levels - 1)] = fin
         cur += 1
 
-    st = _runout(_early_rounds(st, v, cfg, on_felz), v, cfg, on_felz)
+    with timing.span("gseg.dpp_rounds", device=image.device):
+        st = _runout(_early_rounds(st, v, cfg, on_felz), v, cfg, on_felz)
     # unwritten slots repeat the last captured root map (no capture: the
     # initial root map).
     last = fins[min(cur, n_levels) - 1] if cur else torch.where(rm, r0, 0)
@@ -243,18 +267,19 @@ def segment_fastmst_hierarchy_impl(image: torch.Tensor,
                          device=image.device)
     levels[0], levels[1] = vid2d, gst.L
     unconv = False
-    for i, fin in enumerate(fins):
-        if id(fin) not in rendered:
-            seed = turbo._scatter(seed_base, r0, fin)  # r0 holds v past rm
-            rendered[id(fin)] = kg.value_flood(
-                gst.L, seed.reshape(h, w), max_sweeps, closures=True)
-        levels[i + 2], lv_unconv = rendered[id(fin)]
-        unconv = unconv or lv_unconv
-    labels, fm_unconv = turbo._final_map(gst, st, rm, r0, max_sweeps,
-                                         closures=True)
+    with timing.span("gseg.dpp_final", device=image.device):
+        for i, fin in enumerate(fins):
+            if id(fin) not in rendered:
+                seed = turbo._scatter(seed_base, r0, fin)  # r0: v past rm
+                rendered[id(fin)] = kg.value_flood(
+                    gst.L, seed.reshape(h, w), max_sweeps, closures=True)
+            levels[i + 2], lv_unconv = rendered[id(fin)]
+            unconv = unconv or lv_unconv
+        labels, fm_unconv = turbo._final_map(gst, st, rm, r0, max_sweeps,
+                                             closures=True)
     flags = turbo._raise_flag(st.flags, unconv or fm_unconv,
                               turbo.FLAG_GOSSIP_UNCONVERGED)
-    return levels, labels, int(flags)
+    return levels, labels, host_read(flags, "flags")
 
 
 segment_fastmst_hierarchy_flagged = segment_fastmst_hierarchy_impl

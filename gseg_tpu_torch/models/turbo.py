@@ -1065,13 +1065,16 @@ class _S2Shape(NamedTuple):
     phases: dict
 
 
-def _s2_shape(v: int, cfg: SegmentationConfig, pair_cap: int) -> _S2Shape:
-    """See _S2Shape. pair_cap: the handoff pool's pairs."""
+def _s2_shape(v: int, cfg: SegmentationConfig, pair_cap: int,
+              rec_cap: int = 0) -> _S2Shape:
+    """See _S2Shape. pair_cap: the handoff pool's pairs. rec_cap: a floor
+    for both recompacts' caps (the retry's, `segment_turbo_impl`)."""
     quality = cfg.weight_buckets > 0
     caps = _s2_capacities(v, quality)
     comp_cap = (v if v <= 1 << 20
                 else capacities(v, cfg.weight_buckets)["comp_cap"])
-    rec1_cap, rec2_cap = caps["rec1_cap"], caps["rec2_cap"]
+    rec1_cap = max(caps["rec1_cap"], rec_cap)
+    rec2_cap = max(caps["rec2_cap"], rec_cap)
     cs = max(v // caps["small_div"], -(-rec1_cap // 2))
     small = _S2_SMALL and cs < pair_cap
     main = (rec1_cap, comp_cap) if quality else (rec2_cap, caps["comp_cap2"])
@@ -1314,7 +1317,7 @@ def _s2_workspace(device):
 
 
 def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
-              thresholds=None, r0=None, ws=None):
+              thresholds=None, r0=None, ws=None, rec_cap: int = 0):
     """All stage-2 compact rounds. Speed mode: warm-up round, recompact,
     two rounds, prune, recompact, then the main phase with the min-size
     rounds. Quality mode (thresholds: the bucket caps): two warm-up rounds,
@@ -1327,9 +1330,11 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
     pool, SZf and IDf stay root-indexed, and may lie in the workspace's
     buffers). Without r0 every round runs V-indexed. ws: the card's
     `_S2Graphs` (`_s2_workspace`), whose graphs then replay the rounds of
-    `_s2_graph_plan` in root-index space; None: every round op by op."""
+    `_s2_graph_plan` in root-index space; None: every round op by op.
+    rec_cap: a floor for the recompacts' caps (see _s2_shape). st itself
+    is left as it was."""
     pair_cap = st.esrc.numel() // 2
-    shape = _s2_shape(v, cfg, pair_cap)
+    shape = _s2_shape(v, cfg, pair_cap, rec_cap)
     # one read: the live pairs (the slice's test) and whether a root list
     # overflowed (its endpoints then lack a position: V-indexed rounds)
     live, roots = None, False
@@ -1426,6 +1431,13 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
     nonzero means a capacity or sweep-budget violation, and the labels
     must not be trusted (`segment_turbo` checks it).
 
+    A frame whose stage-2 recompact overflowed runs stage 2 and the final
+    map again, op by op, with the recompacts' caps raised to the handoff
+    pool's half where that is larger (quality mode: V/8 to V/6 at the
+    default gate; counted as s2.retries), and raises the flag only if
+    that overflows too. A frame that does not overflow runs as before,
+    with no extra read.
+
     weights_override: see _stage_g (parity-testing hook)."""
     h, w = image.shape[0], image.shape[1]
     v = h * w
@@ -1434,15 +1446,25 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
                                             weights_override)
     with timing.span("gseg.extract"):
         st, rm, r0 = _extract_stage(gst, weights, cfg)
-    with timing.span("gseg.stage2"):
-        st = _s2_stage(st, v, cfg, thresholds, r0,
-                       _s2_workspace(image.device))
-    with timing.span("gseg.final_map"):
-        labels, fm_unconv = _final_map(
-            gst, st, rm, r0, 4 * (h + w),
-            closures=cfg.weight_buckets > 0 and _Q_CLOSURES)
-    flags = _raise_flag(st.flags, fm_unconv, FLAG_GOSSIP_UNCONVERGED)
-    return labels, host_read(flags, "flags")
+    ws, rec_cap = _s2_workspace(image.device), 0
+    while True:
+        with timing.span("gseg.stage2"):
+            s2 = _s2_stage(st, v, cfg, thresholds, r0, ws, rec_cap)
+        with timing.span("gseg.final_map"):
+            labels, fm_unconv = _final_map(
+                gst, s2, rm, r0, 4 * (h + w),
+                closures=cfg.weight_buckets > 0 and _Q_CLOSURES)
+        flags = host_read(_raise_flag(s2.flags, fm_unconv,
+                                      FLAG_GOSSIP_UNCONVERGED), "flags")
+        # a recompact that overflowed runs again once, its cap raised to
+        # the handoff pool's half (no more memory than that pool took)
+        grown = st.esrc.numel() // 2
+        if (not flags & FLAG_RECOMPACT_OVERFLOW or rec_cap
+                or grown <= _s2_capacities(v, cfg.weight_buckets > 0)[
+                    "rec1_cap"]):
+            return labels, flags
+        timing.count("s2.retries")
+        ws, rec_cap = None, grown
 
 
 segment_turbo_flagged = segment_turbo_impl

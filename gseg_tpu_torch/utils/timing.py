@@ -46,6 +46,37 @@ The turbo path's spans (`gseg.` names) and counters:
   s2_graph.replays  stage-2 rounds replayed as CUDA graphs
   s2_graph.captures stage-2 round graphs captured (a frame size's second
                     frame in a row)
+
+The fastmst (DPP) path's spans and counters (`models.fastmst`; its
+compact rounds are turbo's, so gseg.s2_round, gseg.recompact and
+gseg.prune open inside gseg.dpp_rounds):
+
+  gseg.dpp_round1   the dense first round at pixel scale, `_round1_dense`
+  gseg.dpp_extract  the live boundary pairs into the compact pool,
+                    `_extract_compact`
+  gseg.dpp_rounds   every compact round, the run-out and the min-size
+                    rounds, `_compact_rounds`
+  gseg.dpp_final    the final map (the value flood), and the hierarchy's
+                    level renders
+  dpp.recompactions the pool's recompactions (to V, then to V/4)
+  dpp.small_runout  frames whose run-out took the V/16 slice of the pool
+  device_ns.<span>  each of the four DPP spans timed on its device too
+                    (`span(..., device=)`): the nanoseconds from the
+                    device reaching the span's first operation to its
+                    finishing the last
+
+A span given a device is timed on it as well as on the host: a host
+span ends when its operations are queued, and on a card they run later.
+On a CUDA card two CUDA events on the device's current stream mark the
+span's ends; `take` waits for them and adds the time between them to the
+counter device_ns.<name>. On the CPU the work runs as it is issued, so
+the host's time is the device's. Either way nothing syncs while the
+tracing records.
+
+turbo's stage-2 retry (`models.turbo.segment_turbo_impl`):
+
+  s2.retries        frames whose stage 2 ran again with the recompaction
+                    caps raised, after the first run overflowed one
 """
 
 from __future__ import annotations
@@ -133,6 +164,7 @@ _local = threading.local()
 _ids = itertools.count(1)
 _frames = itertools.count(1)
 _read_names: Dict[str, tuple] = {}
+_pending: list = []   # (counter, start event, end event) on a card
 
 
 def _stack() -> list:
@@ -144,11 +176,13 @@ def _stack() -> list:
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "id", "parent", "frame", "start")
+    __slots__ = ("name", "attrs", "id", "parent", "frame", "start",
+                 "device", "event")
 
-    def __init__(self, name, attrs):
+    def __init__(self, name, attrs, device=None):
         self.name = name
         self.attrs = attrs
+        self.device = device
 
     def __enter__(self):
         stack = _stack()
@@ -158,6 +192,8 @@ class _Span:
         else:
             self.parent, self.frame = None, next(_frames)
         stack.append(self)
+        if self.device is not None and self.device.type == "cuda":
+            self.event = _event(self.device)
         self.start = time.perf_counter_ns()
         return self
 
@@ -168,10 +204,25 @@ class _Span:
                          self.frame, self.attrs)
         with _lock:
             _spans.append(rec)
+        if self.device is not None:
+            counter = "device_ns." + self.name
+            if self.device.type == "cuda":
+                stop = _event(self.device)
+                with _lock:
+                    _pending.append((counter, self.event, stop))
+            else:
+                count(counter, end - self.start)
         sink = _sink
         if sink is not None:
             sink((self.name, self.start, end))
         return False
+
+
+def _event(device):
+    """A timing CUDA event recorded on the device's current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
 
 
 class _NoSpan:
@@ -208,12 +259,14 @@ def enabled() -> bool:
     return _on
 
 
-def span(name: str, **attrs):
+def span(name: str, device=None, **attrs):
     """A context manager timing the block as a span called `name`, with
-    the attributes `attrs` (`annotate` adds more from inside it)."""
+    the attributes `attrs` (`annotate` adds more from inside it).
+    device: a torch.device to time the block's work on as well, into the
+    counter device_ns.<name> (see the module's docstring)."""
     if not _on:
         return _NO_SPAN
-    return _Span(name, attrs)
+    return _Span(name, attrs, device)
 
 
 def annotate(name: str, **attrs) -> None:
@@ -251,11 +304,17 @@ def host_read(x, site: str):
 
 
 def take() -> Record:
-    """What was recorded since the last take, which is cleared."""
-    global _spans, _counters
+    """What was recorded since the last take, which is cleared. Waits for
+    the cards to reach the ends of their device-timed spans."""
+    global _spans, _counters, _pending
     with _lock:
         rec = Record(_spans, _counters)
-        _spans, _counters = [], {}
+        pending = _pending
+        _spans, _counters, _pending = [], {}, []
+    for counter, start, stop in pending:
+        stop.synchronize()
+        ns = round(start.elapsed_time(stop) * 1e6)
+        rec.counters[counter] = rec.counters.get(counter, 0) + ns
     return rec
 
 

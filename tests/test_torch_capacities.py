@@ -21,6 +21,9 @@ module attributes `turbo._GATE_DIV` / `_GATE_DIV_Q`, read at call time.
   and FLAG_PAIR_OVERFLOW (flags 6 or 14) there and return another
   partition, where the reference gives flags 0 (gate_q 8: its recompact
   flag, 8, on both sides).
+- A recompact that overflows at a cap below the handoff pool's half runs
+  stage 2 again with the caps raised to that half, and returns the
+  labels of a run that never overflowed, with flags 0.
 
 Tolerance: exact.
 """
@@ -46,6 +49,7 @@ from gseg_tpu_torch.models import turbo  # noqa: E402
 from gseg_tpu_torch.parallel.spatial import spatial_mesh  # noqa: E402
 from gseg_tpu_torch.parallel.turbo_spatial import (  # noqa: E402
     segment_turbo_spatial)
+from gseg_tpu_torch.utils import timing  # noqa: E402
 from gseg_tpu_torch.utils.synthetic import blobs_image  # noqa: E402
 
 SPEED_GATES = (13, 32, 64, 128)
@@ -189,6 +193,34 @@ def test_early_gates_match_reference(monkeypatch, wb, gate, seed):
     assert flags == (turbo.FLAG_RECOMPACT_OVERFLOW if (wb, gate) == (16, 8)
                      else 0)
     assert np.array_equal(labels.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("wb,rec1,rec2", [(0, 32, 8), (16, 128, 64)])
+def test_recompact_overflow_runs_stage2_again(monkeypatch, wb, rec1, rec2):
+    """A frame whose stage-2 recompact overflows runs stage 2 again with
+    the caps raised to the handoff pool's half: flags 0 and the labels of
+    a run whose caps never overflowed, counted as s2.retries; a frame
+    that does not overflow runs once. (At gate_q 8 the first cap already
+    is the pool's half, so the flag stays: the test above.)"""
+    _shrink_floors(monkeypatch)
+    img = torch.from_numpy(blobs_image(*SHAPE, 8, 6.0, 0))
+    cfg = _cfg(wb)
+    timing.take()
+    timing.enable()
+    try:
+        want, want_flags = turbo.segment_turbo_flagged(img, cfg, 2)
+        assert timing.take().counters.get("s2.retries") is None
+        caps = turbo._s2_capacities
+        monkeypatch.setattr(turbo, "_s2_capacities", lambda v, q: dict(
+            caps(v, q), rec1_cap=rec1, rec2_cap=rec2))
+        labels, flags = turbo.segment_turbo_flagged(img, cfg, 2)
+        got = timing.take()
+    finally:
+        timing.disable()
+    assert want_flags == flags == 0
+    assert got.counters["s2.retries"] == 1
+    assert [s.name for s in got.spans].count("gseg.stage2") == 2
+    assert torch.equal(labels, want)
 
 
 @pytest.mark.skipif(jax.device_count() < 4, reason="needs 4 virtual devices")

@@ -5,6 +5,11 @@ host reads) on the CPU.
   tree: one `gseg.segment` a call, frame ids that increase, the four
   stages once each, in order, inside it, and every round and fixpoint
   inside its stage.
+- A fastmst frame (48 x 64, and 272 x 256, whose run-out takes the V/16
+  slice) gives the four `gseg.dpp_*` spans in turn, each with its
+  device time (`device_ns.<span>`: on the CPU the span's own), turbo's
+  stage-2 rounds inside `gseg.dpp_rounds`, its reads through
+  `host_read`, and labels byte-equal to an untraced frame's.
 - The host-read counters, summed over sites, equal a count of
   `torch.Tensor` reads (the benchmark's `host_reads_per_frame` patch)
   over the same frame; the fixpoint spans' passes equal the pass
@@ -109,6 +114,72 @@ def test_span_tree_of_a_turbo_frame(traced, mode):
         assert names.count("gseg.g_round") >= 2
         assert names.count("gseg.s2_round") >= 1
         assert names.count("gseg.fixpoint") >= 3
+
+
+DPP_SPANS = ["gseg.dpp_round1", "gseg.dpp_extract", "gseg.dpp_rounds",
+             "gseg.dpp_final"]
+# frame size -> whether its run-out takes the V/16 slice (past 65,536
+# pixels), which the dpp_live read decides
+DPP_SIZES = {"48x64": ((48, 64), False), "272x256": ((272, 256), True)}
+
+
+@pytest.mark.parametrize("size", DPP_SIZES)
+def test_span_tree_of_a_fastmst_frame(monkeypatch, size):
+    """A traced fastmst frame: the four DPP spans in turn inside
+    gseg.segment, turbo's stage-2 rounds inside gseg.dpp_rounds, every
+    host read through host_read (the counters equal a patch of
+    torch.Tensor's reads), and labels byte-equal to an untraced frame's."""
+    (h, w), sliced = DPP_SIZES[size]
+    img = blobs_image(h, w, 8, 8.0, 5)
+    cfg = SegmentationConfig(algorithm="fastmst", k=150.0, min_size=20)
+    timing.take()
+    off = gseg_tpu_torch.segment(img, config=cfg, device="cpu")
+    seen = [0]
+
+    def make(fn):
+        def read(self, *args, **kwargs):
+            seen[0] += 1
+            return fn(self, *args, **kwargs)
+        return read
+
+    for m in READS:
+        monkeypatch.setattr(torch.Tensor, m, make(getattr(torch.Tensor, m)))
+    timing.enable()
+    try:
+        on = gseg_tpu_torch.segment(img, config=cfg, device="cpu")
+    finally:
+        timing.disable()
+        monkeypatch.undo()
+    rec = timing.take()
+    assert off.numpy().tobytes() == on.numpy().tobytes()
+    by_id = {s.id: s for s in rec.spans}
+    (top,) = [s for s in rec.spans if s.name == "gseg.segment"]
+    assert top.attrs == {"algorithm": "fastmst", "h": h, "w": w}
+    dpp = sorted((s for s in rec.spans if s.name in DPP_SPANS),
+                 key=lambda s: s.start_ns)
+    assert [s.name for s in dpp] == DPP_SPANS
+    assert all(s.parent == top.id for s in dpp)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(dpp, dpp[1:]))
+    rounds = [s for s in rec.spans if s.name in ("gseg.s2_round",
+                                                 "gseg.recompact")]
+    assert len(rounds) >= 3
+    assert all("gseg.dpp_rounds" in _ancestors(s, by_id) for s in rounds)
+    fix = [s for s in rec.spans if s.name == "gseg.fixpoint"]
+    assert fix and all(by_id[s.parent].name == "gseg.dpp_final"
+                       for s in fix)
+    c = rec.counters
+    # on the CPU the work runs as it is queued: each span's device time
+    # is its own
+    assert {n: c["device_ns." + n] for n in DPP_SPANS} == \
+        {s.name: s.end_ns - s.start_ns for s in dpp}
+    assert c["host_reads.dpp_merged"] == c["host_reads.flags"] == 1
+    assert c["dpp.recompactions"] == 2
+    assert c.get("host_reads.dpp_live", 0) == c.get("dpp.small_runout",
+                                                    0) == int(sliced)
+    reads = {k: v for k, v in c.items() if k.startswith("host_reads.")}
+    assert sum(reads.values()) == seen[0] > 0
+    assert sum(s.name.startswith("gseg.read.") for s in rec.spans) == \
+        seen[0]
 
 
 @pytest.mark.parametrize("mode", MODES)
