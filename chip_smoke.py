@@ -5,8 +5,8 @@ arguments). It
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from `gseg_tpu_torch/csrc/` (one nvcc per
-     source, all started together; sm_90a): the TPU kernels' counterparts
-     and the superpixel path's colour-sum helper;
+     source, all started together; sm_90a): the TPU kernels' counterparts,
+     the superpixel path's colour-sum helper and stage 2's compact round;
   3. holds every kernel against its plain PyTorch version on the same CUDA
      tensors: random fields at odd multi-tile shapes and at wide shapes
      (w >= 2560: the padded fixpoint route), both closure orientations,
@@ -93,7 +93,10 @@ arguments). It
      `1080p_superpixel_hierarchy` (33 planes equal to the oracle, down to
      one component, two runs bit-equal); each with the launch counts set
      to 0 just before it and read just after (RECORDED_LAUNCHES: the value
-     flood, pad/unpad at 4K, the colour-sum helper on superpixel), its
+     flood, pad/unpad at 4K, the colour-sum helper on superpixel, stage
+     2's round on fastmst; every round of the 4K frame, V-indexed with
+     sink labels, also against the round's plain version and its first
+     one timed), its
      host reads, peak memory, median ms of CUDA-event reps, the value
      flood's device ms and the split of round 1, extraction, compact
      rounds and final map or render; the colour-sum helper
@@ -228,20 +231,24 @@ arguments). It
  15. holds stage 2's graphed rounds (`turbo._S2Graphs`) on the
      benchmark's four frames (blobs 1080p in speed and quality mode,
      blobs 4K, the 321x481 photo-like scene): `_s2_stage` V-indexed (no
-     root list), in root-index space op by op (no workspace) and on a
-     new workspace three times (the size's first frame runs op by op,
+     root list), in root-index space eagerly (no workspace) and on a
+     new workspace three times (the size's first frame runs eagerly,
      the second captures, the third only replays): fin, the flags and
      the final labels bit-equal, every round of the plan's phases
-     replayed, the graphs' bytes, their memory pool counted, within
-     `turbo._S2_GRAPH_BYTES` a pixel and the plan's bytes; it prints the
-     held bytes, the pool's, the reserved MiB each frame adds, captures
-     and replays a frame, stage 2's and the frame's milliseconds graphed
-     and not, and each stage's peak allocation. Whole frames with the
+     replayed, every round on the hand-written round (`s2_round.kernel`
+     and its launches, eager or replayed, equal to the rounds; its
+     launches over the three frames as RECORDED_LAUNCHES has them), the
+     graphs' memory pool empty and their bytes the plan's, within
+     `turbo._S2_GRAPH_BYTES` a pixel; it prints the held bytes, the
+     pool's, the reserved MiB each frame adds, captures and replays a
+     frame, stage 2's and the frame's milliseconds graphed and not, and
+     each stage's peak allocation. Whole frames with the
      graphs on and off; the 540p row-sharded turbo path on 4 ranks
      (which pass no workspace) against its V-indexed rounds and dense,
      timed both ways, and taking turns against running free; the turbo
-     hierarchy and fastmst at 1080p the same with the graphs on and off
-     (they capture and replay none).
+     hierarchy and fastmst at 1080p, and fastmst at 4K, the same with
+     the graphs on and off (they capture and replay none; every round on
+     the hand-written round).
 
 `python3 chip_smoke.py --cards`, on a machine with several cards, runs
 only the row-sharded paths with one rank on each card (PERF.md: each
@@ -294,6 +301,7 @@ from gseg_tpu_torch.ops.kernels import extract as kx
 from gseg_tpu_torch.ops.kernels import gossip as kg
 from gseg_tpu_torch.ops.kernels import pad as kp
 from gseg_tpu_torch.ops.kernels import runs as kr
+from gseg_tpu_torch.ops.kernels import s2round as ks2
 from gseg_tpu_torch.ops.kernels import scatter as ks
 from gseg_tpu_torch.parallel import batching, spatial, turbo_spatial
 from gseg_tpu_torch.parallel.mesh import Mesh, run_ranks
@@ -540,15 +548,31 @@ KERNELS = {
         "gseg_tpu/models/superpixel.py:95 and :209",
         set(SUPERPIXEL) | {BSDS["superpixel"]}, set(), None, 1,
         (r"\brun_sums\b",)),
+    # stage 2's compact round (no TPU kernel: XLA ops there), on every
+    # turbo path (dense, batched, row-sharded, hierarchies) and every
+    # fastmst path; a launch is a round the kernel ran, eager or replayed
+    # from a CUDA graph. Its bytes are counted from its pool, slots and
+    # root map (`_bound`).
+    "s2_round": Kernel(
+        ks2, "s2_round", ks2.s2_round_plain,
+        "gseg_tpu_torch/csrc/s2round.cu",
+        "none: a compact round of XLA ops, gseg_tpu/models/turbo.py:777 "
+        "(_s2_round)",
+        ALL | TURBO_NEW | LADDER_T | LADDER_DPP | ALT | set(FASTMST)
+        | {BSDS["fastmst"]}, set(), None, 0,
+        (r"\bs2_(minedge|minpos|count|scan|heads|mutual|jump|canon|apply|"
+         r"relabel|init)\b",)),
 }
+S2 = "s2_round"
 PADS = ("pad_fields", "unpad_fields")
 # the step kernel's wrappers -> their variant in ops/kernels/gossip.py
 STEP = {"gossip_compmin": "compmin", "gossip_labeldist": "labeldist",
         "gossip_labelnd": "labelnd", "gossip_value": "value",
         "gossip_subsum": "subsum"}
 # Launches of one main-path run of each path (PERF.md §5), with the run
-# that first recorded them; the other kernels launched none. Tile skipping
-# and kernel redesigns must leave them as they are.
+# that first recorded them (stage 2's round: S2_LAUNCHES, merged in
+# below); the other kernels launched none. Tile skipping and kernel
+# redesigns must leave them as they are.
 RECORDED_LAUNCHES = {
     "1080p_subsum": ("4f", dict(
         gossip_compmin=16, gossip_labeldist=8, gossip_labelnd=23,
@@ -951,7 +975,7 @@ def _compare(name, args, kwargs=None):
             err = max(err, _max_abs_err(kout[:-1], pout[:-1]))
         return err
     kernel_out = _wrapper(name)(*args, **kwargs)
-    plain_out = plain(*args)
+    plain_out = plain(*args, **kwargs) if name == S2 else plain(*args)
     torch.cuda.synchronize()
     if name == "boundary_extract":
         return _max_abs_err(_pool_multiset(kernel_out),
@@ -963,6 +987,8 @@ def _compare(name, args, kwargs=None):
         return _max_abs_err(kernel_out, plain_out)
     if name == "ordered_scatter_add":
         return _max_abs_err((kernel_out,), (plain_out,))
+    if name == S2:   # all seven outputs, flags and merged included
+        return _max_abs_err(kernel_out, plain_out)
     if kernel_out[-1] or plain_out[-1]:
         raise AssertionError(f"{name}: a fixpoint hit its sweep cap")
     return _max_abs_err(kernel_out[:-1], plain_out[:-1])
@@ -977,10 +1003,12 @@ def _kernel_fn(name, args, kwargs=None):
     return lambda: fn(*args, **kwargs)
 
 
-def _plain_fn(name, args):
+def _plain_fn(name, args, kwargs=None):
     fn = KERNELS[name].plain
     if name in CLOSURES:
         return lambda: (fn(*args, 1), fn(*args, 0))
+    if name == S2:   # the round's settings are keywords
+        return lambda: fn(*args, **kwargs)
     return lambda: fn(*args)
 
 
@@ -1041,6 +1069,13 @@ def _bound(name, args):
         npx = vals.numel()
         nbytes = (idx.element_size() * idx.numel() + 4 * vals.numel()
                   + 2 * 4 * base.numel())
+    elif name == S2:
+        # one read of the pool (esrc, edst, ew, eeid: 16 B an entry), the
+        # slots (SZf, IDf: 8 B) and the root map; one write of esrc and
+        # edst, the slots and the root map
+        esrc, _, _, _, SZf, _, fin, _ = args
+        npx = esrc.numel()
+        nbytes = 24 * npx + 16 * SZf.numel() + 8 * fin.numel()
     else:
         npx = args[0].numel()
         nbytes = k.bytes_px * npx
@@ -1240,10 +1275,13 @@ def _wrapper_calls(names, run, first_only=False):
 
 def _capture_main_path_fields(image, cfg):
     """Run the turbo main path once, recording each wrapper's first real
-    call (compmin's first non-idle one). Returns name -> (args, kwargs)."""
+    call (compmin's first non-idle one; stage 2's first round, in root
+    space, with the graphs off so that it is a call). Returns name ->
+    (args, kwargs)."""
     calls = _wrapper_calls(
         [n for n in KERNELS if n not in CLOSURES],
-        lambda: turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS),
+        lambda: _with_graphs_off(turbo.segment_turbo_flagged, image, cfg,
+                                 GOSSIP_ROUNDS),
         first_only=True)
     return {name: c[0] for name, c in calls.items() if c}
 
@@ -1563,7 +1601,8 @@ def _time_kernels(fields, label, card, plain_reps):
         passes = _wrapper(name).launches - before
         calls = 10 if name in PADS else 3
         rec = {"max_abs_err": err, "passes": passes,
-               "plain_ms": _cuda_ms(_plain_fn(name, args), plain_reps)}
+               "plain_ms": _cuda_ms(_plain_fn(name, args, kwargs),
+                                    plain_reps)}
         lib = _library_call(name, args)
         if lib:
             rec["ms"], rec["library_ms"] = _turns_ms([kfn, lib], 21)
@@ -1650,6 +1689,8 @@ def _gated_passes(name, args, kwargs=None, t=None, ref=None):
 def _check_launches(path, launches):
     run, recorded = RECORDED_LAUNCHES[path]
     want = {n: recorded.get(n, 0) for n in KERNELS}
+    if path in S2_UNSETTLED:   # any number of rounds, but some
+        want[S2] = max(launches[S2], 1)
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, run {run}'s "
                              f"{want}")
@@ -2231,9 +2272,10 @@ def _dpp_path(path, image, card, run):
 
 def _dpp_paths(images, card):
     """Step 7: fastmst at 1080p and 4K, its hierarchy, superpixel level 4
-    and the superpixel hierarchy at 1080p. Returns (path -> record, the
-    colour-sum helper's timing record at the superpixel path's round-1
-    call)."""
+    and the superpixel hierarchy at 1080p. Returns (path -> record, path
+    -> timing records: the colour-sum helper's at the superpixel path's
+    round-1 call, the stage-2 round's at the 4K fastmst frame's first
+    round)."""
     image = images[1080, 1920]
     oracle = load_level_oracle(DPP_ORACLE)
     cfg = dataclasses.replace(CFG, algorithm="fastmst")
@@ -2264,6 +2306,21 @@ def _dpp_paths(images, card):
           f"{ndiff} pixels differ", flush=True)
     if ndiff:
         raise AssertionError("4k_fastmst: partition differs from the oracle")
+    # the hand-written round at each of the 4K frame's rounds: V-indexed,
+    # sink labels, pools of up to 2.5 V entries
+    rounds = _wrapper_calls([S2], lambda: fastmst.segment_fastmst_flagged(
+        image4k, cfg))[S2]
+    if not rounds or any(kw["canonical"] for _, kw in rounds):
+        raise AssertionError(f"4k_fastmst: {len(rounds)} rounds, canonical "
+                             f"{[kw['canonical'] for _, kw in rounds]}")
+    err = max(_compare(S2, a, kw) for a, kw in rounds)
+    print(f"check {S2} 4k_fastmst main-path states: {len(rounds)} rounds "
+          f"(pools of {[a[0].numel() for a, _ in rounds]} entries) equal "
+          "to plain", flush=True)
+    timed4k = _time_kernels({S2: rounds[0]}, "4k_fastmst round-1 state",
+                            card, 1)
+    timed4k[S2]["max_abs_err"] = max(err, timed4k[S2]["max_abs_err"])
+    del rounds
 
     (levels, hlabels, _), out["1080p_fastmst_hierarchy"] = _dpp_path(
         "1080p_fastmst_hierarchy", image, card,
@@ -2317,7 +2374,7 @@ def _dpp_paths(images, card):
                           first_only=True)["ordered_scatter_add"][0][0]
     timed = _time_kernels({"ordered_scatter_add": (args, {})},
                           "1080p_superpixel round-1 colour sums", card, 3)
-    return out, timed
+    return out, {"1080p_superpixel": timed, "4k_fastmst": timed4k}
 
 
 def _cli(argv):
@@ -4261,12 +4318,21 @@ S2_FRAMES = {
     "speed_4k": (2160, 3840, 0, "blobs"),
     "speed_photos": (321, 481, 0, "bsds_like"),
 }
+# the hand-written round's launches (`ks2.s2_round.launches`: a round
+# called or replayed) over the three stage-2 runs of `_s2_graph_check` on
+# a new workspace, three times a frame's rounds (10, 15, 11 and 8); and
+# one frame of the paths that pass no workspace
+RECORDED_LAUNCHES |= {f"s2_graphs_{name}": ("23g", dict(s2_round=n))
+                      for name, n in {
+    "speed_1080p": 30, "quality_1080p": 45, "speed_4k": 33,
+    "speed_photos": 24, "turbo_hierarchy_1080p": 10, "fastmst_1080p": 13,
+    "fastmst_4k": 14}.items()}
 
 
 @contextlib.contextmanager
 def _s2_graphs(on):
-    """Stage 2's graphs on or off (no workspace: every round op by op) for
-    the block."""
+    """Stage 2's graphs on or off (no workspace: every round an eager
+    call) for the block."""
     was = turbo._s2_workspace
     if not on:
         turbo._s2_workspace = lambda device: None
@@ -4286,16 +4352,28 @@ def _s2_frame(h, w, content, dev, seed=0):
 
 def _s2_counted(fn):
     """fn() with the tracing on: (result, s2_graph and s2_merged counts,
-    graphed rounds)."""
+    graphed rounds, rounds on the hand-written round (`s2_round.kernel`)
+    and its launches (`ks2.s2_round.launches`: rounds called or
+    replayed))."""
+    launches = ks2.s2_round.launches
     with _traced() as t:
         out = fn()
         torch.cuda.synchronize()
     c = t.rec.counters
     spans = [sp for sp in t.rec.spans if sp.name == "gseg.s2_round"]
-    return out, {"captures": c.get("s2_graph.captures", 0),
-                 "replays": c.get("s2_graph.replays", 0),
-                 "rounds": c.get("host_reads.s2_merged", 0),
-                 "graphed": sum(sp.attrs["graphed"] for sp in spans)}
+    counts = {"captures": c.get("s2_graph.captures", 0),
+              "replays": c.get("s2_graph.replays", 0),
+              "rounds": c.get("host_reads.s2_merged", 0),
+              "graphed": sum(sp.attrs["route"] == "graph" for sp in spans),
+              "kernel": c.get("s2_round.kernel", 0),
+              "launches": ks2.s2_round.launches - launches}
+    # every round on the card runs the hand-written round, graphed or not
+    if not (counts["kernel"] == counts["rounds"] == len(spans)
+            and counts["launches"] == counts["rounds"]
+            and {sp.attrs["route"] for sp in spans} <= {"kernel", "graph"}):
+        routes = collections.Counter(sp.attrs["route"] for sp in spans)
+        raise AssertionError(f"s2 rounds: counts {counts}, routes {routes}")
+    return out, counts
 
 
 def _stage_peaks(image, cfg):
@@ -4338,13 +4416,13 @@ def _fresh_workspace(device):
 
 def _s2_graph_check(name, image, cfg, card):
     """Stage 2 of one frame three ways: V-indexed (no root list), in
-    root-index space op by op (no workspace), graphed (three times: the
-    size's first frame runs op by op, the second captures, the third only
-    replays). fin and the flags must be bit-equal, and so the final
-    labels; the graphs' bytes, their memory pool counted, at most
-    `turbo._S2_GRAPH_BYTES` a pixel and at most the plan's; then whole
-    frames with the graphs on and off, their labels equal, and each
-    stage's peak."""
+    root-index space with eager kernel rounds (no workspace), graphed
+    (three times: the size's first frame runs eagerly, the second
+    captures, the third only replays). fin and the flags must be
+    bit-equal, and so the final labels; the graphs' memory pool empty and
+    their held bytes exactly the plan's, at most `turbo._S2_GRAPH_BYTES`
+    a pixel; then whole frames with the graphs on and off, their labels
+    equal, and each stage's peak."""
     h, w = image.shape[:2]
     v = h * w
     ws = _fresh_workspace(image.device)
@@ -4377,10 +4455,14 @@ def _s2_graph_check(name, image, cfg, card):
             or bool(c3["graphed"]) != bool(keys)):
         raise AssertionError(f"s2 graphs {name}: frames {c1} {c2} {c3}, "
                              f"{len(keys)} keys")
+    launches = sum(c["launches"] for c in (c1, c2, c3))
+    _s2_recorded_launches(f"s2_graphs_{name}", launches)
+    # the graphs allocate nothing: the plan's bytes are the buffers'
     pool = turbo._pool_reserved(ws.pool)
-    if not ws.held_bytes() <= min(held, turbo._S2_GRAPH_BYTES * v):
+    if pool or ws.held_bytes() != (held if keys else 0) \
+            or held > turbo._S2_GRAPH_BYTES * v:
         raise AssertionError(f"s2 graphs {name}: {ws.held_bytes()} bytes "
-                             f"held (pool {pool}), plan {held}, over "
+                             f"held (pool {pool}), plan {held}, "
                              f"{turbo._S2_GRAPH_BYTES} a pixel")
     graphed_ms, eager_ms, vidx_ms = _turns_ms([
         lambda: turbo._s2_stage(st, v, cfg, thr, r0, ws),
@@ -4405,6 +4487,7 @@ def _s2_graph_check(name, image, cfg, card):
         peaks_off, base_off = _stage_peaks(image, cfg)
     rec = {"flags": int(vidx.flags), "rounds": c3["rounds"],
            "graphed_rounds": c3["graphed"], "replays": c3["replays"],
+           "s2_round_launches": launches,
            "captures": [c1["captures"], c2["captures"], c3["captures"]],
            "frame_counts": c_on,
            "graphed_phases": sorted(p for p, k in plan.items() if k),
@@ -4420,7 +4503,8 @@ def _s2_graph_check(name, image, cfg, card):
           f"labels bit-equal V-indexed / root-space eager / graphed; "
           f"{c3['rounds']} rounds a frame, {c3['graphed']} graphed, "
           f"{c3['replays']} replays, captures {rec['captures']} (frames "
-          f"1-3); graphed phases {rec['graphed_phases']}; held "
+          f"1-3), s2_round launches {launches} (frames 1-3); graphed "
+          f"phases {rec['graphed_phases']}; held "
           f"{ws.held_bytes()} B ({ws.held_bytes() / v:.3f} B a pixel; "
           f"memory pool {pool} B; plan {held}), reserved MiB a frame "
           f"{_round(dict(enumerate(rec['reserved_delta_mib'])))}",
@@ -4456,10 +4540,21 @@ def _v_indexed():
         turbo._s2_stage = was
 
 
+def _s2_recorded_launches(path, launches):
+    """The hand-written round's launches against their record, where one
+    is kept."""
+    if path in RECORDED_LAUNCHES:
+        run, recorded = RECORDED_LAUNCHES[path]
+        if launches != recorded["s2_round"]:
+            raise AssertionError(f"{path}: s2_round launches {launches}, "
+                                 f"run {run}'s {recorded['s2_round']}")
+
+
 def _s2_unchanged(name, run):
     """A path that passes no workspace: the same output with the graphs
     on and off, and no graph captured or replayed."""
     out_on, c = _s2_counted(run)
+    _s2_recorded_launches(f"s2_graphs_{name}", c["launches"])
     with _s2_graphs(False):
         out_off = run()
     same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
@@ -4486,7 +4581,7 @@ def _s2_graphs_step(dev, card):
     def spatial_run():
         return turbo_spatial.segment_turbo_spatial(img540, CFG, mesh)
 
-    # the ranks pass no workspace: their rounds run op by op in root space
+    # the ranks pass no workspace: their rounds are eager calls in root space
     (lab, fl), c = _s2_counted(spatial_run)
     with _v_indexed():
         lab_v, fl_v = spatial_run()
@@ -4513,6 +4608,9 @@ def _s2_graphs_step(dev, card):
     rows["fastmst_1080p"] = _s2_unchanged(
         "fastmst_1080p", lambda: fastmst.segment_fastmst_flagged(img1080,
                                                                  CFG))
+    img4k = _s2_frame(2160, 3840, "blobs", dev)
+    rows["fastmst_4k"] = _s2_unchanged(
+        "fastmst_4k", lambda: fastmst.segment_fastmst_flagged(img4k, CFG))
     step = {"seconds": time.perf_counter() - t0}
     print(f"step 15 took {step['seconds']:.1f} s", flush=True)
     return {f"s2_graphs_{k}": v for k, v in rows.items()}, step
@@ -4521,6 +4619,79 @@ def _s2_graphs_step(dev, card):
 def _in_v_indexed(fn):
     with _v_indexed():
         return fn()
+
+
+# stage 2's hand-written round in each path's counted run (runs 23f, 23g
+# and 23h): one launch a round, called or replayed from a graph, so the
+# count does not depend on the graphs the card already holds; the other
+# paths run none. The sweep rows whose candidate pool overflows
+# (SWEEP_MAY_OVERFLOW) hold no count: which candidates land in the pool
+# follows the order of the extraction's atomics, and so do their rounds
+# (14 and 13 at gate 13 in runs 23h and 23i); they must launch it.
+S2_LAUNCHES = {
+    "1080p_batch4": 40, "1080p_cli": 10, "1080p_cli_level4": 10,
+    "1080p_count": 10, "1080p_fastmst": 13, "1080p_fastmst_hierarchy": 13,
+    "1080p_final_gather": 10, "1080p_flood_ptr": 10, "1080p_late_closures": 10,
+    "1080p_runs": 10, "1080p_spatial4": 40, "1080p_spatial4_final_gather": 40,
+    "1080p_spatial4_wb16": 60, "1080p_subsum": 10, "1080p_turbo_hierarchy": 10,
+    "1080p_turbo_hierarchy_final_gather": 10, "1080p_wb16": 15,
+    "1080p_wb16_closures": 15, "1080p_wb16_closures_tscan4": 15,
+    "1080p_wb16_no_q_closures": 15, "1080p_wb16_rlist_nosplit": 15,
+    "4k_batch2": 22, "4k_fastmst": 14, "4k_final_gather": 11,
+    "4k_flood_ptr": 11, "4k_spatial4": 44, "4k_subsum": 11, "4k_t16": 11,
+    "4k_wb16": 15, "bsds_like_quality_fastmst": 231,
+    "bsds_like_quality_turbo": 171, "bsds_like_quality_turbo_wb16": 139,
+    "ladder_fastmst_1080x1920": 13, "ladder_fastmst_1440x2560": 14,
+    "ladder_fastmst_2160x3840": 14, "ladder_fastmst_2880x5120": 14,
+    "ladder_fastmst_4320x7680": 14, "ladder_fastmst_540x960": 12,
+    "ladder_fastmst_720x1280": 12, "ladder_turbo_1080x1920": 10,
+    "ladder_turbo_1440x2560": 11, "ladder_turbo_2160x3840": 11,
+    "ladder_turbo_2880x5120": 11, "ladder_turbo_4320x7680": 11,
+    "ladder_turbo_540x960": 9, "ladder_turbo_720x1280": 9,
+    "ladder_turbo_textured_1080x1920": 8,
+    "ladder_turbo_textured_2160x3840": 10, "ladder_turbo_textured_540x960": 7,
+    "ladder_turbo_wb16_540x960": 13, "parity_1080p_textured_k10_wb16": 10,
+    "parity_540p_blobs": 9, "parity_540p_textured": 7,
+    "parity_synthetic000": 8, "parity_synthetic001": 8,
+    "parity_synthetic002": 8, "parity_synthetic003": 8,
+    "parity_synthetic004": 7, "parity_synthetic005": 6,
+    "parity_synthetic006": 9, "parity_synthetic007": 6,
+    "parity_synthetic008": 9, "parity_synthetic009": 8,
+    "parity_synthetic010": 7, "parity_synthetic011": 8,
+    "parity_synthetic012": 8, "parity_synthetic013": 10,
+    "parity_synthetic014": 10, "parity_synthetic015": 6,
+    "parity_synthetic016": 7, "parity_synthetic017": 7,
+    "parity_synthetic018": 7, "parity_synthetic019": 8,
+    "spatial8_short_tiles": 48, "spatial_parity_blobs_540x960_4ranks_wb0": 36,
+    "spatial_parity_blobs_540x960_4ranks_wb16": 52,
+    "spatial_parity_blobs_720x1280_8ranks_wb0": 72,
+    "spatial_parity_blobs_720x1280_8ranks_wb16": 104,
+    "spatial_parity_dense_blobs_540x960_wb0": 9,
+    "spatial_parity_dense_blobs_540x960_wb16": 13,
+    "spatial_parity_dense_blobs_720x1280_wb0": 9,
+    "spatial_parity_dense_blobs_720x1280_wb16": 13,
+    "spatial_parity_dense_textured_540x960_wb0": 7,
+    "spatial_parity_dense_textured_540x960_wb16": 10,
+    "spatial_parity_dense_textured_720x1280_wb0": 8,
+    "spatial_parity_dense_textured_720x1280_wb16": 8,
+    "spatial_parity_textured_540x960_4ranks_wb0": 28,
+    "spatial_parity_textured_540x960_4ranks_wb16": 40,
+    "spatial_parity_textured_720x1280_8ranks_wb0": 64,
+    "spatial_parity_textured_720x1280_8ranks_wb16": 64,
+    "sweep_baseline_1080x1920_wb0": 10, "sweep_baseline_1080x1920_wb16": 15,
+    "sweep_baseline_2160x3840_wb0": 11, "sweep_closures_1080x1920_wb0": 10,
+    "sweep_finalgather_1080x1920_wb0": 10, "sweep_floodptr_1080x1920_wb0": 10,
+    "sweep_floodptr_fg_1080x1920_wb0": 10, "sweep_gate32_1080x1920_wb0": 11,
+    "sweep_gateq16_1080x1920_wb16": 16, "sweep_nofastpad_1080x1920_wb0": 10,
+    "sweep_nofastpad_2160x3840_wb0": 11, "sweep_nosmall_1080x1920_wb0": 10,
+    "sweep_peelcount_1080x1920_wb0": 10,
+    "sweep_qnoclosures_1080x1920_wb16": 15, "synthetic_quality_fastmst": 228,
+    "synthetic_quality_turbo": 155, "synthetic_quality_turbo_wb16": 174}
+S2_UNSETTLED = {_sweep_path(c, 1080, 1920, wb)
+                for c, wb in SWEEP_MAY_OVERFLOW}
+for _path, _n in S2_LAUNCHES.items():
+    _run, _rec = RECORDED_LAUNCHES[_path]
+    RECORDED_LAUNCHES[_path] = (f"{_run}, 23f-23h", _rec | {S2: _n})
 
 
 def main() -> None:
@@ -4669,11 +4840,12 @@ def main() -> None:
     ab = _peel_ab(images[P.h, P.w], card)
     runs |= _new_paths(images, card)
     print(f"new paths done at {time.perf_counter() - t0:.1f} s", flush=True)
-    dpp, timed["1080p_superpixel"] = _dpp_paths(images, card)
+    dpp, dpp_timed = _dpp_paths(images, card)
     runs |= dpp
-    errs["ordered_scatter_add"] = max(
-        errs["ordered_scatter_add"],
-        timed["1080p_superpixel"]["ordered_scatter_add"]["max_abs_err"])
+    timed |= dpp_timed
+    for path, name in (("1080p_superpixel", "ordered_scatter_add"),
+                       ("4k_fastmst", S2)):
+        errs[name] = max(errs[name], timed[path][name]["max_abs_err"])
     print(f"DPP paths done at {time.perf_counter() - t0:.1f} s", flush=True)
     runs |= _cli_paths(images[1080, 1920], card)
     print(f"CLI paths done at {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4751,7 +4923,9 @@ def main() -> None:
                 for p, r in runs_planes.items()}}
                if name == "run_extract" else {})
             | {f"{k}_8k": v for k, v in timed8k.get(name, {}).items()
-               if k in _EXTRA_KEYS + _KEYS_8K})
+               if k in _EXTRA_KEYS + _KEYS_8K}
+            | {f"{k}_fastmst_4k": v for k, v in timed["4k_fastmst"].get(
+                name, {}).items() if k in _KEYS_8K})
     print("paths: " + json.dumps(
         {p: {k: v for k, v in r.items() if k != "launches"}
          for p, r in runs.items()} | {"peel_ab_1080p": ab,

@@ -32,13 +32,16 @@ mode (`weight_buckets > 0`, scan closures on):
   (`kernels.extract.boundary_extract`) and deduplicated to the min edge per
   component pair.
 
-  STAGE 2 — compact Boruvka rounds on the edge pool (sorts, compaction,
-  pointer doubling), then the min-size rounds. The rounds run in
-  root-index space: each label becomes its position in the handoff's
-  sorted root list, so the state is sized by the root list, not by V. On
-  a CUDA card the rounds whose graphs, buffers and memory pool together
-  fit `_S2_GRAPH_BYTES` bytes a pixel replay CUDA graphs over that state
-  (`_S2Graphs`), from a frame size's second frame in a row on.
+  STAGE 2 — compact Boruvka rounds on the edge pool (each label's least
+  edge, hooks, hook-chain sinks), then the min-size rounds. The rounds run
+  in root-index space: each label becomes its position in the handoff's
+  sorted root list, so the state is sized by the root list, not by V. A
+  round is one call of the hand-written round (`kernels.s2round`, no
+  sort; on the CPU its plain version), and on a CUDA card the rounds
+  whose static buffers fit `_S2_GRAPH_BYTES` bytes a pixel replay CUDA
+  graphs of it over that state (`_S2Graphs`), from a frame size's second
+  frame in a row on. `_s2_round_ops`, the round as PyTorch ops with a
+  sort, is the oracle the tests hold it to.
 
   FINAL — each component's final root is placed on its root pixel and
   value-flooded over the stage-G components (`value_flood`).
@@ -83,6 +86,7 @@ from ..ops import grid_graph as gg
 from ..ops.kernels import extract as kx
 from ..ops.kernels import gossip as kg
 from ..ops.kernels import runs as kr
+from ..ops.kernels import s2round as ks2
 from ..utils import timing
 from ..utils.timing import host_read
 
@@ -851,9 +855,10 @@ def _hook_roots(hm, hsrc, succ, v):
 
 def _s2_round_ops(st: CompactState, v, comp_cap, k, min_size,
                   is_felz: bool, tau, canonical: bool):
-    """The ops of one compact round (`_s2_round`), with no host read:
-    (esrc, edst, SZf, IDf, fin, merged, flags), merged a 0-d device bool.
-    k and tau: numbers or 0-d device tensors."""
+    """One compact round as PyTorch ops, with no host read: the oracle of
+    `_s2_round`'s hand-written round. Returns (esrc, edst, SZf, IDf, fin,
+    merged, flags), merged a 0-d device bool. k and tau: numbers or 0-d
+    device tensors."""
     esrc, edst, ew = st.esrc, st.edst, st.ew
     dev = esrc.device
     live = (esrc != edst) & torch.isfinite(ew)
@@ -915,25 +920,32 @@ def _s2_round(st: CompactState, v, comp_cap, k, min_size,
     no cap). canonical: relabel each merged cluster to its min member root
     (turbo's labels), else keep the hook-chain sink root (the root-id
     labels of the atomic path and the oracles, which fastmst gives).
-    ws: the thread's `_S2Graphs` on the state's card (None: the ops run
-    one by one); a round it holds a graph for is replayed on its buffers,
-    in place, and the state comes back on them."""
+    ws: the thread's `_S2Graphs` on the state's card; a round it holds a
+    graph for is replayed on its buffers, in place, and the state comes
+    back on them. Otherwise the round is one call of the hand-written
+    round (`ops.kernels.s2round`; on the CPU its plain version), byte-equal
+    to the ops of `_s2_round_ops`."""
     graph = None if ws is None else ws.graph(st, comp_cap, min_size,
                                              is_felz, tau, canonical)
+    route = "kernel" if graph is None else "graph"
     with timing.span("gseg.s2_round", kind="felz" if is_felz else "min_size",
-                     graphed=graph is not None):
-        if graph is None:
-            esrc, edst, SZf, IDf, fin, merged, flags = _s2_round_ops(
-                st, v, comp_cap, k, min_size, is_felz, tau, canonical)
+                     route=route):
+        if route == "kernel":
+            esrc, edst, SZf, IDf, fin, merged, flags = ks2.s2_round(
+                st.esrc, st.edst, st.ew, st.eeid, st.SZf, st.IDf, st.fin,
+                st.flags, head_cap=comp_cap, k=k, min_size=min_size,
+                is_felz=is_felz, tau=tau, canonical=canonical)
         else:
             st = ws.bind(st)
             if tau is not None:
                 ws.tau.copy_(tau)
             graph.replay()
+            ks2.replayed()
             timing.count("s2_graph.replays")
             esrc, edst, SZf, IDf, fin = st.esrc, st.edst, st.SZf, st.IDf, \
                 st.fin
             merged, flags = ws.merged, ws.flags
+        timing.count("s2_round.kernel")
         return CompactState(
             esrc=esrc, edst=edst, ew=st.ew, eeid=st.eeid, SZf=SZf, IDf=IDf,
             fin=fin, merged=host_read(merged, "s2_merged"), it=st.it + 1,
@@ -1098,47 +1110,44 @@ def _s2_graph_key(e, c, head_cap, is_felz, capped, canonical, min_size):
             None if is_felz else min_size)
 
 
-_S2_SCALAR_BYTES = 4 * 512   # flags, merged, tau, k: one allocator block each
-_SEGMENT = 2 << 20           # the CUDA caching allocator's small segment,
-_SEGMENT_LARGE = 20 << 20    # and its segment for a block of 1-10 MiB
+def _block(nbytes: int) -> int:
+    """The CUDA caching allocator's block for nbytes: 512-byte units."""
+    return -(-max(nbytes, 1) // 512) * 512
 
 
-def _s2_pool_bytes(e: int, c: int, head_cap: int) -> int:
-    """The private memory pool a round's graph reserves, at most (pool
-    length e, c roots): its intermediates at their peak, about 72 bytes a
-    pool entry, 25 a root and 18 a head (H100, PyTorch 2.x), a quarter
-    more for packing them into 2 MiB segments, and a 20 MiB segment once
-    the sort's scratch, about 24 bytes an entry, passes 1 MiB."""
-    peak = (72 * e + 25 * c + 18 * min(head_cap, e)) * 5 // 4
-    return (-(-peak // _SEGMENT) * _SEGMENT
-            + (_SEGMENT_LARGE if 24 * e > 1 << 20 else 0))
+def _s2_static_bytes(n_pool: int, c: int) -> int:
+    """The bytes of `_S2Graphs`' static buffers, allocator blocks counted:
+    esrc, edst, ew, eeid at the largest graphed pool length, SZf, IDf, fin
+    at the root list's length c, the round's scratch at c slots
+    (`ops.kernels.s2round.scratch_bytes`), and four scalars (flags,
+    merged, tau, k)."""
+    return (4 * _block(4 * n_pool) + 3 * _block(4 * c)
+            + _block(ks2.scratch_bytes(c)) + 4 * _block(4))
 
 
 def _s2_graph_plan(v: int, cfg: SegmentationConfig, pair_cap=None):
     """Which of `_s2_stage`'s phases (`_s2_shape`) replay CUDA graphs at V
     pixels, from the capacities alone. Returns (plan, held): plan maps
-    each phase to its graph key, or to None where its rounds run op by
-    op; held, the bytes the graphs keep from frame to frame: the static
-    buffers (4-byte words: one pool of the largest graphed length, esrc,
-    edst, ew, eeid; SZf, IDf, fin at the root list's length C; four
-    scalars) and the graphs' private memory pool, which replays one at a
-    time share (the largest `_s2_pool_bytes`). Phases are taken shortest
-    pool first while held stays at most `_S2_GRAPH_BYTES` a pixel.
-    pair_cap: the handoff pool's pairs (default the capacity)."""
+    each phase to its graph key, or to None where its rounds run eagerly;
+    held, the bytes the graphs keep from frame to frame: their static
+    buffers (`_s2_static_bytes`). A graph runs the hand-written round on
+    those buffers and allocates nothing, so its private memory pool stays
+    empty. Phases are taken shortest pool first while held stays at most
+    `_S2_GRAPH_BYTES` a pixel. pair_cap: the handoff pool's pairs (default
+    the capacity)."""
     cp = capacities(v, cfg.weight_buckets)
     c = cp["comp_cap"]
     shape = _s2_shape(v, cfg, cp["pair_cap"] if pair_cap is None
                       else pair_cap)
     plan = dict.fromkeys(shape.phases)
-    held = n_pool = pool = 0
+    held = n_pool = 0
     for p, (e, hc, felz, capped) in sorted(shape.phases.items(),
                                            key=lambda kv: kv[1][0]):
-        n2, pool2 = max(n_pool, e), max(pool, _s2_pool_bytes(e, c, hc))
-        need = 12 * c + _S2_SCALAR_BYTES + 16 * n2 + pool2
+        need = _s2_static_bytes(max(n_pool, e), c)
         if need <= _S2_GRAPH_BYTES * v:
             plan[p] = _s2_graph_key(e, c, hc, felz, capped, True,
                                     cfg.min_size)
-            held, n_pool, pool = need, n2, pool2
+            held, n_pool = need, max(n_pool, e)
     return plan, held
 
 
@@ -1157,18 +1166,19 @@ class _S2Graphs:
     Static buffers, which the graphed rounds read and update in place: one
     pool (esrc, edst, ew, eeid) of the largest graphed length, whose
     prefixes the shorter pools use; SZf, IDf and fin at the root list's
-    length; the flags and merged scalars; tau, a capped felz round's
-    weight cap, copied in before each replay; k. One `torch.cuda.CUDAGraph`
-    per round key (`_s2_graph_key`), all captured on one stream into one
-    private memory pool: a graph's intermediates are dead when it ends,
-    and the graphs replay one at a time, so they share the pool's blocks.
+    length; the hand-written round's scratch at that length; the flags and
+    merged scalars; tau, a capped felz round's weight cap, copied in before
+    each replay; k. One `torch.cuda.CUDAGraph` per round key
+    (`_s2_graph_key`), each the hand-written round's launches on the
+    static buffers, all captured on one stream into one private memory
+    pool, which stays empty: the round allocates nothing.
 
-    `prepare` holds one size's plan: a size's first frame runs op by op,
+    `prepare` holds one size's plan: a size's first frame runs eagerly,
     its second in a row captures the plan's graphs (a capture records the
-    ops and runs none of them) and drops another size's, and later frames
-    replay them. A stream of mixed sizes thus captures nothing. One thread
-    at a time uses the workspace (`acquire`); another finds it busy and
-    runs op by op."""
+    launches and runs none of them) and drops another size's, and later
+    frames replay them. A stream of mixed sizes thus captures nothing. One
+    thread at a time uses the workspace (`acquire`); another finds it busy
+    and runs its rounds eagerly."""
 
     def __init__(self, device):
         self.device = device
@@ -1201,7 +1211,7 @@ class _S2Graphs:
         """Hold the graphs of `plan` (`_s2_graph_plan`), capturing them
         when the same plan came on the previous call too, and set k.
         Graphs whose bytes (`held_bytes`) pass `budget` are dropped, and
-        their plan then runs op by op. Returns whether graphs are held."""
+        their plan then runs eagerly. Returns whether graphs are held."""
         keys = tuple(plan.values())
         seen, self.seen = self.seen, keys
         if keys != self.keys:
@@ -1230,18 +1240,19 @@ class _S2Graphs:
         self.ew = buf(torch.float32, n_pool)
         self.SZf, self.fin = (buf(torch.int32, n_root) for _ in range(2))
         self.IDf = buf(torch.float32, n_root)
+        self.scratch = buf(torch.int64, -(-ks2.scratch_bytes(n_root) // 8))
         self.flags, self.merged = buf(torch.int32), buf(torch.bool)
         self.tau, self.k, self.k_val = buf(torch.float32), \
             buf(torch.float32), None
         self.buffers = (self.esrc, self.edst, self.ew, self.eeid, self.SZf,
-                        self.IDf, self.fin, self.flags, self.merged,
-                        self.tau, self.k)
+                        self.IDf, self.fin, self.scratch, self.flags,
+                        self.merged, self.tau, self.k)
 
     def held_bytes(self) -> int:
-        """Bytes the graphs keep: the static buffers and the segments of
-        their private memory pool."""
-        return (sum(t.untyped_storage().nbytes() for t in self.buffers)
-                + _pool_reserved(self.pool))
+        """Bytes the graphs keep: the static buffers' allocator blocks and
+        the segments of their private memory pool."""
+        return (sum(_block(t.untyped_storage().nbytes())
+                    for t in self.buffers) + _pool_reserved(self.pool))
 
     def _state(self, e: int, c: int) -> CompactState:
         return CompactState(
@@ -1251,15 +1262,17 @@ class _S2Graphs:
             flags=self.flags)
 
     def _record(self, key) -> None:
-        """A graphed round's ops on the static buffers, updating them in
-        place: what a capture records."""
+        """A graphed round on the static buffers, the hand-written round
+        updating them in place: what a capture records."""
         e, c, head_cap, is_felz, capped, canonical, min_size = key
         st = self._state(e, c)
-        out = _s2_round_ops(st, c, head_cap, self.k, min_size, is_felz,
-                            self.tau if capped else None, canonical)
-        for dst, x in zip((st.esrc, st.edst, st.SZf, st.IDf, st.fin,
-                           self.merged, self.flags), out):
-            dst.copy_(x)
+        ks2.s2_round(st.esrc, st.edst, st.ew, st.eeid, st.SZf, st.IDf,
+                     st.fin, self.flags, head_cap=head_cap, k=self.k,
+                     min_size=min_size, is_felz=is_felz,
+                     tau=self.tau if capped else None, canonical=canonical,
+                     out=(st.esrc, st.edst, st.SZf, st.IDf, st.fin,
+                          self.merged, self.flags),
+                     scratch=self.scratch)
 
     def _capture(self, key):
         if self.pool is None:
@@ -1274,14 +1287,16 @@ class _S2Graphs:
         with torch.cuda.stream(self.stream):
             graph.capture_begin(pool=self.pool,
                                 capture_error_mode="thread_local")
-            self._record(key)
-            graph.capture_end()
+            try:
+                self._record(key)
+            finally:
+                graph.capture_end()
         current.wait_stream(self.stream)
         return graph
 
     def graph(self, st: CompactState, comp_cap, min_size, is_felz, tau,
               canonical):
-        """The graph of this round, or None (it runs op by op)."""
+        """The graph of this round, or None (it runs eagerly)."""
         return self.graphs.get(_s2_graph_key(
             st.esrc.numel(), st.SZf.numel(), comp_cap, is_felz,
             tau is not None, canonical, min_size))
@@ -1330,7 +1345,7 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
     pool, SZf and IDf stay root-indexed, and may lie in the workspace's
     buffers). Without r0 every round runs V-indexed. ws: the card's
     `_S2Graphs` (`_s2_workspace`), whose graphs then replay the rounds of
-    `_s2_graph_plan` in root-index space; None: every round op by op.
+    `_s2_graph_plan` in root-index space; None: every round eagerly.
     rec_cap: a floor for the recompacts' caps (see _s2_shape). st itself
     is left as it was."""
     pair_cap = st.esrc.numel() // 2
@@ -1432,7 +1447,7 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
     must not be trusted (`segment_turbo` checks it).
 
     A frame whose stage-2 recompact overflowed runs stage 2 and the final
-    map again, op by op, with the recompacts' caps raised to the handoff
+    map again, without graphs, with the recompacts' caps raised to the handoff
     pool's half where that is larger (quality mode: V/8 to V/6 at the
     default gate; counted as s2.retries), and raises the flag only if
     that overflows too. A frame that does not overflow runs as before,

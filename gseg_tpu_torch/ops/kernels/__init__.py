@@ -6,7 +6,7 @@ def launch_counts() -> dict:
     """Every wrapper's launches so far, by kernel name (the names of
     chip_smoke.py's kernel line). Take the difference of two readings to
     count a call's launches without resetting anyone else's count."""
-    from . import extract, gossip, pad, runs, scatter
+    from . import extract, gossip, pad, runs, s2round, scatter
 
     wrappers = {
         "gossip_compmin": gossip.compmin_gossip,
@@ -22,5 +22,6 @@ def launch_counts() -> dict:
         "closure_value": gossip.value_closure,
         "run_extract": runs.run_extract,
         "ordered_scatter_add": scatter.ordered_scatter_add,
+        "s2_round": s2round.s2_round,
     }
     return {name: fn.launches for name, fn in wrappers.items()}

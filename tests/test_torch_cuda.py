@@ -23,6 +23,7 @@ from gseg_tpu_torch.ops.kernels import extract as kx  # noqa: E402
 from gseg_tpu_torch.ops.kernels import gossip as kg  # noqa: E402
 from gseg_tpu_torch.ops.kernels import pad as kp  # noqa: E402
 from gseg_tpu_torch.ops.kernels import runs as kr  # noqa: E402
+from gseg_tpu_torch.ops.kernels import s2round  # noqa: E402
 from gseg_tpu_torch.utils import timing  # noqa: E402
 from gseg_tpu_torch.utils.synthetic import blobs_image  # noqa: E402
 
@@ -1083,12 +1084,14 @@ def test_evidence_quality_rows_on_card(dev, tmp_path):
 @pytest.mark.parametrize("wb", [0, 16])
 def test_s2_graphs_equal_eager_on_card(dev, wb):
     """Stage 2's graphed rounds on the card (1080p, speed and quality
-    mode): fin, the flags and the round count equal the rounds run op by
-    op in root-index space and V-indexed. The size's first frame captures
-    nothing, its second every graph of its plan, the third none, and a
-    round replays for each graphed round; the graphs keep at most 3 bytes
-    a pixel, their memory pool counted. (Quality mode's plan graphs
-    nothing: each of its rounds needs a 20 MiB segment of pool.)"""
+    mode): fin, the flags and the round count equal the rounds run
+    eagerly in root-index space and V-indexed. The size's first frame
+    captures nothing, its second every graph of its plan, the third none,
+    and a round replays for each graphed round; the graphs keep exactly
+    the plan's bytes, at most 3 a pixel, and their memory pool stays
+    empty; the round's launch count counts each round once. (Quality
+    mode's plan graphs nothing: its static buffers pass 3 bytes a
+    pixel.)"""
     cfg = SegmentationConfig(algorithm="turbo", weight_buckets=wb)
     image = torch.from_numpy(blobs_image(1080, 1920, 31, 8.0, 3)).to(dev)
     v = 1080 * 1920
@@ -1101,6 +1104,7 @@ def test_s2_graphs_equal_eager_on_card(dev, wb):
     keys = {key for key in plan.values() if key is not None}
     assert bool(keys) == (wb == 0)
     for frame in range(3):
+        launches = s2round.s2_round.launches
         timing.take()
         timing.enable()
         try:
@@ -1109,8 +1113,13 @@ def test_s2_graphs_equal_eager_on_card(dev, wb):
         finally:
             timing.disable()
         rec = timing.take()
-        graphed = [sp.attrs["graphed"] for sp in rec.spans
-                   if sp.name == "gseg.s2_round"]
+        routes = [sp.attrs["route"] for sp in rec.spans
+                  if sp.name == "gseg.s2_round"]
+        graphed = [r == "graph" for r in routes]
+        assert set(routes) <= {"graph", "kernel"}
+        assert rec.counters["s2_round.kernel"] == len(routes)
+        # a launch a round, called or replayed (a capture runs none)
+        assert s2round.s2_round.launches - launches == len(routes)
         for ref in (eager, vidx):
             assert torch.equal(got.fin, ref.fin)
             assert int(got.flags) == int(ref.flags) == 0
@@ -1120,6 +1129,92 @@ def test_s2_graphs_equal_eager_on_card(dev, wb):
         assert rec.counters.get("s2_graph.replays", 0) == sum(graphed)
         assert (sum(graphed) > 0) == (frame > 0 and bool(keys))
     if keys:
-        assert 0 < ws.held_bytes() <= held <= 3 * v
+        assert turbo._pool_reserved(ws.pool) == 0
+        assert 0 < ws.held_bytes() == held <= 3 * v
     else:
         assert ws.held_bytes() == 0
+
+
+def _checked_rounds(monkeypatch, seen):
+    """Every `_s2_round` checked against `_s2_round_ops` on the same
+    state, on the card: all seven outputs byte-equal; seen counts the
+    rounds by route."""
+    run = turbo._s2_round
+
+    def round_(st, v, comp_cap, k, min_size, is_felz, tau=None,
+               canonical=True, ws=None):
+        want = turbo._s2_round_ops(st, v, comp_cap, k, min_size, is_felz,
+                                   tau, canonical)
+        timing.take()
+        timing.enable()
+        try:
+            got = run(st, v, comp_cap, k, min_size, is_felz, tau, canonical,
+                      ws)
+        finally:
+            timing.disable()
+        route = [sp.attrs["route"] for sp in timing.take().spans
+                 if sp.name == "gseg.s2_round"]
+        assert len(route) == 1 and route[0] in ("kernel", "graph")
+        seen[route[0]] = seen.get(route[0], 0) + 1
+        for name, w in zip(("esrc", "edst", "SZf", "IDf", "fin"), want):
+            g = getattr(got, name)
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+        assert got.merged == bool(want[5])
+        assert torch.equal(got.flags, want[6])
+        return got
+
+    monkeypatch.setattr(turbo, "_s2_round", round_)
+
+
+# the benchmark's four turbo cells' frames (h, w, weight_buckets, content)
+S2_CELLS = {"speed-1080p": (1080, 1920, 0, "blobs"),
+            "quality-1080p": (1080, 1920, 16, "blobs"),
+            "speed-4k": (2160, 3840, 0, "blobs"),
+            "speed-photos": (321, 481, 0, "bsds_like")}
+
+
+@pytest.mark.parametrize("cell", sorted(S2_CELLS))
+def test_s2_kernel_round_equals_ops_on_card(dev, monkeypatch, cell):
+    """The hand-written round (`ops.kernels.s2round`) at the turbo cells'
+    frame sizes: each round of stage 2, eager in root-index space and
+    V-indexed, then graphed (a size's second and third frames in a row,
+    where its plan graphs), byte-equal to `_s2_round_ops` on the same
+    state, flags included."""
+    from gseg_tpu_torch.utils.synthetic import bsds_like_scene
+
+    h, w, wb, content = S2_CELLS[cell]
+    img = (blobs_image(h, w, max(8, h * w // 65536), 8.0, 3)
+           if content == "blobs" else bsds_like_scene(h, w, 90, 3)[0])
+    image = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
+    cfg = SegmentationConfig(k=300.0, min_size=100, algorithm="turbo",
+                             weight_buckets=wb)
+    v = h * w
+    gst, wts, thr = turbo._stage_g(image, cfg, 2)
+    st, rm, r0 = turbo._extract_stage(gst, wts, cfg)
+    seen = {}
+    _checked_rounds(monkeypatch, seen)
+    vidx = turbo._s2_stage(st, v, cfg, thr)
+    eager = turbo._s2_stage(st, v, cfg, thr, r0)
+    assert set(seen) == {"kernel"}
+    ws = turbo._S2Graphs(dev)
+    plan, _ = turbo._s2_graph_plan(v, cfg, st.esrc.numel() // 2)
+    for _ in range(3):
+        got = turbo._s2_stage(st, v, cfg, thr, r0, ws)
+        assert torch.equal(got.fin, eager.fin) and got.it == eager.it
+        assert int(got.flags) == int(eager.flags) == int(vidx.flags)
+    assert torch.equal(vidx.fin, eager.fin)
+    assert (seen.get("graph", 0) > 0) == any(plan.values())
+
+
+def test_s2_kernel_round_equals_ops_on_card_fastmst_4k(dev, monkeypatch):
+    """The same on the fastmst path at 4K: its V-indexed rounds with sink
+    labels (canonical=False), up to 2.5 V pool entries, no graphs."""
+    from gseg_tpu_torch.models import fastmst
+
+    image = torch.from_numpy(blobs_image(2160, 3840, 126, 8.0, 3)).to(dev)
+    cfg = SegmentationConfig(k=300.0, min_size=100, algorithm="fastmst")
+    seen = {}
+    _checked_rounds(monkeypatch, seen)
+    _, flags = fastmst.segment_fastmst_flagged(image, cfg)
+    assert flags == 0
+    assert set(seen) == {"kernel"} and seen["kernel"] > 2

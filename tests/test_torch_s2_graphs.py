@@ -9,13 +9,14 @@ final labels must be equal, with one `s2_live` read either way. A state
 whose root list overflowed must keep the V-indexed rounds, byte for byte.
 
 The graphed rounds (`turbo._S2Graphs`) are driven with each graph
-replaced by the ops it records, run in place on the workspace's buffers,
-under a budget with room for every phase; on a card `chip_smoke.py`
-holds the real graphs to the eager rounds. Also here: the workspace's
-rules (a size captured on its second frame in a row, one size held,
-graphs over the budget dropped, a busy workspace left alone), and the
-memory rule (`turbo._s2_graph_plan`) at the benchmark's frame sizes, the
-540p spatial frame and 8K."""
+replaced by the round it records (the hand-written round's plain
+version), run in place on the workspace's buffers, under a budget with
+room for every phase; on a card `chip_smoke.py` and
+`tests/test_torch_cuda.py` hold the real graphs to the eager rounds.
+Also here: the workspace's rules (a size captured on its second frame in
+a row, one size held, graphs over the budget dropped, a busy workspace
+left alone), and the memory rule (`turbo._s2_graph_plan`) at the
+benchmark's frame sizes, the 540p spatial frame and 8K."""
 
 import types
 
@@ -70,8 +71,8 @@ def _traced(fn):
 
 
 class _Replayed(turbo._S2Graphs):
-    """The workspace with each graph's replay running the ops the capture
-    would record, in place on the static buffers."""
+    """The workspace with each graph's replay running the round the
+    capture would record, in place on the static buffers."""
 
     def _capture(self, key):
         return types.SimpleNamespace(replay=lambda: self._record(key))
@@ -85,7 +86,7 @@ def _labels(gst, st, rm, r0):
 
 
 def _graph_everything(monkeypatch):
-    # these frames' budget (3 B a pixel) holds no memory pool: room for
+    # these frames' budget (3 B a pixel) holds no static buffers: room for
     # every phase, to drive the mechanism
     monkeypatch.setattr(turbo, "_S2_GRAPH_BYTES", 1 << 12)
 
@@ -132,7 +133,11 @@ def test_root_space_equals_v_indexed(small_caps, monkeypatch, state,
         assert got_c["host_reads.s2_merged"] == want_c["host_reads.s2_merged"]
         assert len(got_spans) == len(want_spans) \
             == want_c["host_reads.s2_merged"]
-        n_graphed = sum(s.attrs["graphed"] for s in got_spans)
+        n_graphed = sum(s.attrs["route"] == "graph" for s in got_spans)
+        # the rest call the hand-written round (on the CPU its plain
+        # version)
+        assert {s.attrs["route"] for s in got_spans} <= {"graph", "kernel"}
+        assert got_c.get("s2_round.kernel", 0) == len(got_spans)
         assert got_c.get("s2_graph.replays", 0) == n_graphed
         assert got_c.get("s2_graph.captures", 0) == (
             len(keys) if frame == 1 else 0)
@@ -140,7 +145,7 @@ def test_root_space_equals_v_indexed(small_caps, monkeypatch, state,
         # shapes of the rounds the stage runs
         assert n_graphed == (len(got_spans) if frame else 0)
         if frame:
-            assert 0 < ws.held_bytes() <= held
+            assert 0 < ws.held_bytes() == held
             # fin and the flags are not the workspace's buffers
             for x in (got.fin, got.flags):
                 assert x.untyped_storage().data_ptr() not in {
@@ -180,21 +185,22 @@ def test_root_overflow_keeps_v_indexed_rounds(small_caps, monkeypatch,
 
 
 # (h, w, weight_buckets): the phases graphed, and the bytes the graphs
-# keep: 12 a root (SZf, IDf, fin), 2,048 for the scalars, 16 a slot of
-# the largest graphed pool, and the memory pool the largest round needs
-# (1080p: 21,600 roots, a 32,400 pool, a 4 MiB memory pool; 8K: 345,600
-# roots, a 259,200 pool, 17 small segments and a large one). A 20 MiB
-# segment alone passes 3 B a pixel below 7.3 MPix, and every round of
-# quality mode, of 4K and of the 540p spatial frame needs one, or the
-# photos a 2 MiB one on 0.46 MB.
+# keep, in 512-byte allocator blocks: 16 a slot of the largest graphed
+# pool, 12 a root (SZf, IDf, fin), the hand-written round's scratch (32 a
+# root and 8 a block of 1,024 roots) and four scalars; the graphs' memory
+# pool stays empty. 1080p: 21,600 roots, a 172,800 pool; 4K: 86,400 roots
+# and 691,200; 540p: 16,384 roots and 43,200; 8K: 345,600 roots and
+# 2,764,800. Quality mode's roots (V/24) with their scratch and its first
+# pools, and the photos' 16,384 roots (the floor) alone, pass 3 B a pixel.
+ALL_SPEED = {"warm_full", "warm_slice", "warm_rec1", "main_felz",
+             "main_min_size"}
 PLANS = {
-    "speed-1080p": (1080, 1920, 0, {"warm_rec1", "main_felz",
-                                    "main_min_size"}, 4973952),
+    "speed-1080p": (1080, 1920, 0, ALL_SPEED, 3718144),
     "quality-1080p": (1080, 1920, 16, set(), 0),
-    "speed-4k": (2160, 3840, 0, set(), 0),
+    "speed-4k": (2160, 3840, 0, ALL_SPEED, 14863872),
     "speed-photos": (321, 481, 0, set(), 0),
-    "speed-540p": (540, 960, 0, set(), 0),
-    "speed-8k": (4320, 7680, 0, {"main_felz", "main_min_size"}, 64919552),
+    "speed-540p": (540, 960, 0, ALL_SPEED, 1415680),
+    "speed-8k": (4320, 7680, 0, ALL_SPEED, 59448320),
     "quality-8k": (4320, 7680, 16, set(), 0),
 }
 
@@ -210,8 +216,11 @@ def test_graph_plan_fits_three_bytes_a_pixel(cell):
     assert set(plan) == ({"warm_full", "warm_slice", "main_felz",
                           "main_min_size"}
                          | (set() if wb else {"warm_rec1"}))
-    assert held == held_want <= turbo._S2_GRAPH_BYTES * v
     c = turbo.capacities(v, wb)["comp_cap"]
+    assert held == held_want <= turbo._S2_GRAPH_BYTES * v
+    if graphed:
+        n_pool = max(key[0] for key in plan.values() if key is not None)
+        assert held == turbo._s2_static_bytes(n_pool, c)
     for key in plan.values():
         if key is not None:
             assert key[1] == c
@@ -284,7 +293,7 @@ def test_busy_workspace_runs_op_by_op(small_caps, monkeypatch):
         ws.release()
     assert torch.equal(got.fin, want.fin) and got.it == want.it
     assert "s2_graph.replays" not in counters
-    assert not any(s.attrs["graphed"] for s in spans)
+    assert {s.attrs["route"] for s in spans} == {"kernel"}
 
 
 def test_live_slice_off_keeps_root_space_and_graphs(small_caps, monkeypatch):
@@ -305,5 +314,5 @@ def test_live_slice_off_keeps_root_space_and_graphs(small_caps, monkeypatch):
         assert int(got.flags) == int(want.flags) and got.it == want.it
         assert got.SZf.numel() == r0.numel() < v
         assert counters["host_reads.s2_live"] == 1
-        assert sum(s.attrs["graphed"] for s in spans) == (
+        assert sum(s.attrs["route"] == "graph" for s in spans) == (
             len(spans) if frame else 0)
