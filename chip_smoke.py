@@ -228,34 +228,25 @@ arguments). It
      atomic_hostsync and turbo_wb16 at 540p, counted as one path, each
      row flags 0 and its oracle's partition and re-run counted; then
      `bench.summarize` over the step's records, printed.
- 15. holds stage 2's graphed rounds (`turbo._S2Graphs`) on the
-     benchmark's four frames (blobs 1080p in speed and quality mode,
-     blobs 4K, the 321x481 photo-like scene): `_s2_stage` V-indexed (no
-     root list), in root-index space eagerly (no workspace) and on a
-     new workspace three times (the size's first frame runs eagerly,
-     the second captures, the third only replays): fin, the flags and
-     the final labels bit-equal, every round of the plan's phases
-     replayed, every round on the hand-written round (`s2_round.kernel`
-     and its launches, eager or replayed, equal to the rounds; its
-     launches over the three frames as RECORDED_LAUNCHES has them), the
-     graphs' memory pool empty and their bytes the plan's, within
-     `turbo._S2_GRAPH_BYTES` a pixel; it prints the held bytes, the
-     pool's, the reserved MiB each frame adds, captures and replays a
-     frame, stage 2's and the frame's milliseconds graphed and not, and
-     each stage's peak allocation. Whole frames with the
-     graphs on and off; the 540p row-sharded turbo path on 4 ranks
-     (which pass no workspace) against its V-indexed rounds and dense,
-     timed both ways, and taking turns against running free; the turbo
-     hierarchy and fastmst at 1080p, and fastmst at 4K, the same with
-     the graphs on and off (they capture and replay none; every round on
-     the hand-written round).
+ 15. holds stage 2's two label spaces on the benchmark's four frames
+     (blobs 1080p in speed and quality mode, blobs 4K, the 321x481
+     photo-like scene): `_s2_stage` V-indexed (no root list) and in
+     root-index space, fin, the flags, the last phase's rounds and the
+     final labels bit-equal, every round one launch of the hand-written
+     round (as RECORDED_LAUNCHES has them); it prints stage 2's
+     milliseconds in each space and each stage's peak allocation. Then
+     the 540p row-sharded turbo path on 4 ranks (whose rounds run in
+     root space) against its V-indexed rounds and dense, timed both ways,
+     and taking turns against running free; the turbo hierarchy and
+     fastmst at 1080p, and fastmst at 4K (their rounds V-indexed), each
+     with its launches as recorded and a second run equal to the first.
 
 `python3 chip_smoke.py --cards`, on a machine with several cards, runs
 only the row-sharded paths with one rank on each card (PERF.md: each
 rank's peak memory). `python3 chip_smoke.py --alternatives` builds the
 kernels and runs step 12 alone, `python3 chip_smoke.py --parity` step 13,
 `python3 chip_smoke.py --evidence` step 14, `python3 chip_smoke.py
---s2-graphs` step 15.
+--s2-spaces` step 15.
 
 Every failure propagates and the script exits non-zero; no kernel falls
 back to its plain version and nothing moves to the CPU. The last two lines
@@ -272,7 +263,6 @@ import gc
 import hashlib
 import io
 import json
-import os
 import re
 import statistics
 import subprocess
@@ -550,9 +540,8 @@ KERNELS = {
         (r"\brun_sums\b",)),
     # stage 2's compact round (no TPU kernel: XLA ops there), on every
     # turbo path (dense, batched, row-sharded, hierarchies) and every
-    # fastmst path; a launch is a round the kernel ran, eager or replayed
-    # from a CUDA graph. Its bytes are counted from its pool, slots and
-    # root map (`_bound`).
+    # fastmst path; a launch is a round the kernel ran. Its bytes are
+    # counted from its pool, slots and root map (`_bound`).
     "s2_round": Kernel(
         ks2, "s2_round", ks2.s2_round_plain,
         "gseg_tpu_torch/csrc/s2round.cu",
@@ -1276,12 +1265,10 @@ def _wrapper_calls(names, run, first_only=False):
 def _capture_main_path_fields(image, cfg):
     """Run the turbo main path once, recording each wrapper's first real
     call (compmin's first non-idle one; stage 2's first round, in root
-    space, with the graphs off so that it is a call). Returns name ->
-    (args, kwargs)."""
+    space). Returns name -> (args, kwargs)."""
     calls = _wrapper_calls(
         [n for n in KERNELS if n not in CLOSURES],
-        lambda: _with_graphs_off(turbo.segment_turbo_flagged, image, cfg,
-                                 GOSSIP_ROUNDS),
+        lambda: turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS),
         first_only=True)
     return {name: c[0] for name, c in calls.items() if c}
 
@@ -1302,16 +1289,14 @@ def _stage_split(image, cfg, reps):
     wts = weights()
     gst, _, thr = turbo._stage_g(image, cfg, GOSSIP_ROUNDS, wts)
     st, rm, r0 = turbo._extract_stage(gst, wts, cfg)
-    ws = turbo._s2_workspace(image.device)
-    for _ in range(2):   # a size's second frame captures the graphs
-        st2 = turbo._s2_stage(st, v, cfg, thr, r0, ws)
+    st2 = turbo._s2_stage(st, v, cfg, thr, r0)
     out["weights"] = _cuda_ms(weights, reps)
     out["stage_g"] = _cuda_ms(
         lambda: turbo._stage_g(image, cfg, GOSSIP_ROUNDS, wts), reps)
     out["handoff"] = _cuda_ms(lambda: turbo._extract_stage(gst, wts, cfg),
                               reps)
     out["stage_2"] = _cuda_ms(
-        lambda: turbo._s2_stage(st, v, cfg, thr, r0, ws), reps)
+        lambda: turbo._s2_stage(st, v, cfg, thr, r0), reps)
     out["final_map"] = _cuda_ms(
         lambda: turbo._final_map(gst, st2, rm, r0, 4 * (h + w),
                                  closures=quality), reps)
@@ -4308,7 +4293,7 @@ _KEYS_8K = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
 
 
 # ---------------------------------------------------------------------------
-# step 15: stage 2's graphed rounds (models/turbo.py `_S2Graphs`)
+# step 15: stage 2's two label spaces (models/turbo.py `_s2_stage`)
 # ---------------------------------------------------------------------------
 
 # the benchmark's four frames: (h, w, weight_buckets, content)
@@ -4318,28 +4303,17 @@ S2_FRAMES = {
     "speed_4k": (2160, 3840, 0, "blobs"),
     "speed_photos": (321, 481, 0, "bsds_like"),
 }
-# the hand-written round's launches (`ks2.s2_round.launches`: a round
-# called or replayed) over the three stage-2 runs of `_s2_graph_check` on
-# a new workspace, three times a frame's rounds (10, 15, 11 and 8); and
-# one frame of the paths that pass no workspace
-RECORDED_LAUNCHES |= {f"s2_graphs_{name}": ("23g", dict(s2_round=n))
+# the hand-written round's launches (`ks2.s2_round.launches`, one a round)
+# over one frame's stage 2 in root space, and over one frame of the
+# hierarchy and fastmst paths (their rounds V-indexed). Run 24a recorded
+# them under these names; the s2_graphs_* entries of runs 23g-23j before
+# them counted three frames of the four benchmark frames (the graphs'
+# eager, capturing and replaying frames).
+RECORDED_LAUNCHES |= {f"s2_spaces_{name}": ("24a", dict(s2_round=n))
                       for name, n in {
-    "speed_1080p": 30, "quality_1080p": 45, "speed_4k": 33,
-    "speed_photos": 24, "turbo_hierarchy_1080p": 10, "fastmst_1080p": 13,
+    "speed_1080p": 10, "quality_1080p": 15, "speed_4k": 11,
+    "speed_photos": 8, "turbo_hierarchy_1080p": 10, "fastmst_1080p": 13,
     "fastmst_4k": 14}.items()}
-
-
-@contextlib.contextmanager
-def _s2_graphs(on):
-    """Stage 2's graphs on or off (no workspace: every round an eager
-    call) for the block."""
-    was = turbo._s2_workspace
-    if not on:
-        turbo._s2_workspace = lambda device: None
-    try:
-        yield
-    finally:
-        turbo._s2_workspace = was
 
 
 def _s2_frame(h, w, content, dev, seed=0):
@@ -4351,28 +4325,19 @@ def _s2_frame(h, w, content, dev, seed=0):
 
 
 def _s2_counted(fn):
-    """fn() with the tracing on: (result, s2_graph and s2_merged counts,
-    graphed rounds, rounds on the hand-written round (`s2_round.kernel`)
-    and its launches (`ks2.s2_round.launches`: rounds called or
-    replayed))."""
+    """fn() with the tracing on: (result, counts: the rounds
+    (`host_reads.s2_merged`) and the hand-written round's launches
+    (`ks2.s2_round.launches`)), every round one launch and one span."""
     launches = ks2.s2_round.launches
     with _traced() as t:
         out = fn()
         torch.cuda.synchronize()
-    c = t.rec.counters
     spans = [sp for sp in t.rec.spans if sp.name == "gseg.s2_round"]
-    counts = {"captures": c.get("s2_graph.captures", 0),
-              "replays": c.get("s2_graph.replays", 0),
-              "rounds": c.get("host_reads.s2_merged", 0),
-              "graphed": sum(sp.attrs["route"] == "graph" for sp in spans),
-              "kernel": c.get("s2_round.kernel", 0),
+    counts = {"rounds": t.rec.counters.get("host_reads.s2_merged", 0),
               "launches": ks2.s2_round.launches - launches}
-    # every round on the card runs the hand-written round, graphed or not
-    if not (counts["kernel"] == counts["rounds"] == len(spans)
-            and counts["launches"] == counts["rounds"]
-            and {sp.attrs["route"] for sp in spans} <= {"kernel", "graph"}):
-        routes = collections.Counter(sp.attrs["route"] for sp in spans)
-        raise AssertionError(f"s2 rounds: counts {counts}, routes {routes}")
+    if not counts["launches"] == counts["rounds"] == len(spans):
+        raise AssertionError(f"s2 rounds: counts {counts}, {len(spans)} "
+                             "spans")
     return out, counts
 
 
@@ -4396,125 +4361,47 @@ def _stage_peaks(image, cfg):
         image, cfg, GOSSIP_ROUNDS))
     st, rm, r0 = stage("extract", lambda: turbo._extract_stage(gst, wts,
                                                                cfg))
-    st2 = stage("stage2", lambda: turbo._s2_stage(
-        st, v, cfg, thr, r0, turbo._s2_workspace(image.device)))
+    st2 = stage("stage2", lambda: turbo._s2_stage(st, v, cfg, thr, r0))
     stage("final_map", lambda: turbo._final_map(
         gst, st2, rm, r0, 4 * (h + w),
         closures=cfg.weight_buckets > 0 and turbo._Q_CLOSURES))
     return peaks, base
 
 
-def _fresh_workspace(device):
-    """A new workspace for the card, the last one's graphs and memory pool
-    handed back to the card: what a process of one frame size holds."""
-    ws = turbo._S2Graphs(device)
-    turbo._S2_WORKSPACES[device.index or 0] = ws
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    return ws
-
-
-def _s2_graph_check(name, image, cfg, card):
-    """Stage 2 of one frame three ways: V-indexed (no root list), in
-    root-index space with eager kernel rounds (no workspace), graphed
-    (three times: the size's first frame runs eagerly, the second
-    captures, the third only replays). fin and the flags must be
-    bit-equal, and so the final labels; the graphs' memory pool empty and
-    their held bytes exactly the plan's, at most `turbo._S2_GRAPH_BYTES`
-    a pixel; then whole frames with the graphs on and off, their labels
-    equal, and each stage's peak."""
+def _s2_space_check(name, image, cfg, card):
+    """Stage 2 of one frame in both label spaces: V-indexed (no root
+    list) and in root-index space. fin, the flags, the last phase's
+    rounds and the final labels must be bit-equal; the root-space run's
+    launches as recorded; then both timed in turns, and each stage's
+    peak."""
     h, w = image.shape[:2]
     v = h * w
-    ws = _fresh_workspace(image.device)
     gst, wts, thr = turbo._stage_g(image, cfg, GOSSIP_ROUNDS)
     st, rm, r0 = turbo._extract_stage(gst, wts, cfg)
     vidx = turbo._s2_stage(st, v, cfg, thr)
-    eager = turbo._s2_stage(st, v, cfg, thr, r0)
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        reserved = torch.cuda.memory_reserved()
-        runs.append(_s2_counted(
-            lambda: turbo._s2_stage(st, v, cfg, thr, r0, ws)))
-        runs[-1] += ((torch.cuda.memory_reserved() - reserved) / 2**20,)
-    plan, held = turbo._s2_graph_plan(v, cfg, st.esrc.numel() // 2)
-    keys = {key for key in plan.values() if key is not None}
+    root, c = _s2_counted(lambda: turbo._s2_stage(st, v, cfg, thr, r0))
     maps = [turbo._final_map(gst, s, rm, r0, 4 * (h + w))[0]
-            for s in [vidx, eager] + [r[0] for r in runs]]
-    for what, s, lab in zip(("root-space eager", "first frame",
-                             "second frame (captures)", "third frame"),
-                            [eager] + [r[0] for r in runs], maps[1:]):
-        if not (torch.equal(s.fin, vidx.fin) and int(s.flags) ==
-                int(vidx.flags) and s.it == vidx.it
-                and torch.equal(lab, maps[0])):
-            raise AssertionError(f"s2 graphs {name}: {what} stage 2 differs "
-                                 "from the V-indexed one")
-    c1, c2, c3 = (r[1] for r in runs)
-    if (c1["captures"] or c1["replays"] or c2["captures"] != len(keys)
-            or c3["captures"] or c3["replays"] != c3["graphed"]
-            or bool(c3["graphed"]) != bool(keys)):
-        raise AssertionError(f"s2 graphs {name}: frames {c1} {c2} {c3}, "
-                             f"{len(keys)} keys")
-    launches = sum(c["launches"] for c in (c1, c2, c3))
-    _s2_recorded_launches(f"s2_graphs_{name}", launches)
-    # the graphs allocate nothing: the plan's bytes are the buffers'
-    pool = turbo._pool_reserved(ws.pool)
-    if pool or ws.held_bytes() != (held if keys else 0) \
-            or held > turbo._S2_GRAPH_BYTES * v:
-        raise AssertionError(f"s2 graphs {name}: {ws.held_bytes()} bytes "
-                             f"held (pool {pool}), plan {held}, "
-                             f"{turbo._S2_GRAPH_BYTES} a pixel")
-    graphed_ms, eager_ms, vidx_ms = _turns_ms([
-        lambda: turbo._s2_stage(st, v, cfg, thr, r0, ws),
+            for s in (vidx, root)]
+    if not (torch.equal(root.fin, vidx.fin) and int(root.flags) ==
+            int(vidx.flags) and root.it == vidx.it
+            and root.SZf.numel() == r0.numel() < v
+            and torch.equal(maps[0], maps[1])):
+        raise AssertionError(f"s2 spaces {name}: the root-space stage 2 "
+                             "differs from the V-indexed one")
+    _s2_recorded_launches(f"s2_spaces_{name}", c["launches"])
+    root_ms, vidx_ms = _turns_ms([
         lambda: turbo._s2_stage(st, v, cfg, thr, r0),
         lambda: turbo._s2_stage(st, v, cfg, thr)], 7)
-    # whole frames, graphs on and off
-    (lab_on, fl_on), c_on = _s2_counted(
-        lambda: turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS))
-    with _s2_graphs(False):
-        lab_off, fl_off = turbo.segment_turbo_flagged(image, cfg,
-                                                      GOSSIP_ROUNDS)
-    if fl_on or fl_off or not torch.equal(lab_on, lab_off):
-        raise AssertionError(f"s2 graphs {name}: whole frame flags "
-                             f"{fl_on}/{fl_off}, labels equal "
-                             f"{torch.equal(lab_on, lab_off)}")
-    frame_on, frame_off = _turns_ms([
-        lambda: turbo.segment_turbo_flagged(image, cfg, GOSSIP_ROUNDS),
-        lambda: _with_graphs_off(turbo.segment_turbo_flagged, image, cfg,
-                                 GOSSIP_ROUNDS)], 5)
     peaks, base = _stage_peaks(image, cfg)
-    with _s2_graphs(False):
-        peaks_off, base_off = _stage_peaks(image, cfg)
-    rec = {"flags": int(vidx.flags), "rounds": c3["rounds"],
-           "graphed_rounds": c3["graphed"], "replays": c3["replays"],
-           "s2_round_launches": launches,
-           "captures": [c1["captures"], c2["captures"], c3["captures"]],
-           "frame_counts": c_on,
-           "graphed_phases": sorted(p for p, k in plan.items() if k),
-           "held_bytes": ws.held_bytes(), "pool_bytes": pool,
-           "plan_bytes": held, "held_per_pixel": ws.held_bytes() / v,
-           "reserved_delta_mib": [r[2] for r in runs],
-           "stage2_ms": {"graphed": graphed_ms, "root_eager": eager_ms,
-                         "v_indexed": vidx_ms},
-           "frame_ms": {"graphs_on": frame_on, "graphs_off": frame_off},
-           "stage_peak_mib": peaks, "stage_peak_mib_graphs_off": peaks_off,
-           "allocated_before_mib": [base, base_off]}
-    print(f"check s2 graphs {name}: fin, flags ({rec['flags']}) and final "
-          f"labels bit-equal V-indexed / root-space eager / graphed; "
-          f"{c3['rounds']} rounds a frame, {c3['graphed']} graphed, "
-          f"{c3['replays']} replays, captures {rec['captures']} (frames "
-          f"1-3), s2_round launches {launches} (frames 1-3); graphed "
-          f"phases {rec['graphed_phases']}; held "
-          f"{ws.held_bytes()} B ({ws.held_bytes() / v:.3f} B a pixel; "
-          f"memory pool {pool} B; plan {held}), reserved MiB a frame "
-          f"{_round(dict(enumerate(rec['reserved_delta_mib'])))}",
-          flush=True)
-    print(f"  s2 graphs {name}: stage 2 ms graphed {graphed_ms:.3f}, root "
-          f"eager {eager_ms:.3f}, V-indexed {vidx_ms:.3f}; frame ms graphs "
-          f"on {frame_on:.3f}, off {frame_off:.3f}; whole frame "
-          f"{c_on}; stage peaks MiB {_round(peaks)} (graphs off "
-          f"{_round(peaks_off)}), allocated before {base:.2f} / "
-          f"{base_off:.2f} ({card})", flush=True)
+    rec = {"flags": int(vidx.flags), "roots": r0.numel(),
+           "stage2_ms": {"root_space": root_ms, "v_indexed": vidx_ms},
+           "stage_peak_mib": peaks, "allocated_before_mib": base} | c
+    print(f"check s2 spaces {name}: fin, flags ({rec['flags']}) and final "
+          f"labels bit-equal root space ({r0.numel()} slots) / V-indexed; "
+          f"{c['rounds']} rounds, s2_round launches {c['launches']}; stage "
+          f"2 ms root space {root_ms:.3f}, V-indexed {vidx_ms:.3f}; stage "
+          f"peaks MiB {_round(peaks)}, allocated before {base:.2f} "
+          f"({card})", flush=True)
     return rec
 
 
@@ -4522,18 +4409,13 @@ def _round(d):
     return {k: round(x, 2) for k, x in d.items()}
 
 
-def _with_graphs_off(fn, *args):
-    with _s2_graphs(False):
-        return fn(*args)
-
-
 @contextlib.contextmanager
 def _v_indexed():
-    """Stage 2 without the root list (its rounds V-indexed, as before root
-    space) for the block."""
+    """Stage 2 without the root list (its rounds V-indexed) for the
+    block."""
     was = turbo._s2_stage
-    turbo._s2_stage = lambda st, v, cfg, thr=None, r0=None, ws=None: was(
-        st, v, cfg, thr)
+    turbo._s2_stage = lambda st, v, cfg, thr=None, r0=None, rec_cap=0: was(
+        st, v, cfg, thr, None, rec_cap)
     try:
         yield
     finally:
@@ -4550,29 +4432,29 @@ def _s2_recorded_launches(path, launches):
                                  f"run {run}'s {recorded['s2_round']}")
 
 
-def _s2_unchanged(name, run):
-    """A path that passes no workspace: the same output with the graphs
-    on and off, and no graph captured or replayed."""
-    out_on, c = _s2_counted(run)
-    _s2_recorded_launches(f"s2_graphs_{name}", c["launches"])
-    with _s2_graphs(False):
-        out_off = run()
+def _s2_v_indexed_path(name, run):
+    """A path whose rounds run V-indexed (no root list): its launches as
+    recorded, flags 0, and a second run's output equal to the first."""
+    out, c = _s2_counted(run)
+    _s2_recorded_launches(f"s2_spaces_{name}", c["launches"])
+    again = run()
     same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
-               for a, b in zip(out_on, out_off))
-    print(f"check s2 graphs {name}: graphs on and off equal {same}, "
-          f"counts {c}", flush=True)
-    if not same or c["captures"] or c["replays"]:
-        raise AssertionError(f"s2 graphs {name}: changed by the graphs")
+               for a, b in zip(out, again))
+    print(f"check s2 spaces {name}: flags {out[-1]}, a second run equal "
+          f"{same}, counts {c}", flush=True)
+    if not same or out[-1]:
+        raise AssertionError(f"s2 spaces {name}: flags {out[-1]}, second "
+                             f"run equal {same}")
     return {"equal": same} | c
 
 
-def _s2_graphs_step(dev, card):
+def _s2_spaces_step(dev, card):
     """Step 15: returns (runs, step record)."""
     t0 = time.perf_counter()
     rows = {}
     for name, (h, w, wb, content) in S2_FRAMES.items():
         cfg = dataclasses.replace(CFG, weight_buckets=wb)
-        rows[name] = _s2_graph_check(name, _s2_frame(h, w, content, dev),
+        rows[name] = _s2_space_check(name, _s2_frame(h, w, content, dev),
                                      cfg, card)
     img1080 = _s2_frame(1080, 1920, "blobs", dev)
     img540 = _s2_frame(540, 960, "blobs", dev)
@@ -4581,39 +4463,38 @@ def _s2_graphs_step(dev, card):
     def spatial_run():
         return turbo_spatial.segment_turbo_spatial(img540, CFG, mesh)
 
-    # the ranks pass no workspace: their rounds are eager calls in root space
+    # the ranks pass their root lists: their rounds run in root space
     (lab, fl), c = _s2_counted(spatial_run)
     with _v_indexed():
         lab_v, fl_v = spatial_run()
     dense, dfl = turbo.segment_turbo_flagged(img540, CFG, GOSSIP_ROUNDS)
-    if fl or fl_v or c["captures"] or c["replays"] or not (
-            torch.equal(lab, lab_v) and torch.equal(lab, dense)):
-        raise AssertionError(f"s2 graphs spatial: rows differ or graphed "
-                             f"({c})")
+    if fl or fl_v or not (torch.equal(lab, lab_v)
+                          and torch.equal(lab, dense)):
+        raise AssertionError(f"s2 spaces spatial: rows differ ({c})")
     root_ms, vidx_ms = _turns_ms([
         lambda: spatial_run(),
         lambda: _in_v_indexed(spatial_run)], 5)
-    print(f"check s2 graphs spatial_540p_4ranks: flags {fl}, labels equal "
+    print(f"check s2 spaces spatial_540p_4ranks: flags {fl}, labels equal "
           f"V-indexed and dense; counts {c}; ms a call root space "
           f"{root_ms:.3f}, V-indexed {vidx_ms:.3f} ({card})", flush=True)
     # the ranks running free
     rows["spatial_540p_4ranks"] = {
         "equal": True, "ms_root_space": root_ms, "ms_v_indexed": vidx_ms,
-        "turns_free_ms": _turns_ab("s2 graphs spatial_540p_4ranks",
+        "turns_free_ms": _turns_ab("s2 spaces spatial_540p_4ranks",
                                    spatial_run, card, pairs=1)} | c
-    rows["turbo_hierarchy_1080p"] = _s2_unchanged(
+    rows["turbo_hierarchy_1080p"] = _s2_v_indexed_path(
         "turbo_hierarchy_1080p",
         lambda: turbo.segment_turbo_hierarchy_flagged(img1080, CFG,
                                                       GOSSIP_ROUNDS))
-    rows["fastmst_1080p"] = _s2_unchanged(
+    rows["fastmst_1080p"] = _s2_v_indexed_path(
         "fastmst_1080p", lambda: fastmst.segment_fastmst_flagged(img1080,
                                                                  CFG))
     img4k = _s2_frame(2160, 3840, "blobs", dev)
-    rows["fastmst_4k"] = _s2_unchanged(
+    rows["fastmst_4k"] = _s2_v_indexed_path(
         "fastmst_4k", lambda: fastmst.segment_fastmst_flagged(img4k, CFG))
     step = {"seconds": time.perf_counter() - t0}
     print(f"step 15 took {step['seconds']:.1f} s", flush=True)
-    return {f"s2_graphs_{k}": v for k, v in rows.items()}, step
+    return {f"s2_spaces_{k}": v for k, v in rows.items()}, step
 
 
 def _in_v_indexed(fn):
@@ -4622,12 +4503,11 @@ def _in_v_indexed(fn):
 
 
 # stage 2's hand-written round in each path's counted run (runs 23f, 23g
-# and 23h): one launch a round, called or replayed from a graph, so the
-# count does not depend on the graphs the card already holds; the other
-# paths run none. The sweep rows whose candidate pool overflows
-# (SWEEP_MAY_OVERFLOW) hold no count: which candidates land in the pool
-# follows the order of the extraction's atomics, and so do their rounds
-# (14 and 13 at gate 13 in runs 23h and 23i); they must launch it.
+# and 23h): one launch a round; the other paths run none. The sweep rows
+# whose candidate pool overflows (SWEEP_MAY_OVERFLOW) hold no count:
+# which candidates land in the pool follows the order of the extraction's
+# atomics, and so do their rounds (14 and 13 at gate 13 in runs 23h and
+# 23i); they must launch it.
 S2_LAUNCHES = {
     "1080p_batch4": 40, "1080p_cli": 10, "1080p_cli_level4": 10,
     "1080p_count": 10, "1080p_fastmst": 13, "1080p_fastmst_hierarchy": 13,
@@ -4733,9 +4613,9 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
-    if sys.argv[1:] == ["--s2-graphs"]:
-        runs, step = _s2_graphs_step(dev, card)
-        print("s2 graphs: " + json.dumps(runs | {"step": step}, default=str))
+    if sys.argv[1:] == ["--s2-spaces"]:
+        runs, step = _s2_spaces_step(dev, card)
+        print("s2 spaces: " + json.dumps(runs | {"step": step}, default=str))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4872,8 +4752,8 @@ def main() -> None:
     runs |= evidence_runs
     print(f"evidence campaign done at {time.perf_counter() - t0:.1f} s",
           flush=True)
-    s2_runs, s2_step = _s2_graphs_step(dev, card)
-    print(f"stage 2 graphs done at {time.perf_counter() - t0:.1f} s",
+    s2_runs, s2_step = _s2_spaces_step(dev, card)
+    print(f"stage 2 label spaces done at {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     if "jax" in sys.modules or any(m.startswith("gseg_tpu.")
@@ -4933,7 +4813,7 @@ def main() -> None:
                                        "alternatives": alternatives,
                                        "parity": parity_step,
                                        "evidence": evidence_step,
-                                       "s2_graphs": s2_runs | {
+                                       "s2_spaces": s2_runs | {
                                            "step": s2_step}},
         default=str))
     print(f"chip_smoke wall time {time.perf_counter() - t0:.1f} s",

@@ -60,8 +60,7 @@ def phase_fns(cfg, gossip_rounds: int):
         h, w = im.shape[:2]
         gst, wts, thr = turbo._stage_g(im, cfg, gossip_rounds)
         st, _, r0 = turbo._extract_stage(gst, wts, cfg)
-        st = turbo._s2_stage(st, h * w, cfg, thr, r0,
-                             turbo._s2_workspace(im.device))
+        st = turbo._s2_stage(st, h * w, cfg, thr, r0)
         return st.fin.max(), st.it, st.flags
 
     def f_full(im):

@@ -24,8 +24,8 @@
 // moved. The result is byte-equal to `_s2_round_ops`.
 //
 // Design. One C entry queues all of it on the caller's stream (no host
-// read, no allocation, so a CUDA graph can capture it), over slot arrays
-// in one scratch block (`ops/kernels/s2round.py:scratch_bytes`):
+// read, no allocation), over slot arrays in one scratch block
+// (`ops/kernels/s2round.py:scratch_bytes`):
 //   - s2_minedge: a 64-bit atomicMin of (bits(ew) << 32 | eeid ^ 2^31)
 //     into best[src] (non-negative floats order like their bits; the xor
 //     keeps int32 order). A warp first takes the minimum of each run of
@@ -51,7 +51,7 @@
 // Every reduction is a min, a max or an integer sum, so the result does
 // not depend on the order of the atomics. No kernel writes a slot that it
 // or another thread of it reads, except an output that is its own input
-// (in place: the graphs' static buffers), read and written by one thread:
+// (in place), read and written by one thread:
 // s2_apply reads SZf and IDf only at heads that move and writes them only
 // at heads that stay.
 //
@@ -186,8 +186,7 @@ s2_heads(const unsigned long long* __restrict__ best,
          const int32_t* __restrict__ edst,
          const int32_t* __restrict__ szf, const float* __restrict__ idf,
          const int32_t* __restrict__ offsets, int n, int head_cap,
-         int is_felz, const float* __restrict__ k_ptr, float k_val,
-         int min_size, int32_t* __restrict__ hook) {
+         int is_felz, float k, int min_size, int32_t* __restrict__ hook) {
     __shared__ int s_warp[WARPS];
     const int x = blockIdx.x * BLOCK + threadIdx.x;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -207,7 +206,6 @@ s2_heads(const unsigned long long* __restrict__ best,
     const int dst = edst[bpos[x]];
     bool ok;
     if (is_felz) {
-        const float k = k_ptr != nullptr ? *k_ptr : k_val;
         const float ls = __fmul_rn(__fsub_rn(hw, idf[x]),
                                    __int2float_rn(szf[x]));
         const float ld = __fmul_rn(__fsub_rn(hw, idf[dst]),
@@ -303,17 +301,16 @@ inline unsigned grid(int n, int threads) {
 // All pointers are device pointers. Inputs: the pool (e entries), SZf and
 // IDf (n slots), fin (c), the flags word; outputs: the pool's labels, SZf,
 // IDf, fin, flags and the merged byte, each either a buffer of its own or
-// its input (in place). k: *k_ptr, or k_val where k_ptr is null; tau: the
-// weight cap, null for none. scratch: 32 n + 8 ceil(n / 1024) bytes,
-// 8-byte aligned.
+// its input (in place). k: the felz threshold; tau: the weight cap, null
+// for none. scratch: 32 n + 8 ceil(n / 1024) bytes, 8-byte aligned.
 extern "C" int gseg_s2_round(
     const int32_t* esrc_in, const int32_t* edst_in, const float* ew,
     const int32_t* eeid, int e, const int32_t* szf_in, const float* idf_in,
     int n, const int32_t* fin_in, int c, const int32_t* flags_in,
     int32_t* esrc, int32_t* edst, int32_t* szf, float* idf, int32_t* fin,
-    uint8_t* merged, int32_t* flags, const float* k_ptr, float k_val,
-    const float* tau, int is_felz, int min_size, int canonical,
-    int head_cap, void* scratch, cudaStream_t stream) {
+    uint8_t* merged, int32_t* flags, float k, const float* tau,
+    int is_felz, int min_size, int canonical, int head_cap, void* scratch,
+    cudaStream_t stream) {
     const int nblk = (n + BLOCK - 1) / BLOCK;
     auto* best = static_cast<unsigned long long*>(scratch);
     auto* bpos = reinterpret_cast<int32_t*>(best + n);
@@ -343,8 +340,8 @@ extern "C" int gseg_s2_round(
     s2_scan<<<1, BLOCK, 0, stream>>>(counts, nblk, head_cap, flags_in,
                                      offsets, flags);
     s2_heads<<<nblk, BLOCK, 0, stream>>>(best, bpos, edst_in, szf_in, idf_in,
-                                         offsets, n, head_cap, is_felz, k_ptr,
-                                         k_val, min_size, hook);
+                                         offsets, n, head_cap, is_felz, k,
+                                         min_size, hook);
     s2_mutual<<<grid(n, THREADS), THREADS, 0, stream>>>(hook, n, succ, pa);
     // steps of the ops' pointer doubling, then the jump launches
     const int bound = head_cap < n ? head_cap : n;

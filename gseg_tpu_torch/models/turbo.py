@@ -37,11 +37,8 @@ mode (`weight_buckets > 0`, scan closures on):
   in root-index space: each label becomes its position in the handoff's
   sorted root list, so the state is sized by the root list, not by V. A
   round is one call of the hand-written round (`kernels.s2round`, no
-  sort; on the CPU its plain version), and on a CUDA card the rounds
-  whose static buffers fit `_S2_GRAPH_BYTES` bytes a pixel replay CUDA
-  graphs of it over that state (`_S2Graphs`), from a frame size's second
-  frame in a row on. `_s2_round_ops`, the round as PyTorch ops with a
-  sort, is the oracle the tests hold it to.
+  sort; on the CPU its plain version). `_s2_round_ops`, the round as
+  PyTorch ops with a sort, is the oracle the tests hold it to.
 
   FINAL — each component's final root is placed on its root pixel and
   value-flooded over the stage-G components (`value_flood`).
@@ -74,7 +71,6 @@ are never silent.
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -121,7 +117,6 @@ _RLIST_SPLIT = True     # root-list rounds: slice the list as roots thin out
 _RLIST_TIERS_Q = (16,)  # quality mode: the slices, V / each (a tier ladder)
 _LATE_CLOSURES = False  # speed mode: root-list rounds on the closure route
 _Q_CLOSURES = True      # quality mode: fixpoints on the closure route
-_S2_GRAPH_BYTES = 3     # stage 2's graphs: bytes kept a pixel, at most
 
 
 class GossipState(NamedTuple):
@@ -913,39 +908,21 @@ def _s2_round_ops(st: CompactState, v, comp_cap, k, min_size,
 
 
 def _s2_round(st: CompactState, v, comp_cap, k, min_size,
-              is_felz: bool, tau=None, canonical: bool = True, ws=None
+              is_felz: bool, tau=None, canonical: bool = True
               ) -> CompactState:
     """One compact round. is_felz: the predicate-gated felz round vs a
     min-size round. tau: the felz round's weight cap (quality mode; None:
     no cap). canonical: relabel each merged cluster to its min member root
     (turbo's labels), else keep the hook-chain sink root (the root-id
-    labels of the atomic path and the oracles, which fastmst gives).
-    ws: the thread's `_S2Graphs` on the state's card; a round it holds a
-    graph for is replayed on its buffers, in place, and the state comes
-    back on them. Otherwise the round is one call of the hand-written
-    round (`ops.kernels.s2round`; on the CPU its plain version), byte-equal
-    to the ops of `_s2_round_ops`."""
-    graph = None if ws is None else ws.graph(st, comp_cap, min_size,
-                                             is_felz, tau, canonical)
-    route = "kernel" if graph is None else "graph"
-    with timing.span("gseg.s2_round", kind="felz" if is_felz else "min_size",
-                     route=route):
-        if route == "kernel":
-            esrc, edst, SZf, IDf, fin, merged, flags = ks2.s2_round(
-                st.esrc, st.edst, st.ew, st.eeid, st.SZf, st.IDf, st.fin,
-                st.flags, head_cap=comp_cap, k=k, min_size=min_size,
-                is_felz=is_felz, tau=tau, canonical=canonical)
-        else:
-            st = ws.bind(st)
-            if tau is not None:
-                ws.tau.copy_(tau)
-            graph.replay()
-            ks2.replayed()
-            timing.count("s2_graph.replays")
-            esrc, edst, SZf, IDf, fin = st.esrc, st.edst, st.SZf, st.IDf, \
-                st.fin
-            merged, flags = ws.merged, ws.flags
-        timing.count("s2_round.kernel")
+    labels of the atomic path and the oracles, which fastmst gives). The
+    round is one call of the hand-written round (`ops.kernels.s2round`;
+    on the CPU its plain version), byte-equal to the ops of
+    `_s2_round_ops`."""
+    with timing.span("gseg.s2_round", kind="felz" if is_felz else "min_size"):
+        esrc, edst, SZf, IDf, fin, merged, flags = ks2.s2_round(
+            st.esrc, st.edst, st.ew, st.eeid, st.SZf, st.IDf, st.fin,
+            st.flags, head_cap=comp_cap, k=k, min_size=min_size,
+            is_felz=is_felz, tau=tau, canonical=canonical)
         return CompactState(
             esrc=esrc, edst=edst, ew=st.ew, eeid=st.eeid, SZf=SZf, IDf=IDf,
             fin=fin, merged=host_read(merged, "s2_merged"), it=st.it + 1,
@@ -954,14 +931,14 @@ def _s2_round(st: CompactState, v, comp_cap, k, min_size,
 
 def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
               thresholds, with_minsize: bool, flag_exhaustion: bool = True,
-              capture=None, canonical: bool = True, ws=None):
+              capture=None, canonical: bool = True):
     """Felz rounds to convergence, then (optionally) min-size rounds; the
     phase flips 0 -> 1 when a felz round merges nothing with every bucket
     open. thresholds: the bucket caps (quality mode) or None.
     flag_exhaustion=False for deliberately round-capped warm-up phases.
     capture: called with the root map `fin` after each felz round (the
     hierarchy's levels; min-size rounds refine the last level).
-    canonical, ws: see _s2_round."""
+    canonical: see _s2_round."""
     nb = 1 if thresholds is None else thresholds.numel()
     st = st._replace(merged=True, it=0)
     while st.merged and st.it < max_iters:
@@ -969,13 +946,13 @@ def _s2_phase(st: CompactState, v, comp_cap, k, min_size, max_iters,
         tau = (thresholds[st.bucket]
                if is_felz and thresholds is not None else None)
         s2 = _s2_round(st, v, comp_cap, k, min_size, is_felz, tau,
-                       canonical, ws=ws)
+                       canonical)
         if is_felz:
             # bucket ramp: the cap rises one bucket per felz round.
             s2 = s2._replace(bucket=min(st.bucket + 1, nb - 1),
                              merged=s2.merged or st.bucket + 1 < nb)
             if capture is not None:
-                capture(s2.fin if ws is None else s2.fin.clone())
+                capture(s2.fin)
         if with_minsize and is_felz and not s2.merged:
             s2 = s2._replace(phase=1, merged=True)
         st = s2
@@ -1050,23 +1027,18 @@ def _to_root_space(st: CompactState, r0) -> CompactState:
 def _from_root_space(st: CompactState, r0, v: int) -> CompactState:
     """fin back as labels, as the V-indexed rounds leave it: each root
     slot's final root, and the slots past the roots what label 0 became
-    (0 unless 0 is a root). The flags are copied off the workspace."""
+    (0 unless 0 is a root)."""
     lab = r0[st.fin.to(torch.int64)]
     rest = torch.where(r0[0] == 0, lab[0], 0)
-    return st._replace(fin=torch.where(r0 != v, lab, rest),
-                       flags=st.flags.clone())
+    return st._replace(fin=torch.where(r0 != v, lab, rest))
 
 
 class _S2Shape(NamedTuple):
     """Stage 2's shapes at V pixels (`_s2_shape`), from the capacities
     alone: the head capacity of the early rounds (comp_cap) and of the
     main phase (main_cap), the recompacts' caps, the live-count slice (cs
-    pairs a half; small: whether it may be taken), the main phase's round
-    budget, and phases: each phase's rounds as (pool length, head
-    capacity, felz, weight-capped), the shapes `_s2_graph_plan` graphs.
-    warm_full / warm_slice: the first warm-up rounds on the whole or the
-    sliced pool; warm_rec1: speed mode's two rounds after the first
-    recompact; main_felz, main_min_size: the main phase."""
+    pairs a half; small: whether it may be taken), and the main phase's
+    round budget."""
     comp_cap: int
     main_cap: int
     rec1_cap: int
@@ -1074,7 +1046,6 @@ class _S2Shape(NamedTuple):
     cs: int
     small: bool
     iters: int
-    phases: dict
 
 
 def _s2_shape(v: int, cfg: SegmentationConfig, pair_cap: int,
@@ -1088,251 +1059,14 @@ def _s2_shape(v: int, cfg: SegmentationConfig, pair_cap: int,
     rec1_cap = max(caps["rec1_cap"], rec_cap)
     rec2_cap = max(caps["rec2_cap"], rec_cap)
     cs = max(v // caps["small_div"], -(-rec1_cap // 2))
-    small = _S2_SMALL and cs < pair_cap
-    main = (rec1_cap, comp_cap) if quality else (rec2_cap, caps["comp_cap2"])
-    phases = {"warm_full": (2 * pair_cap, comp_cap, True, quality)}
-    if small:
-        phases["warm_slice"] = (2 * cs, comp_cap, True, quality)
-    if not quality:
-        phases["warm_rec1"] = (rec1_cap, comp_cap, True, False)
-    phases["main_felz"] = main + (True, quality)
-    if cfg.min_size > 1:
-        phases["main_min_size"] = main + (False, False)
-    return _S2Shape(comp_cap, main[1], rec1_cap, rec2_cap, cs, small,
-                    2 * cfg.max_iters + max(cfg.weight_buckets, 1), phases)
-
-
-def _s2_graph_key(e, c, head_cap, is_felz, capped, canonical, min_size):
-    """The graph of a round: pool length, root-list length, head capacity,
-    felz or min-size, whether a weight cap applies, the label convention,
-    and min_size (a constant of a min-size round's graph)."""
-    return (e, c, head_cap, is_felz, capped, canonical,
-            None if is_felz else min_size)
-
-
-def _block(nbytes: int) -> int:
-    """The CUDA caching allocator's block for nbytes: 512-byte units."""
-    return -(-max(nbytes, 1) // 512) * 512
-
-
-def _s2_static_bytes(n_pool: int, c: int) -> int:
-    """The bytes of `_S2Graphs`' static buffers, allocator blocks counted:
-    esrc, edst, ew, eeid at the largest graphed pool length, SZf, IDf, fin
-    at the root list's length c, the round's scratch at c slots
-    (`ops.kernels.s2round.scratch_bytes`), and four scalars (flags,
-    merged, tau, k)."""
-    return (4 * _block(4 * n_pool) + 3 * _block(4 * c)
-            + _block(ks2.scratch_bytes(c)) + 4 * _block(4))
-
-
-def _s2_graph_plan(v: int, cfg: SegmentationConfig, pair_cap=None):
-    """Which of `_s2_stage`'s phases (`_s2_shape`) replay CUDA graphs at V
-    pixels, from the capacities alone. Returns (plan, held): plan maps
-    each phase to its graph key, or to None where its rounds run eagerly;
-    held, the bytes the graphs keep from frame to frame: their static
-    buffers (`_s2_static_bytes`). A graph runs the hand-written round on
-    those buffers and allocates nothing, so its private memory pool stays
-    empty. Phases are taken shortest pool first while held stays at most
-    `_S2_GRAPH_BYTES` a pixel. pair_cap: the handoff pool's pairs (default
-    the capacity)."""
-    cp = capacities(v, cfg.weight_buckets)
-    c = cp["comp_cap"]
-    shape = _s2_shape(v, cfg, cp["pair_cap"] if pair_cap is None
-                      else pair_cap)
-    plan = dict.fromkeys(shape.phases)
-    held = n_pool = 0
-    for p, (e, hc, felz, capped) in sorted(shape.phases.items(),
-                                           key=lambda kv: kv[1][0]):
-        need = _s2_static_bytes(max(n_pool, e), c)
-        if need <= _S2_GRAPH_BYTES * v:
-            plan[p] = _s2_graph_key(e, c, hc, felz, capped, True,
-                                    cfg.min_size)
-            held, n_pool = need, max(n_pool, e)
-    return plan, held
-
-
-def _pool_reserved(pool) -> int:
-    """Bytes of the segments of a graph memory pool (None: 0)."""
-    if pool is None:
-        return 0
-    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-               if tuple(s.get("segment_pool_id") or ()) == tuple(pool))
-
-
-class _S2Graphs:
-    """Stage 2's CUDA graphs on one card (`_s2_workspace`), for one frame
-    size at a time.
-
-    Static buffers, which the graphed rounds read and update in place: one
-    pool (esrc, edst, ew, eeid) of the largest graphed length, whose
-    prefixes the shorter pools use; SZf, IDf and fin at the root list's
-    length; the hand-written round's scratch at that length; the flags and
-    merged scalars; tau, a capped felz round's weight cap, copied in before
-    each replay; k. One `torch.cuda.CUDAGraph` per round key
-    (`_s2_graph_key`), each the hand-written round's launches on the
-    static buffers, all captured on one stream into one private memory
-    pool, which stays empty: the round allocates nothing.
-
-    `prepare` holds one size's plan: a size's first frame runs eagerly,
-    its second in a row captures the plan's graphs (a capture records the
-    launches and runs none of them) and drops another size's, and later
-    frames replay them. A stream of mixed sizes thus captures nothing. One
-    thread at a time uses the workspace (`acquire`); another finds it busy
-    and runs its rounds eagerly."""
-
-    def __init__(self, device):
-        self.device = device
-        self.busy = threading.Lock()
-        self.done = None      # event: the last user's work on the buffers
-        self.stream = None    # the captures' stream
-        self.keys = self.seen = None
-        self._drop()
-
-    def _drop(self) -> None:
-        # with the last graph its pool goes back to the allocator's cache
-        self.graphs, self.pool, self.buffers = {}, None, ()
-
-    def acquire(self) -> bool:
-        """Take the workspace for this thread's stage 2, unless another
-        thread holds it; this stream then waits for that thread's work."""
-        if not self.busy.acquire(blocking=False):
-            return False
-        if self.done is not None:
-            torch.cuda.current_stream(self.device).wait_event(self.done)
-        return True
-
-    def release(self) -> None:
-        if self.device.type == "cuda":
-            self.done = torch.cuda.Event()
-            self.done.record(torch.cuda.current_stream(self.device))
-        self.busy.release()
-
-    def prepare(self, plan: dict, k, budget: int) -> bool:
-        """Hold the graphs of `plan` (`_s2_graph_plan`), capturing them
-        when the same plan came on the previous call too, and set k.
-        Graphs whose bytes (`held_bytes`) pass `budget` are dropped, and
-        their plan then runs eagerly. Returns whether graphs are held."""
-        keys = tuple(plan.values())
-        seen, self.seen = self.seen, keys
-        if keys != self.keys:
-            if keys != seen or not any(keys):
-                return False
-            self._drop()
-            self._alloc(max(key[0] for key in keys if key),
-                        max(key[1] for key in keys if key))
-            for key in dict.fromkeys(key for key in keys if key):
-                self.graphs[key] = self._capture(key)
-                timing.count("s2_graph.captures")
-            self.keys = keys
-            if self.held_bytes() > budget:
-                self._drop()
-        if self.graphs and k != self.k_val:
-            self.k.fill_(k)
-            self.k_val = k
-        return bool(self.graphs)
-
-    def _alloc(self, n_pool: int, n_root: int) -> None:
-        def buf(dtype, n=()):
-            return torch.zeros(n, dtype=dtype, device=self.device)
-
-        self.esrc, self.edst, self.eeid = (buf(torch.int32, n_pool)
-                                           for _ in range(3))
-        self.ew = buf(torch.float32, n_pool)
-        self.SZf, self.fin = (buf(torch.int32, n_root) for _ in range(2))
-        self.IDf = buf(torch.float32, n_root)
-        self.scratch = buf(torch.int64, -(-ks2.scratch_bytes(n_root) // 8))
-        self.flags, self.merged = buf(torch.int32), buf(torch.bool)
-        self.tau, self.k, self.k_val = buf(torch.float32), \
-            buf(torch.float32), None
-        self.buffers = (self.esrc, self.edst, self.ew, self.eeid, self.SZf,
-                        self.IDf, self.fin, self.scratch, self.flags,
-                        self.merged, self.tau, self.k)
-
-    def held_bytes(self) -> int:
-        """Bytes the graphs keep: the static buffers' allocator blocks and
-        the segments of their private memory pool."""
-        return (sum(_block(t.untyped_storage().nbytes())
-                    for t in self.buffers) + _pool_reserved(self.pool))
-
-    def _state(self, e: int, c: int) -> CompactState:
-        return CompactState(
-            esrc=self.esrc[:e], edst=self.edst[:e], ew=self.ew[:e],
-            eeid=self.eeid[:e], SZf=self.SZf[:c], IDf=self.IDf[:c],
-            fin=self.fin[:c], merged=True, it=0, bucket=0, phase=0,
-            flags=self.flags)
-
-    def _record(self, key) -> None:
-        """A graphed round on the static buffers, the hand-written round
-        updating them in place: what a capture records."""
-        e, c, head_cap, is_felz, capped, canonical, min_size = key
-        st = self._state(e, c)
-        ks2.s2_round(st.esrc, st.edst, st.ew, st.eeid, st.SZf, st.IDf,
-                     st.fin, self.flags, head_cap=head_cap, k=self.k,
-                     min_size=min_size, is_felz=is_felz,
-                     tau=self.tau if capped else None, canonical=canonical,
-                     out=(st.esrc, st.edst, st.SZf, st.IDf, st.fin,
-                          self.merged, self.flags),
-                     scratch=self.scratch)
-
-    def _capture(self, key):
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(self.device)
-        graph = torch.cuda.CUDAGraph()
-        current = torch.cuda.current_stream(self.device)
-        # no device-wide synchronise: another thread's work on this card
-        # would fail on it
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            graph.capture_begin(pool=self.pool,
-                                capture_error_mode="thread_local")
-            try:
-                self._record(key)
-            finally:
-                graph.capture_end()
-        current.wait_stream(self.stream)
-        return graph
-
-    def graph(self, st: CompactState, comp_cap, min_size, is_felz, tau,
-              canonical):
-        """The graph of this round, or None (it runs eagerly)."""
-        return self.graphs.get(_s2_graph_key(
-            st.esrc.numel(), st.SZf.numel(), comp_cap, is_felz,
-            tau is not None, canonical, min_size))
-
-    def bind(self, st: CompactState) -> CompactState:
-        """st on the static buffers: each array not there yet copied in."""
-        e, c = st.esrc.numel(), st.SZf.numel()
-        bound = self._state(e, c)
-        for name in ("esrc", "edst", "ew", "eeid", "SZf", "IDf", "fin",
-                     "flags"):
-            x, view = getattr(st, name), getattr(bound, name)
-            if x.data_ptr() != view.data_ptr():
-                view.copy_(x)
-        return bound._replace(merged=st.merged, it=st.it, bucket=st.bucket,
-                              phase=st.phase)
-
-
-_S2_WORKSPACES = {}
-_S2_WORKSPACES_LOCK = threading.Lock()
-
-
-def _s2_workspace(device):
-    """The card's `_S2Graphs` (one a card, whichever thread asks); None
-    off a CUDA card."""
-    if device.type != "cuda":
-        return None
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    with _S2_WORKSPACES_LOCK:
-        if index not in _S2_WORKSPACES:
-            _S2_WORKSPACES[index] = _S2Graphs(torch.device("cuda", index))
-        return _S2_WORKSPACES[index]
+    main_cap = comp_cap if quality else caps["comp_cap2"]
+    return _S2Shape(comp_cap, main_cap, rec1_cap, rec2_cap, cs,
+                    _S2_SMALL and cs < pair_cap,
+                    2 * cfg.max_iters + max(cfg.weight_buckets, 1))
 
 
 def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
-              thresholds=None, r0=None, ws=None, rec_cap: int = 0):
+              thresholds=None, r0=None, rec_cap: int = 0):
     """All stage-2 compact rounds. Speed mode: warm-up round, recompact,
     two rounds, prune, recompact, then the main phase with the min-size
     rounds. Quality mode (thresholds: the bucket caps): two warm-up rounds,
@@ -1342,12 +1076,9 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
     it, the rounds run in root-index space (`_to_root_space`) unless a
     root list overflowed, and fin and the flags come back as the V-indexed
     rounds give them; of the state only these two are the caller's (the
-    pool, SZf and IDf stay root-indexed, and may lie in the workspace's
-    buffers). Without r0 every round runs V-indexed. ws: the card's
-    `_S2Graphs` (`_s2_workspace`), whose graphs then replay the rounds of
-    `_s2_graph_plan` in root-index space; None: every round eagerly.
-    rec_cap: a floor for the recompacts' caps (see _s2_shape). st itself
-    is left as it was."""
+    pool, SZf and IDf stay root-indexed). Without r0 every round runs
+    V-indexed. rec_cap: a floor for the recompacts' caps (see _s2_shape).
+    st itself is left as it was."""
     pair_cap = st.esrc.numel() // 2
     shape = _s2_shape(v, cfg, pair_cap, rec_cap)
     # one read: the live pairs (the slice's test) and whether a root list
@@ -1357,39 +1088,32 @@ def _s2_stage(st: CompactState, v: int, cfg: SegmentationConfig,
         read = host_read(torch.isfinite(st.ew[:pair_cap]).sum() * 2
                          + ((st.flags & FLAG_COMP_OVERFLOW) != 0), "s2_live")
         live, roots = read >> 1, r0 is not None and not read & 1
-    n, k, graphs = v, cfg.k, None
-    if roots:
-        n, st = r0.numel(), _to_root_space(st, r0)
-    ws = ws if roots and ws is not None and ws.acquire() else None
-    try:
-        if ws is not None and ws.prepare(_s2_graph_plan(v, cfg, pair_cap)[0],
-                                         cfg.k, _S2_GRAPH_BYTES * v):
-            k, graphs = ws.k, ws
-        st = _s2_rounds(st, n, cfg, thresholds, shape, live, k, graphs)
-        return _from_root_space(st, r0, v) if roots else st
-    finally:
-        if ws is not None:
-            ws.release()
+    if not roots:
+        return _s2_rounds(st, v, cfg, thresholds, shape, live)
+    st = _s2_rounds(_to_root_space(st, r0), r0.numel(), cfg, thresholds,
+                    shape, live)
+    return _from_root_space(st, r0, v)
 
 
 def _s2_rounds(st: CompactState, n: int, cfg: SegmentationConfig,
-               thresholds, shape: _S2Shape, live, k, ws):
+               thresholds, shape: _S2Shape, live):
     """`_s2_stage`'s rounds on n label slots: the early rounds on the
     sliced pool when the live pairs fit it, else on the whole pool, then
     the main phase."""
     quality = cfg.weight_buckets > 0
+    k = cfg.k
 
     def early(s: CompactState) -> CompactState:
         s = _s2_phase(s, n, shape.comp_cap, k, cfg.min_size,
                       2 if quality else 1, thresholds, with_minsize=False,
-                      flag_exhaustion=False, ws=ws)
+                      flag_exhaustion=False)
         s, rec_ovf = _recompact_edges(s, shape.rec1_cap)
         s = s._replace(flags=_raise_flag(s.flags, rec_ovf,
                                          FLAG_RECOMPACT_OVERFLOW))
         if quality:
             return s
         s = _s2_phase(s, n, shape.comp_cap, k, cfg.min_size, 2, thresholds,
-                      with_minsize=False, flag_exhaustion=False, ws=ws)
+                      with_minsize=False, flag_exhaustion=False)
         s = _prune_dead(s, n, k, cfg.min_size)
         s, rec2_ovf = _recompact_edges(s, shape.rec2_cap)
         return s._replace(flags=_raise_flag(s.flags, rec2_ovf,
@@ -1403,7 +1127,7 @@ def _s2_rounds(st: CompactState, n: int, cfg: SegmentationConfig,
     else:
         st = early(st)
     return _s2_phase(st, n, shape.main_cap, k, cfg.min_size, shape.iters,
-                     thresholds, with_minsize=cfg.min_size > 1, ws=ws)
+                     thresholds, with_minsize=cfg.min_size > 1)
 
 
 def _value_flood(L, seed, max_sweeps, closures=False, comm=DENSE):
@@ -1447,8 +1171,8 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
     must not be trusted (`segment_turbo` checks it).
 
     A frame whose stage-2 recompact overflowed runs stage 2 and the final
-    map again, without graphs, with the recompacts' caps raised to the handoff
-    pool's half where that is larger (quality mode: V/8 to V/6 at the
+    map again, with the recompacts' caps raised to the handoff pool's
+    half where that is larger (quality mode: V/8 to V/6 at the
     default gate; counted as s2.retries), and raises the flag only if
     that overflows too. A frame that does not overflow runs as before,
     with no extra read.
@@ -1461,10 +1185,10 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
                                             weights_override)
     with timing.span("gseg.extract"):
         st, rm, r0 = _extract_stage(gst, weights, cfg)
-    ws, rec_cap = _s2_workspace(image.device), 0
+    rec_cap = 0
     while True:
         with timing.span("gseg.stage2"):
-            s2 = _s2_stage(st, v, cfg, thresholds, r0, ws, rec_cap)
+            s2 = _s2_stage(st, v, cfg, thresholds, r0, rec_cap)
         with timing.span("gseg.final_map"):
             labels, fm_unconv = _final_map(
                 gst, s2, rm, r0, 4 * (h + w),
@@ -1479,7 +1203,7 @@ def segment_turbo_impl(image: torch.Tensor, cfg: SegmentationConfig,
                     "rec1_cap"]):
             return labels, flags
         timing.count("s2.retries")
-        ws, rec_cap = None, grown
+        rec_cap = grown
 
 
 segment_turbo_flagged = segment_turbo_impl

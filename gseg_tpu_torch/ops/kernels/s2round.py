@@ -6,8 +6,7 @@ stay the oracle), with:
   - the kernel: `csrc/s2round.cu` (one C entry queues the round's
     launches on the current stream: per-slot minimum edges by 64-bit
     atomics, head ranks by a scan, hooks, hook chains by bounded jumps,
-    canonical roots, sizes and Int by atomics, the relabel; no host read
-    and no allocation, so a CUDA graph can capture it);
+    canonical roots, sizes and Int by atomics, the relabel; no host read);
   - the plain PyTorch version: the same steps on the same slot arrays,
     with `scatter_reduce` over packed int64 keys in place of the atomics.
 
@@ -19,8 +18,7 @@ source's note for the round itself. Weights and Int must be non-negative
 
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel. `s2_round.launches` counts the rounds the kernel
-ran: each eager call, and each replay of a CUDA graph that captured one
-(`replayed`); a capture runs nothing and counts none.
+ran, one a call.
 """
 
 from __future__ import annotations
@@ -132,7 +130,7 @@ def _kernel():
     if not getattr(lib, "gseg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([p, p, p, p, i, p, p, i, p, i, p]
-                       + [p] * 7 + [p, ctypes.c_float, p, i, i, i, i, p, p])
+                       + [p] * 7 + [ctypes.c_float, p, i, i, i, i, p, p])
         fn.restype = ctypes.c_int
         lib.gseg_bound = True
     return fn
@@ -147,17 +145,14 @@ def _f32(x, what, dev):
 
 def s2_round(esrc, edst, ew, eeid, SZf, IDf, fin, flags, *, head_cap: int,
              k, min_size, is_felz: bool, tau=None,
-             canonical: bool = True, out=None, scratch=None):
+             canonical: bool = True):
     """One compact round. esrc, edst, eeid: (e,) int32; ew: (e,) float32;
     SZf (n,) int32, IDf (n,) float32; fin (c,) int32 labels in [0, n);
-    flags: () int32. k: a number or a float32 scalar tensor; min_size: a
+    flags: () int32. k: the felz threshold, a number; min_size: a
     min-size round's (a felz round ignores it: None will do); tau: the
-    felz round's weight cap (float32 scalar tensor) or None. out: the
-    seven outputs (esrc, edst, SZf, IDf, fin, merged (bool), flags) to
-    write, each a buffer of its own or its input (in place); None: new
-    tensors. scratch: at least `scratch_bytes(n)` bytes of one tensor on
-    the device, 8-byte aligned (None: allocated). Returns the outputs
-    (esrc, edst, SZf, IDf, fin, merged, flags), merged a 0-d bool."""
+    felz round's weight cap (float32 scalar tensor) or None. Returns new
+    tensors (esrc, edst, SZf, IDf, fin, merged, flags), merged a 0-d
+    bool."""
     ins = (esrc, edst, ew, eeid, SZf, IDf, fin, flags)
     want = (torch.int32, torch.int32, torch.float32, torch.int32,
             torch.int32, torch.float32, torch.int32, torch.int32)
@@ -171,31 +166,19 @@ def s2_round(esrc, edst, ew, eeid, SZf, IDf, fin, flags, *, head_cap: int,
                                         for x in (edst, ew, eeid)):
         raise ValueError(f"s2_round: pool sizes {[x.numel() for x in ins]}")
     if _build.on_cpu(*ins):
-        res = s2_round_plain(esrc, edst, ew, eeid, SZf, IDf, fin, flags,
-                             head_cap=head_cap, k=k, min_size=min_size,
-                             is_felz=is_felz, tau=tau, canonical=canonical)
-        if out is None:
-            return res
-        for o, x in zip(out, res):
-            o.copy_(x)
-        return tuple(out)
+        return s2_round_plain(esrc, edst, ew, eeid, SZf, IDf, fin, flags,
+                              head_cap=head_cap, k=k, min_size=min_size,
+                              is_felz=is_felz, tau=tau, canonical=canonical)
     dev = esrc.device
     if not all(x.is_contiguous() for x in ins):
         raise ValueError("s2_round: the kernel takes contiguous tensors")
-    if out is None:
-        out = (torch.empty_like(esrc), torch.empty_like(edst),
-               torch.empty_like(SZf), torch.empty_like(IDf),
-               torch.empty_like(fin),
-               torch.empty((), dtype=torch.bool, device=dev),
-               torch.empty((), dtype=torch.int32, device=dev))
-    if scratch is None:
-        scratch = torch.empty(-(-scratch_bytes(n) // 8), dtype=torch.int64,
-                              device=dev)
-    elif (scratch.device != dev or scratch.data_ptr() % 8
-          or scratch.numel() * scratch.element_size() < scratch_bytes(n)):
-        raise ValueError("s2_round: scratch too small or misaligned")
-    k_ptr, k_val = ((_f32(k, "k", dev), 0.0) if isinstance(k, torch.Tensor)
-                    else (None, float(k)))
+    out = (torch.empty_like(esrc), torch.empty_like(edst),
+           torch.empty_like(SZf), torch.empty_like(IDf),
+           torch.empty_like(fin),
+           torch.empty((), dtype=torch.bool, device=dev),
+           torch.empty((), dtype=torch.int32, device=dev))
+    scratch = torch.empty(-(-scratch_bytes(n) // 8), dtype=torch.int64,
+                          device=dev)
     tau_ptr = None if tau is None else _f32(tau, "tau", dev)
     index = dev.index
     with (contextlib.nullcontext() if index == torch.cuda.current_device()
@@ -204,19 +187,13 @@ def s2_round(esrc, edst, ew, eeid, SZf, IDf, fin, flags, *, head_cap: int,
             esrc.data_ptr(), edst.data_ptr(), ew.data_ptr(), eeid.data_ptr(),
             e, SZf.data_ptr(), IDf.data_ptr(), n, fin.data_ptr(),
             fin.numel(), flags.data_ptr(), *(o.data_ptr() for o in out),
-            k_ptr, k_val, tau_ptr, int(is_felz), min_size,
+            float(k), tau_ptr, int(is_felz), min_size,
             int(canonical), int(min(head_cap, INT32_MAX)),
             scratch.data_ptr(),
             torch.cuda.current_stream(index).cuda_stream)
     _build.check(err, "gseg_s2_round")
-    if not torch.cuda.is_current_stream_capturing():
-        _build.count(_WRAPPER)
-    return tuple(out)
-
-
-def replayed() -> None:
-    """Count one replay of a CUDA graph that captured a round."""
     _build.count(_WRAPPER)
+    return out
 
 
 # the launch count lives on the wrapper object (bound here, so a caller that

@@ -29,10 +29,8 @@ The turbo path's spans (`gseg.` names) and counters:
   gseg.weights, gseg.rlist
                     stage G's smoothing and edge weights, its root list
   gseg.g_round      each stage-G round, `turbo._ground` (it, sizes)
-  gseg.s2_round     each stage-2 round, `turbo._s2_round` (kind: felz or
-                    min_size; route: graph, a CUDA graph of the
-                    hand-written round replayed; kernel, the hand-written
-                    round called, on the CPU its plain version)
+  gseg.s2_round     each stage-2 round, `turbo._s2_round`: one call of
+                    the hand-written round (kind: felz or min_size)
   gseg.recompact, gseg.prune
                     stage 2's pool recompactions and dead-edge prune
   gseg.fixpoint     each dense fixpoint, `kernels.gossip._fixpoint`
@@ -45,11 +43,6 @@ The turbo path's spans (`gseg.` names) and counters:
   tiles.<variant>, tiles_seeded.<variant>
                     tiles the step kernel was launched over, in every
                     pass and in seeded first passes
-  s2_graph.replays  stage-2 rounds replayed as CUDA graphs
-  s2_round.kernel   stage-2 rounds run by the hand-written round
-                    (`ops.kernels.s2round`), graphed or not: every round
-  s2_graph.captures stage-2 round graphs captured (a frame size's second
-                    frame in a row)
 
 The fastmst (DPP) path's spans and counters (`models.fastmst`; its
 compact rounds are turbo's, so gseg.s2_round, gseg.recompact and

@@ -1082,80 +1082,50 @@ def test_evidence_quality_rows_on_card(dev, tmp_path):
 
 
 @pytest.mark.parametrize("wb", [0, 16])
-def test_s2_graphs_equal_eager_on_card(dev, wb):
-    """Stage 2's graphed rounds on the card (1080p, speed and quality
-    mode): fin, the flags and the round count equal the rounds run
-    eagerly in root-index space and V-indexed. The size's first frame
-    captures nothing, its second every graph of its plan, the third none,
-    and a round replays for each graphed round; the graphs keep exactly
-    the plan's bytes, at most 3 a pixel, and their memory pool stays
-    empty; the round's launch count counts each round once. (Quality
-    mode's plan graphs nothing: its static buffers pass 3 bytes a
-    pixel.)"""
+def test_s2_root_space_equals_v_indexed_on_card(dev, wb):
+    """Stage 2's rounds on the card (1080p, speed and quality mode), in
+    root-index space and V-indexed: fin, the flags and the round count
+    equal, a second run in root space the same again, a span and a host
+    read a round, and the round's launch count one a round."""
     cfg = SegmentationConfig(algorithm="turbo", weight_buckets=wb)
     image = torch.from_numpy(blobs_image(1080, 1920, 31, 8.0, 3)).to(dev)
     v = 1080 * 1920
     gst, wts, thr = turbo._stage_g(image, cfg, 2)
     st, rm, r0 = turbo._extract_stage(gst, wts, cfg)
     vidx = turbo._s2_stage(st, v, cfg, thr)
-    eager = turbo._s2_stage(st, v, cfg, thr, r0)
-    ws = turbo._S2Graphs(dev)
-    plan, held = turbo._s2_graph_plan(v, cfg, st.esrc.numel() // 2)
-    keys = {key for key in plan.values() if key is not None}
-    assert bool(keys) == (wb == 0)
-    for frame in range(3):
+    for _ in range(2):
         launches = s2round.s2_round.launches
         timing.take()
         timing.enable()
         try:
-            got = turbo._s2_stage(st, v, cfg, thr, r0, ws)
+            got = turbo._s2_stage(st, v, cfg, thr, r0)
             torch.cuda.synchronize()
         finally:
             timing.disable()
         rec = timing.take()
-        routes = [sp.attrs["route"] for sp in rec.spans
-                  if sp.name == "gseg.s2_round"]
-        graphed = [r == "graph" for r in routes]
-        assert set(routes) <= {"graph", "kernel"}
-        assert rec.counters["s2_round.kernel"] == len(routes)
-        # a launch a round, called or replayed (a capture runs none)
-        assert s2round.s2_round.launches - launches == len(routes)
-        for ref in (eager, vidx):
-            assert torch.equal(got.fin, ref.fin)
-            assert int(got.flags) == int(ref.flags) == 0
-            assert got.it == ref.it
-        assert rec.counters.get("s2_graph.captures", 0) == (
-            len(keys) if frame == 1 else 0)
-        assert rec.counters.get("s2_graph.replays", 0) == sum(graphed)
-        assert (sum(graphed) > 0) == (frame > 0 and bool(keys))
-    if keys:
-        assert turbo._pool_reserved(ws.pool) == 0
-        assert 0 < ws.held_bytes() == held <= 3 * v
-    else:
-        assert ws.held_bytes() == 0
+        rounds = [sp for sp in rec.spans if sp.name == "gseg.s2_round"]
+        assert rec.counters["host_reads.s2_merged"] == len(rounds) > 0
+        assert s2round.s2_round.launches - launches == len(rounds)
+        assert got.SZf.numel() == r0.numel() < v
+        assert torch.equal(got.fin, vidx.fin)
+        assert int(got.flags) == int(vidx.flags) == 0
+        assert got.it == vidx.it
 
 
-def _checked_rounds(monkeypatch, seen):
+def _checked_rounds(monkeypatch, pixels):
     """Every `_s2_round` checked against `_s2_round_ops` on the same
-    state, on the card: all seven outputs byte-equal; seen counts the
-    rounds by route."""
+    state, on the card: all seven outputs byte-equal. Returns the count
+    of rounds by the space of their labels: "root" (the root list's
+    positions) or "v" (a slot a pixel)."""
     run = turbo._s2_round
+    seen = {"root": 0, "v": 0}
 
     def round_(st, v, comp_cap, k, min_size, is_felz, tau=None,
-               canonical=True, ws=None):
+               canonical=True):
         want = turbo._s2_round_ops(st, v, comp_cap, k, min_size, is_felz,
                                    tau, canonical)
-        timing.take()
-        timing.enable()
-        try:
-            got = run(st, v, comp_cap, k, min_size, is_felz, tau, canonical,
-                      ws)
-        finally:
-            timing.disable()
-        route = [sp.attrs["route"] for sp in timing.take().spans
-                 if sp.name == "gseg.s2_round"]
-        assert len(route) == 1 and route[0] in ("kernel", "graph")
-        seen[route[0]] = seen.get(route[0], 0) + 1
+        got = run(st, v, comp_cap, k, min_size, is_felz, tau, canonical)
+        seen["v" if st.SZf.numel() == pixels else "root"] += 1
         for name, w in zip(("esrc", "edst", "SZf", "IDf", "fin"), want):
             g = getattr(got, name)
             assert g.dtype == w.dtype and torch.equal(g, w), name
@@ -1164,6 +1134,7 @@ def _checked_rounds(monkeypatch, seen):
         return got
 
     monkeypatch.setattr(turbo, "_s2_round", round_)
+    return seen
 
 
 # the benchmark's four turbo cells' frames (h, w, weight_buckets, content)
@@ -1176,10 +1147,9 @@ S2_CELLS = {"speed-1080p": (1080, 1920, 0, "blobs"),
 @pytest.mark.parametrize("cell", sorted(S2_CELLS))
 def test_s2_kernel_round_equals_ops_on_card(dev, monkeypatch, cell):
     """The hand-written round (`ops.kernels.s2round`) at the turbo cells'
-    frame sizes: each round of stage 2, eager in root-index space and
-    V-indexed, then graphed (a size's second and third frames in a row,
-    where its plan graphs), byte-equal to `_s2_round_ops` on the same
-    state, flags included."""
+    frame sizes: each round of stage 2, in root-index space and
+    V-indexed, byte-equal to `_s2_round_ops` on the same state, flags
+    included, and both stages' fin, flags and rounds equal."""
     from gseg_tpu_torch.utils.synthetic import bsds_like_scene
 
     h, w, wb, content = S2_CELLS[cell]
@@ -1191,30 +1161,22 @@ def test_s2_kernel_round_equals_ops_on_card(dev, monkeypatch, cell):
     v = h * w
     gst, wts, thr = turbo._stage_g(image, cfg, 2)
     st, rm, r0 = turbo._extract_stage(gst, wts, cfg)
-    seen = {}
-    _checked_rounds(monkeypatch, seen)
+    seen = _checked_rounds(monkeypatch, v)
     vidx = turbo._s2_stage(st, v, cfg, thr)
-    eager = turbo._s2_stage(st, v, cfg, thr, r0)
-    assert set(seen) == {"kernel"}
-    ws = turbo._S2Graphs(dev)
-    plan, _ = turbo._s2_graph_plan(v, cfg, st.esrc.numel() // 2)
-    for _ in range(3):
-        got = turbo._s2_stage(st, v, cfg, thr, r0, ws)
-        assert torch.equal(got.fin, eager.fin) and got.it == eager.it
-        assert int(got.flags) == int(eager.flags) == int(vidx.flags)
-    assert torch.equal(vidx.fin, eager.fin)
-    assert (seen.get("graph", 0) > 0) == any(plan.values())
+    root = turbo._s2_stage(st, v, cfg, thr, r0)
+    assert seen["v"] == seen["root"] > 0
+    assert torch.equal(vidx.fin, root.fin) and vidx.it == root.it
+    assert int(root.flags) == int(vidx.flags)
 
 
 def test_s2_kernel_round_equals_ops_on_card_fastmst_4k(dev, monkeypatch):
     """The same on the fastmst path at 4K: its V-indexed rounds with sink
-    labels (canonical=False), up to 2.5 V pool entries, no graphs."""
+    labels (canonical=False), up to 2.5 V pool entries."""
     from gseg_tpu_torch.models import fastmst
 
     image = torch.from_numpy(blobs_image(2160, 3840, 126, 8.0, 3)).to(dev)
     cfg = SegmentationConfig(k=300.0, min_size=100, algorithm="fastmst")
-    seen = {}
-    _checked_rounds(monkeypatch, seen)
+    seen = _checked_rounds(monkeypatch, 2160 * 3840)
     _, flags = fastmst.segment_fastmst_flagged(image, cfg)
     assert flags == 0
-    assert set(seen) == {"kernel"} and seen["kernel"] > 2
+    assert seen["root"] == 0 and seen["v"] > 2
