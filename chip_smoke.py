@@ -6,7 +6,8 @@ arguments). It
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from `gseg_tpu_torch/csrc/` (one nvcc per
      source, all started together; sm_90a): the TPU kernels' counterparts,
-     the superpixel path's colour-sum helper and stage 2's compact round;
+     the superpixel path's colour-sum helper, stage 2's compact round and
+     the join of the chunked pair dedup's chunk fronts;
   3. holds every kernel against its plain PyTorch version on the same CUDA
      tensors: random fields at odd multi-tile shapes and at wide shapes
      (w >= 2560: the padded fixpoint route), both closure orientations,
@@ -94,9 +95,13 @@ arguments). It
      one component, two runs bit-equal); each with the launch counts set
      to 0 just before it and read just after (RECORDED_LAUNCHES: the value
      flood, pad/unpad at 4K, the colour-sum helper on superpixel, stage
-     2's round on fastmst; every round of the 4K frame, V-indexed with
-     sink labels, also against the round's plain version and its first
-     one timed), its
+     2's round on fastmst, the pair dedup's join on both, one a frame;
+     every round of the 4K frame, V-indexed with sink labels, also against
+     the round's plain version and its first one timed; the join at the
+     4K frame's boundary pairs, and forced to overflow at half its heads,
+     at the fastmst and superpixel hierarchies' and each row-sharded
+     rank's of `1080p_spatial4` (step 10) against its plain version in
+     every lane and the overflow flag, and timed at 4K), its
      host reads, peak memory, median ms of CUDA-event reps, the value
      flood's device ms and the split of round 1, extraction, compact
      rounds and final map or render; the colour-sum helper
@@ -290,6 +295,7 @@ from gseg_tpu_torch.ops.kernels import _build
 from gseg_tpu_torch.ops.kernels import extract as kx
 from gseg_tpu_torch.ops.kernels import gossip as kg
 from gseg_tpu_torch.ops.kernels import pad as kp
+from gseg_tpu_torch.ops.kernels import pairjoin as kpj
 from gseg_tpu_torch.ops.kernels import runs as kr
 from gseg_tpu_torch.ops.kernels import s2round as ks2
 from gseg_tpu_torch.ops.kernels import scatter as ks
@@ -551,8 +557,22 @@ KERNELS = {
         | {BSDS["fastmst"]}, set(), None, 0,
         (r"\bs2_(minedge|minpos|count|scan|heads|mutual|jump|canon|apply|"
          r"relabel|init)\b",)),
+    # the join of the chunk fronts of the chunked pair dedup (no TPU
+    # kernel: XLA ops there), on every path through
+    # `turbo._chunked_pair_extract`: the DPP paths' handoff (fastmst, its
+    # hierarchy, superpixel) and each rank's of the row-sharded turbo path;
+    # one launch a call. Its bytes are counted from its output (`_bound`).
+    "pair_join": Kernel(
+        kpj, "pair_join", kpj.pair_join_plain,
+        "gseg_tpu_torch/csrc/pairjoin.cu",
+        "none: the output-space scan of gseg_tpu/models/turbo.py:1249 "
+        "(_chunked_pair_extract)",
+        DPP | LADDER_DPP | {BSDS["fastmst"], BSDS["superpixel"], LADDER_RUN}
+        | set(SPATIAL_TURBO) | {"1080p_spatial4_final_gather"}, set(), None,
+        0, (r"\bpair_join\b",)),
 }
 S2 = "s2_round"
+PJ = "pair_join"
 PADS = ("pad_fields", "unpad_fields")
 # the step kernel's wrappers -> their variant in ops/kernels/gossip.py
 STEP = {"gossip_compmin": "compmin", "gossip_labeldist": "labeldist",
@@ -976,7 +996,7 @@ def _compare(name, args, kwargs=None):
         return _max_abs_err(kernel_out, plain_out)
     if name == "ordered_scatter_add":
         return _max_abs_err((kernel_out,), (plain_out,))
-    if name == S2:   # all seven outputs, flags and merged included
+    if name in (S2, PJ):   # every output, flags and overflow included
         return _max_abs_err(kernel_out, plain_out)
     if kernel_out[-1] or plain_out[-1]:
         raise AssertionError(f"{name}: a fixpoint hit its sweep cap")
@@ -1065,6 +1085,12 @@ def _bound(name, args):
         esrc, _, _, _, SZf, _, fin, _ = args
         npx = esrc.numel()
         nbytes = 24 * npx + 16 * SZf.numel() + 8 * fin.numel()
+    elif name == PJ:
+        # a slot's perm entry (8 B) and its four words (16 B) read once, the
+        # mask and four words (17 B) written once; the counts read once
+        counts, pair_cap = args[0], args[-1]
+        npx = pair_cap
+        nbytes = 41 * pair_cap + 8 * counts.numel()
     else:
         npx = args[0].numel()
         nbytes = k.bytes_px * npx
@@ -1130,7 +1156,52 @@ def _random_args(h, w, dev, seed):
         "closure_value": (L, be),
         "run_extract": (L, h * w),
         "ordered_scatter_add": _scatter_args(rng, h * w, dev),
+        "pair_join": _pair_join_args(rng, h * w, dev),
     }
+
+
+def _pair_join_args(rng, n, dev):
+    """A join of 4n slots as the dedup hands them over, at the pair cap
+    1.25 n: chunks of 64 slots (over 256 chunks: several counts a scanning
+    thread), or of the dedup's 131072 past 8192 such chunks; per chunk up
+    to half its slots heads (some chunks none) and a random permutation."""
+    slots = 4 * n
+    chunk = 64 if slots <= 64 * kpj.MAX_CHUNKS else turbo.PAIR_CHUNK
+    nch = -(-slots // chunk)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    counts = torch.randint(0, chunk // 2 + 1, (nch,), generator=g,
+                           device=dev)
+    counts[torch.rand(nch, generator=g, device=dev) < 0.1] = 0
+    perm = torch.argsort(torch.rand((nch, chunk), generator=g, device=dev),
+                         dim=1)
+    words = [torch.randint(0, 2**31 - 1, (nch * chunk,), generator=g,
+                           device=dev, dtype=torch.int32) for _ in range(3)]
+    w = torch.rand(nch * chunk, generator=g, device=dev)
+    return (counts, perm, words[0], words[1], w, words[2],
+            max(5 * n // 4, 1))
+
+
+def _join_checks(path, run, overflow=False):
+    """Every call of the join in run() (each rank's on a row-sharded path)
+    against the plain version: every lane, masked lanes and the overflow
+    flag; with `overflow` also at half the heads as the pair cap. Returns
+    (the calls' arguments, max abs error)."""
+    calls = [a for a, _ in _wrapper_calls([PJ], run)[PJ]]
+    if not calls:
+        raise AssertionError(f"{path}: the join never ran")
+    err = 0.0
+    for args in calls:
+        err = max(err, _compare(PJ, args))
+        if overflow:
+            cap = max(int(args[0].sum()) // 2, 1)
+            err = max(err, _compare(PJ, args[:-1] + (cap,)))
+    print(f"check {PJ} {path}: {len(calls)} calls (pair caps "
+          f"{[a[-1] for a in calls]}, chunks "
+          f"{[tuple(a[1].shape) for a in calls]}) equal to plain in every "
+          "lane and the overflow flag"
+          + ("; each also at half its heads (overflow)" if overflow else ""),
+          flush=True)
+    return calls, err
 
 
 def _scatter_args(rng, n, dev):
@@ -2306,6 +2377,14 @@ def _dpp_paths(images, card):
                             card, 1)
     timed4k[S2]["max_abs_err"] = max(err, timed4k[S2]["max_abs_err"])
     del rounds
+    # the join at the 4K frame's boundary pairs (33,177,600 slots, 254
+    # chunks, pair cap 10,368,000), also forced to overflow; timed there
+    joins, jerr = _join_checks(
+        "4k_fastmst", lambda: fastmst.segment_fastmst_flagged(image4k, cfg),
+        overflow=True)
+    timed4k |= _time_kernels({PJ: (joins[0], {})},
+                             "4k_fastmst boundary pairs", card, 3)
+    del joins
 
     (levels, hlabels, _), out["1080p_fastmst_hierarchy"] = _dpp_path(
         "1080p_fastmst_hierarchy", image, card,
@@ -2324,6 +2403,9 @@ def _dpp_paths(images, card):
                              "from 1080p_fastmst's")
     out["1080p_fastmst_hierarchy"]["level_components"] = _dpp_check_levels(
         "1080p_fastmst_hierarchy", canon, oracle["fastmst"]["levels"])
+    jerr = max(jerr, _join_checks(
+        "1080p_fastmst_hierarchy",
+        lambda: fastmst.segment_fastmst_hierarchy_flagged(image, cfg))[1])
 
     scfg = dataclasses.replace(CFG, algorithm="superpixel")
     (lvl4, _), out["1080p_superpixel"] = _dpp_path(
@@ -2354,6 +2436,9 @@ def _dpp_paths(images, card):
             or not torch.equal(slevels[4], lvl4):
         raise AssertionError("1080p_superpixel_hierarchy: runs differ")
     out["1080p_superpixel_hierarchy"]["level_components"] = counts
+    jerr = max(jerr, _join_checks("1080p_superpixel_hierarchy",
+                                  sp_hierarchy)[1])
+    timed4k[PJ]["max_abs_err"] = max(jerr, timed4k[PJ]["max_abs_err"])
 
     args = _wrapper_calls(["ordered_scatter_add"], sp_hierarchy,
                           first_only=True)["ordered_scatter_add"][0][0]
@@ -2994,6 +3079,9 @@ def _parallel_paths(images, card, errs):
     out["1080p_spatial4"]["turns_free_ms"] = _turns_ab(
         "1080p_spatial4", lambda: turbo_spatial.segment_turbo_spatial(
             hd[0], CFG, m4, gossip_rounds=GOSSIP_ROUNDS)[0], card)
+    errs[PJ] = max(errs[PJ], _join_checks(
+        "1080p_spatial4", lambda: turbo_spatial.segment_turbo_spatial(
+            hd[0], CFG, m4, gossip_rounds=GOSSIP_ROUNDS))[1])
     out["1080p_spatial4_wb16"] = _spatial_turbo_path(
         "1080p_spatial4_wb16", hd[0], wb16, 4, 2, _WB16, card, errs, slab)
     out["4k_spatial4"] = _spatial_turbo_path(
@@ -4573,6 +4661,31 @@ for _path, _n in S2_LAUNCHES.items():
     _run, _rec = RECORDED_LAUNCHES[_path]
     RECORDED_LAUNCHES[_path] = (f"{_run}, 23f-23h", _rec | {S2: _n})
 
+# the join of the chunk fronts in each path's counted run: one launch a
+# call of `turbo._chunked_pair_extract`, so one a DPP frame (fastmst, its
+# hierarchy, superpixel and its hierarchy; the quality protocols' 20
+# images) and one a rank and frame on the row-sharded turbo path; the
+# other paths run none. The whole-module runs of steps 13 and 14 follow
+# from their rows.
+PAIR_JOIN_LAUNCHES = {
+    "1080p_fastmst": 1, "4k_fastmst": 1, "1080p_fastmst_hierarchy": 1,
+    "1080p_superpixel": 1, "1080p_superpixel_hierarchy": 1,
+    "1080p_spatial4": 4, "1080p_spatial4_wb16": 4, "4k_spatial4": 4,
+    "spatial8_short_tiles": 8, "1080p_spatial4_final_gather": 4,
+    "bsds_like_quality_fastmst": 20, "bsds_like_quality_superpixel": 20,
+    "synthetic_quality_fastmst": 20, "synthetic_quality_superpixel": 20,
+    "ladder_superpixel_540x960": 1, "ladder_superpixel_720x1280": 1,
+    "ladder_superpixel_1080x1920": 1}
+PAIR_JOIN_LAUNCHES |= {p: 1 for p in LADDER_DPP} | {
+    f"ladder_fastmst_{r}": 1 for r in ("2880x5120", "4320x7680")}
+PAIR_JOIN_LAUNCHES |= {
+    f"spatial_parity_{c}_{r}_wb{b}": n for c in ("blobs", "textured")
+    for r, n in (("540x960_4ranks", 4), ("720x1280_8ranks", 8))
+    for b in (0, 16)}
+for _path, _n in PAIR_JOIN_LAUNCHES.items():
+    _run, _rec = RECORDED_LAUNCHES[_path]
+    RECORDED_LAUNCHES[_path] = (f"{_run}, 25", _rec | {PJ: _n})
+
 
 def main() -> None:
     t0 = time.perf_counter()
@@ -4724,7 +4837,7 @@ def main() -> None:
     runs |= dpp
     timed |= dpp_timed
     for path, name in (("1080p_superpixel", "ordered_scatter_add"),
-                       ("4k_fastmst", S2)):
+                       ("4k_fastmst", S2), ("4k_fastmst", PJ)):
         errs[name] = max(errs[name], timed[path][name]["max_abs_err"])
     print(f"DPP paths done at {time.perf_counter() - t0:.1f} s", flush=True)
     runs |= _cli_paths(images[1080, 1920], card)
@@ -4762,7 +4875,8 @@ def main() -> None:
     timed_on = ({n: "4k_subsum" for n in PADS}
                 | {n: "1080p_wb16_closures" for n in CLOSURES}
                 | {"run_extract": "1080p_runs",
-                   "ordered_scatter_add": "1080p_superpixel"})
+                   "ordered_scatter_add": "1080p_superpixel",
+                   PJ: "4k_fastmst"})
     kernels = []
     shares = {}
     for name in STEP:

@@ -81,6 +81,7 @@ from ..ops import filters
 from ..ops import grid_graph as gg
 from ..ops.kernels import extract as kx
 from ..ops.kernels import gossip as kg
+from ..ops.kernels import pairjoin as kpj
 from ..ops.kernels import runs as kr
 from ..ops.kernels import s2round as ks2
 from ..utils import timing
@@ -778,12 +779,12 @@ def _chunked_pair_extract(lo, hi, w4, eid4, pair_cap, chunk=PAIR_CHUNK):
     """Extract the live boundary edges and dedup them per pair, chunk by
     chunk (the fastmst and superpixel handoff): each chunk of `chunk`
     slots is sorted by (lo, hi, w, eid) on its own, its pair heads move to
-    its front (a second, stable sort), and the chunk fronts are joined by
-    an output-space scan. A pair whose edges span several chunks survives
-    once per chunk, as in the reference: stage 2 treats the list as a
-    multigraph, so that costs capacity, not labels. Returns (mask, lo, hi,
-    w, eid, overflow), arrays of size pair_cap; on overflow the output is
-    invalid."""
+    its front (a second, stable sort), and the chunk fronts are joined
+    into the output (`kernels.pairjoin.pair_join`). A pair whose edges
+    span several chunks survives once per chunk, as in the reference:
+    stage 2 treats the list as a multigraph, so that costs capacity, not
+    labels. Returns (mask, lo, hi, w, eid, overflow), arrays of size
+    pair_cap; on overflow the output is invalid."""
     dev = lo.device
     n = lo.shape[0]
     nch = pair_chunks(n, chunk)
@@ -805,20 +806,8 @@ def _chunked_pair_extract(lo, hi, w4, eid4, pair_cap, chunk=PAIR_CHUNK):
     # heads to each chunk's front, in order
     perm = perm.gather(1, torch.sort((~head).to(torch.uint8), dim=1,
                                      stable=True).indices)
-    counts = head.sum(1)
-    offsets = torch.cumsum(counts, 0) - counts
-    total = counts.sum()
-    # output-space scan: the chunk that owns output slot j
-    marks = _scatter(torch.zeros(pair_cap, dtype=torch.int64, device=dev),
-                     offsets.clamp(0, pair_cap - 1),
-                     torch.arange(nch, device=dev), "amax")
-    chunk_of = torch.cummax(marks, 0).values
-    j = torch.arange(pair_cap, device=dev)
-    src = (chunk_of * chunk + j - offsets[chunk_of]).clamp(0, nch * chunk - 1)
-    src = (perm + torch.arange(nch, device=dev)[:, None] * chunk).reshape(
-        -1)[src]
-    return ((j < total), lo[src], hi[src], w4[src], eid4[src],
-            total > pair_cap)
+    # the fronts joined in one launch (csrc/pairjoin.cu)
+    return kpj.pair_join(head.sum(1), perm, lo, hi, w4, eid4, pair_cap)
 
 
 def _hook_roots(hm, hsrc, succ, v):

@@ -1,12 +1,13 @@
 """The hand-written CUDA kernels' wrappers (`gossip`, `pad`, `extract`,
-`runs`, `scatter`); each counts its launches in `<wrapper>.launches`."""
+`runs`, `scatter`, `s2round`, `pairjoin`); each counts its launches in
+`<wrapper>.launches`."""
 
 
 def launch_counts() -> dict:
     """Every wrapper's launches so far, by kernel name (the names of
     chip_smoke.py's kernel line). Take the difference of two readings to
     count a call's launches without resetting anyone else's count."""
-    from . import extract, gossip, pad, runs, s2round, scatter
+    from . import extract, gossip, pad, pairjoin, runs, s2round, scatter
 
     wrappers = {
         "gossip_compmin": gossip.compmin_gossip,
@@ -23,5 +24,6 @@ def launch_counts() -> dict:
         "run_extract": runs.run_extract,
         "ordered_scatter_add": scatter.ordered_scatter_add,
         "s2_round": s2round.s2_round,
+        "pair_join": pairjoin.pair_join,
     }
     return {name: fn.launches for name, fn in wrappers.items()}

@@ -1180,3 +1180,98 @@ def test_s2_kernel_round_equals_ops_on_card_fastmst_4k(dev, monkeypatch):
     _, flags = fastmst.segment_fastmst_flagged(image, cfg)
     assert flags == 0
     assert seen["root"] == 0 and seen["v"] > 2
+
+
+# the fastmst cell's frame: blobs-4k (3840x2160, 126 blobs)
+BLOBS_4K = (2160, 3840, 126)
+
+
+def _fastmst_4k(dev):
+    from gseg_tpu_torch.models import fastmst
+
+    h, w, n = BLOBS_4K
+    image = torch.from_numpy(blobs_image(h, w, n, 8.0, 3)).to(dev)
+    cfg = SegmentationConfig(k=300.0, min_size=100, algorithm="fastmst")
+    return lambda: fastmst.segment_fastmst_flagged(image, cfg)
+
+
+def _join_calls(monkeypatch, run):
+    """run() with the join's arguments recorded, each call's."""
+    from gseg_tpu_torch.ops.kernels import pairjoin as kpj
+
+    calls, real = [], kpj.pair_join
+
+    def rec(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(kpj, "pair_join", rec)
+    out = run()
+    monkeypatch.setattr(kpj, "pair_join", real)
+    return calls, out
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_pair_join_kernel_equals_plain_at_4k(dev, monkeypatch, overflow):
+    """The join kernel on the real `boundary_pairs` input of a blobs-4k
+    frame (n = 33,177,600 slots in 254 chunks of 131,072, pair cap
+    10,368,000), and at a pair cap of half its heads (overflow): every
+    lane, masked lanes and the overflow flag, byte-equal to the plain
+    version; one launch a call."""
+    from gseg_tpu_torch.ops.kernels import pairjoin as kpj
+
+    calls, (_, flags) = _join_calls(monkeypatch, _fastmst_4k(dev))
+    assert flags == 0 and len(calls) == 1
+    args, cap = calls[0][:6], calls[0][6]
+    counts, perm = args[:2]
+    assert perm.shape == (254, 131072) and cap == 10_368_000
+    assert args[2].numel() == 254 * 131072 >= 4 * 2160 * 3840
+    total = int(counts.sum())
+    if overflow:
+        cap = total // 2
+    n0 = kpj.pair_join.launches
+    got = kpj.pair_join(*args, cap)
+    assert kpj.pair_join.launches == n0 + 1
+    want = kpj.pair_join_plain(*args, cap)
+    assert bool(want[5]) is overflow and int(want[0].sum()) == min(total, cap)
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and g.shape == x.shape and torch.equal(g, x)
+
+
+def test_pair_join_one_launch_a_call(dev):
+    """One launch a call of the dedup, on the wrapper's count and on the
+    tracing's counter."""
+    from gseg_tpu_torch.ops.kernels import pairjoin as kpj
+
+    rng = np.random.default_rng(0)
+    lo = torch.from_numpy(rng.integers(0, 50, 5000).astype(np.int32))
+    args = [x.to(dev) for x in (
+        lo, lo + 1, torch.from_numpy(rng.uniform(0, 1, 5000).astype(
+            np.float32)), torch.arange(5000, dtype=torch.int32))]
+    n0 = kpj.pair_join.launches
+    timing.take()
+    timing.enable()
+    try:
+        got = turbo._chunked_pair_extract(*args, 600, chunk=256)
+        torch.cuda.synchronize()
+    finally:
+        timing.disable()
+    assert timing.take().counters["pair_join.launches"] == 1
+    assert kpj.pair_join.launches == n0 + 1
+    want = turbo._chunked_pair_extract(*(x.cpu() for x in args), 600,
+                                       chunk=256)
+    assert all(torch.equal(g.cpu(), x) for g, x in zip(got, want))
+
+
+def test_fastmst_4k_equals_the_plain_join(dev, monkeypatch):
+    """segment_fastmst on a 4K frame: labels and flags byte-equal with the
+    join kernel and with its plain version on the card."""
+    from gseg_tpu_torch.ops.kernels import pairjoin as kpj
+
+    run = _fastmst_4k(dev)
+    n0 = kpj.pair_join.launches
+    labels, flags = run()
+    assert kpj.pair_join.launches == n0 + 1
+    monkeypatch.setattr(kpj, "pair_join", kpj.pair_join_plain)
+    plain, pflags = run()
+    assert flags == pflags == 0 and torch.equal(labels, plain)

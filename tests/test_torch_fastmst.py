@@ -122,17 +122,52 @@ def test_hierarchy_byte_equal(case, n_levels):
         assert np.array_equal(flat[-1], flat[-2])
 
 
-@pytest.mark.parametrize("n,chunk,cap", [
-    (1000, 64, 200), (1000, 64, 40),     # overflow
-    (999, 128, 900), (5000, 256, 3000)])
-def test_chunked_pair_extract_equal(n, chunk, cap):
-    rng = np.random.default_rng(n + chunk + cap)
+def _pair_slots(n, chunk, kind, rng):
+    """lo, hi, w, eid slots for the chunked dedup. kind: "random" (70%
+    live, pairs over 30 labels), "empty_chunk" (the middle chunk of three
+    dead: no heads between two chunks that have some), "all_dead" (every
+    slot dead), or any other (random, as "random")."""
     live = rng.random(n) < 0.7
+    if kind == "empty_chunk":
+        live[chunk:2 * chunk] = False
+    if kind == "all_dead":
+        live[:] = False
     a, b = rng.integers(0, 30, n), rng.integers(0, 30, n)
     lo = np.where(live, np.minimum(a, b), INT32_MAX).astype(np.int32)
     hi = np.where(live, np.maximum(a, b), INT32_MAX).astype(np.int32)
     w = rng.choice(np.array([0.5, 1.0, 2.0, np.inf], np.float32), n)
     eid = rng.permutation(n).astype(np.int32)
+    return lo, hi, w, eid
+
+
+def _chunk_pairs(lo, hi, chunk):
+    """The heads the dedup keeps: distinct live pairs counted per chunk."""
+    return sum(len({(a, b) for a, b in zip(lo[i:i + chunk], hi[i:i + chunk])
+                    if a != INT32_MAX})
+               for i in range(0, len(lo), chunk))
+
+
+# (n, chunk, cap, kind); cap None: exactly the heads kept (total == cap)
+PAIR_CASES = [
+    pytest.param(1000, 64, 200, "random", id="1000-64-200"),
+    pytest.param(1000, 64, 40, "random", id="1000-64-40"),     # overflow
+    pytest.param(999, 128, 900, "random", id="999-128-900"),
+    pytest.param(5000, 256, 3000, "random", id="5000-256-3000"),
+    pytest.param(3 * 64 - 5, 64, 200, "empty_chunk", id="empty_chunk"),
+    pytest.param(1000, 64, 200, "all_dead", id="all_dead"),
+    pytest.param(1000, 64, None, "exact_cap", id="total_eq_cap"),
+    pytest.param(1000, 64, 1, "cap_one", id="pair_cap_1"),      # overflow
+    pytest.param(8 * 128, 128, 900, "multiple", id="n_multiple_of_chunk"),
+]
+
+
+@pytest.mark.parametrize("n,chunk,cap,kind", PAIR_CASES)
+def test_chunked_pair_extract_equal(n, chunk, cap, kind):
+    rng = np.random.default_rng(n + chunk + (cap or 0))
+    lo, hi, w, eid = _pair_slots(n, chunk, kind, rng)
+    total = _chunk_pairs(lo, hi, chunk)
+    if cap is None:
+        cap = total
     want = jax.jit(rt._chunked_pair_extract, static_argnums=(4, 5))(
         *map(jnp.asarray, (lo, hi, w, eid)), cap, chunk)
     got = turbo._chunked_pair_extract(*map(torch.from_numpy,
@@ -141,7 +176,11 @@ def test_chunked_pair_extract_equal(n, chunk, cap):
     for x, y in zip(want, got):
         x = np.asarray(x)
         assert x.dtype == y.numpy().dtype and np.array_equal(x, y.numpy())
-    if bool(want[5]):  # overflow: the output is invalid
+    assert bool(want[5]) == (total > cap)
+    assert int(np.asarray(want[0]).sum()) == min(total, cap)
+    if kind == "empty_chunk":   # the dead middle chunk keeps nothing
+        assert 0 < _chunk_pairs(lo[:chunk], hi[:chunk], chunk) < total
+    if kind != "random" or bool(want[5]):  # overflow: the output is invalid
         return
     # pairs repeat across chunks: more pairs kept than distinct ones
     m = np.asarray(want[0])
