@@ -19,10 +19,20 @@ byte-equal to the reference's, not canonical min-vertex ids: use
 `utils.labels.canonical_min_labels_np` to compare partitions.
 
 Every `lax.while_loop` / `fori_loop` of the reference is a host loop that
-reads the round's `merged` flag once per round. So `segment_atomic` (the
-reference's on-device loop) and `segment_atomic_hostsync` (its host-synced
-loop, one 4-byte read per round) run the same loop here; control of the
-loop on the device is later work (ROADMAP.md, queue 1, item 4).
+reads the round's `merged` flag once per round (`utils.timing.host_read`,
+site `atomic_merged`). So `segment_atomic` (the reference's on-device
+loop) and `segment_atomic_hostsync` (its host-synced loop, one 4-byte
+read per round) run the same loop here; control of the loop on the
+device is not ported.
+
+Tracing (`utils.timing`, off by default; off, it adds no event, sync or
+read): span `gseg.atomic_graph` around the smoothing, the weight planes
+and the incident views (`prepare_graph`), span `gseg.atomic_rounds`
+around both phases, each timed on the image's device too (counters
+`device_ns.gseg.atomic_graph`, `device_ns.gseg.atomic_rounds`), and
+span `gseg.atomic_round` (mode, it) around each round, host only. The
+counters `atomic.rounds.felz` and `atomic.rounds.minsize` count the
+rounds run, the last of a phase, which merges nothing, included.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from ..ops.primitives import (
     segment_max,
     segment_sum,
 )
+from ..utils import timing
 
 
 class BoruvkaState(NamedTuple):
@@ -74,9 +85,12 @@ def _round(state: BoruvkaState, w8, eid8, shape, k, min_size,
     """One Boruvka round. mode: "felz" (predicate-gated) or "minsize"."""
     h, w = shape
     v = h * w
-    vminw, veid = _vertex_min_edge(w8, eid8, state.parent.reshape(h, w))
-    comp_minw, comp_eid = component_min_edge(state.parent, vminw, veid, v)
-    return _hook_round(state, comp_minw, comp_eid, w, k, min_size, mode)
+    with timing.span("gseg.atomic_round", mode=mode, it=state.it):
+        vminw, veid = _vertex_min_edge(w8, eid8, state.parent.reshape(h, w))
+        comp_minw, comp_eid = component_min_edge(state.parent, vminw, veid, v)
+        state = _hook_round(state, comp_minw, comp_eid, w, k, min_size, mode)
+    timing.count("atomic.rounds." + mode)
+    return state
 
 
 def _hook_round(state: BoruvkaState, comp_minw, comp_eid, w, k, min_size,
@@ -112,15 +126,24 @@ def _hook_round(state: BoruvkaState, comp_minw, comp_eid, w, k, min_size,
 
     parent_new = pointer_double(succ)[parent.to(torch.int64)]
 
+    # Only old roots carry a size and an Int into their new root; every
+    # other lane adds its 0 to its own slot, which no lane maps to and so
+    # holds 0 either way. Sent to its new root, it would serialise the
+    # scatter on the roots of large components.
     is_root = parent == arange
-    size_new = segment_sum(torch.where(is_root, size, 0), parent_new, v)
-    intdiff_new = segment_max(torch.where(is_root, intdiff, 0.0), parent_new,
+    size_new = segment_sum(torch.where(is_root, size, 0),
+                           torch.where(is_root, parent_new, arange), v)
+    intdiff_new = segment_max(torch.where(is_root, intdiff, 0.0),
+                              torch.where(is_root, parent_new, arange),
                               v, fill=0.0)
-    # used hook edges contribute their weight to the new root's Int.
-    intdiff_new = scatter_drop(intdiff_new, parent_new,
+    # used hook edges contribute their weight to the new root's Int; the
+    # other lanes' 0 changes no slot (Int >= 0), their own included.
+    intdiff_new = scatter_drop(intdiff_new,
+                               torch.where(used, parent_new, arange),
                                torch.where(used, comp_minw, 0.0), "amax")
     return BoruvkaState(parent=parent_new, size=size_new,
-                        intdiff=intdiff_new, merged=bool(used.any()),
+                        intdiff=intdiff_new,
+                        merged=timing.host_read(used.any(), "atomic_merged"),
                         it=state.it + 1)
 
 
@@ -141,11 +164,13 @@ def _run_phase(state, w8, eid8, shape, k, min_size, mode, max_iters):
 
 
 def prepare_graph(image: torch.Tensor, cfg: SegmentationConfig):
-    """Smoothing and the implicit graph's incident views (w8, eid8)."""
-    smoothed = filters.gaussian_smooth(image, cfg.sigma)
-    weights, _ = gg.edge_weight_planes(smoothed, cfg.connectivity,
-                                       cfg.quantize_weight_bits)
-    return gg.incident_views(weights)
+    """Smoothing and the implicit graph's incident views (w8, eid8): the
+    span gseg.atomic_graph, timed on the image's device too."""
+    with timing.span("gseg.atomic_graph", device=image.device):
+        smoothed = filters.gaussian_smooth(image, cfg.sigma)
+        weights, _ = gg.edge_weight_planes(smoothed, cfg.connectivity,
+                                           cfg.quantize_weight_bits)
+        return gg.incident_views(weights)
 
 
 def _as_tensor(image):
@@ -161,11 +186,13 @@ def segment_atomic_impl(image, cfg: SegmentationConfig) -> torch.Tensor:
     image = _as_tensor(image)
     h, w = image.shape[0], image.shape[1]
     w8, eid8 = prepare_graph(image, cfg)
-    state = _run_phase(_init_state(h * w, image.device), w8, eid8, (h, w),
-                       cfg.k, cfg.min_size, "felz", cfg.max_iters)
-    if cfg.min_size > 1:
-        state = _run_phase(state, w8, eid8, (h, w), cfg.k, cfg.min_size,
-                           "minsize", cfg.max_iters)
+    with timing.span("gseg.atomic_rounds", device=image.device):
+        state = _run_phase(_init_state(h * w, image.device), w8, eid8,
+                           (h, w), cfg.k, cfg.min_size, "felz",
+                           cfg.max_iters)
+        if cfg.min_size > 1:
+            state = _run_phase(state, w8, eid8, (h, w), cfg.k, cfg.min_size,
+                               "minsize", cfg.max_iters)
     return state.parent.reshape(h, w)
 
 
@@ -190,16 +217,17 @@ def segment_atomic_hierarchy(image, cfg: SegmentationConfig):
     h, w = image.shape[0], image.shape[1]
     v = h * w
     w8, eid8 = prepare_graph(image, cfg)
-    state = _init_state(v, image.device)
-    levels = torch.empty((cfg.max_iters + 1, v), dtype=torch.int32,
-                         device=image.device)
-    levels[0] = state.parent
-    for i in range(cfg.max_iters):
-        if state.merged:
-            state = _round(state, w8, eid8, (h, w), cfg.k, cfg.min_size,
-                           "felz")
-        levels[i + 1] = state.parent
-    if cfg.min_size > 1:
-        state = _run_phase(state, w8, eid8, (h, w), cfg.k, cfg.min_size,
-                           "minsize", cfg.max_iters)
+    with timing.span("gseg.atomic_rounds", device=image.device):
+        state = _init_state(v, image.device)
+        levels = torch.empty((cfg.max_iters + 1, v), dtype=torch.int32,
+                             device=image.device)
+        levels[0] = state.parent
+        for i in range(cfg.max_iters):
+            if state.merged:
+                state = _round(state, w8, eid8, (h, w), cfg.k, cfg.min_size,
+                               "felz")
+            levels[i + 1] = state.parent
+        if cfg.min_size > 1:
+            state = _run_phase(state, w8, eid8, (h, w), cfg.k, cfg.min_size,
+                               "minsize", cfg.max_iters)
     return levels.reshape(cfg.max_iters + 1, h, w), state.parent.reshape(h, w)

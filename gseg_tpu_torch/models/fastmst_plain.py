@@ -31,6 +31,13 @@ The labels are root vertex ids (each pixel holds the id of its
 component's hook-sink root), the form the port's fastmst and atomic paths
 return. It imports no module of the port and uses no kernel, capacity,
 chunked sort or recompaction: one edge list, whole, every round.
+The atomic path (`models/atomic_boruvka.py`, `segment()`'s default) is
+held to these labels byte for byte as well: on the CPU by the `atomic`
+cases of `tests/test_torch_fastmst_plain.py::
+test_fastmst_byte_equal_to_plain` and by
+`test_full_range_noise_atomic_byte_equal_to_plain`, on the card by
+`test_fastmst_byte_equal_to_plain_on_card[atomic-*]` at 270x480 and
+3840x2160.
 
 Departures from Vineet et al. and from the report's implementation:
 

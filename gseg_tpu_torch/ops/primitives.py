@@ -66,16 +66,26 @@ def component_min_edge(roots: torch.Tensor, vert_minw: torch.Tensor,
     (V,) float32 best outgoing weight per vertex (+inf if none). vert_eid:
     (V,) int32 its canonical edge id (INT32_MAX if none). Returns
     (comp_minw, comp_eid), each (num_slots,), +inf / INT32_MAX where a
-    component has no outgoing edge (and at non-root slots)."""
+    component has no outgoing edge (and at non-root slots).
+
+    A lane whose value cannot lower a slot (+inf, INT32_MAX: a vertex
+    inside its component) scatters into a slot of its own, not its
+    component's. The result is the same, but the scatters no longer
+    serialise on the roots of large components, so a round's time does
+    not follow the sizes of the image's regions."""
     dev = roots.device
+    own = torch.arange(roots.shape[0], dtype=roots.dtype, device=dev)
+    if roots.shape[0] > num_slots:
+        own = own % num_slots
     comp_minw = scatter_drop(
         torch.full((num_slots,), torch.inf, dtype=vert_minw.dtype,
-                   device=dev), roots, vert_minw, "amin")
+                   device=dev),
+        torch.where(vert_minw == torch.inf, own, roots), vert_minw, "amin")
     is_best = vert_minw == comp_minw[roots.to(torch.int64)]
     cand = torch.where(is_best, vert_eid, INT32_MAX)
     comp_eid = scatter_drop(
         torch.full((num_slots,), INT32_MAX, dtype=torch.int32, device=dev),
-        roots, cand, "amin")
+        torch.where(cand == INT32_MAX, own, roots), cand, "amin")
     return comp_minw, comp_eid
 
 

@@ -62,6 +62,24 @@ gseg.prune open inside gseg.dpp_rounds):
                     device reaching the span's first operation to its
                     finishing the last
 
+The atomic path's spans and counters (`models.atomic_boruvka`, also on
+its hierarchy):
+
+  gseg.atomic_graph the smoothing, the weight planes and the incident
+                    views, `prepare_graph`
+  gseg.atomic_rounds
+                    both phases' rounds, felz then min-size
+  gseg.atomic_round each round, `_round` (mode: felz or minsize, it),
+                    host only
+  atomic.rounds.felz, atomic.rounds.minsize
+                    the rounds run in each phase, the last one (which
+                    merges nothing) included
+  device_ns.gseg.atomic_graph, device_ns.gseg.atomic_rounds
+                    the two outer spans timed on their device
+  host_reads.atomic_merged
+                    each round's one read of its merged flag,
+                    `_hook_round` (the row-sharded atomic path's too)
+
 A span given a device is timed on it as well as on the host: a host
 span ends when its operations are queued, and on a card they run later.
 On a CUDA card two CUDA events on the device's current stream mark the

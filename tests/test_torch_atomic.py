@@ -69,6 +69,40 @@ def test_atomic_byte_equal_to_reference(case):
     assert np.array_equal(segment_boruvka_np(img, cfg), got)
 
 
+@pytest.mark.parametrize("case", [CASES[0], CASES[1]])
+def test_every_round_state_byte_equal_to_reference(case):
+    """Each round's whole state, every slot of parent, size and Int, the
+    non-root slots included, equals the reference round's: the rounds
+    scatter only the lanes that can change a slot, and leave the others'
+    slots as the reference's do."""
+    cfg = SegmentationConfig(k=case["k"], min_size=case["min_size"],
+                             connectivity=case["connectivity"],
+                             algorithm="atomic")
+    img = blobs_image(case["h"], case["w"], 5, 6.0, case["seed"])
+    shape = (case["h"], case["w"])
+    rw8, reid8 = ra.prepare_graph(jnp.asarray(img), _ref(cfg))
+    tw8, teid8 = ta.prepare_graph(torch.from_numpy(img), cfg)
+    ref = ra._init_state(shape[0] * shape[1])
+    got = ta._init_state(shape[0] * shape[1], "cpu")
+    rounds = 0
+    for mode in ("felz", "minsize"):
+        for _ in range(cfg.max_iters):
+            ref = ra._one_round_jit(ref, rw8, reid8, shape, _ref(cfg), mode)
+            got = ta._round(got, tw8, teid8, shape, cfg.k, cfg.min_size,
+                            mode)
+            rounds += 1
+            for name in ("parent", "size", "intdiff"):
+                want = np.asarray(getattr(ref, name))
+                have = getattr(got, name).numpy()
+                assert want.dtype == have.dtype
+                assert np.array_equal(want.view(np.int32),
+                                      have.view(np.int32)), (mode, name)
+            assert bool(ref.merged) == got.merged
+            if not got.merged:
+                break
+    assert rounds > 2
+
+
 def test_quantized_weights_byte_equal():
     cfg = SegmentationConfig(k=100.0, min_size=8, quantize_weight_bits=12)
     img = blobs_image(24, 32, 5, 6.0, 0)

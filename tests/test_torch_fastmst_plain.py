@@ -1,12 +1,15 @@
 """The plain PyTorch DPP reference (`models/fastmst_plain.py`) against the
-port's fastmst path, on the CPU, with frames made from a seed. No jax.
+port's fastmst and atomic paths, on the CPU, with frames made from a seed.
+No jax.
 
-- `segment(algorithm="fastmst", device="cpu")` returns root-id labels
-  byte-equal to the plain reference's on uniform-noise and blob frames
-  at 24x32, 48x64 and 96x128, k 10 and 300, min_size 1 and 20. The noise
-  takes values 0..63: on full-range noise at k 10 the first round merges
-  almost nothing, and the path's pair and recompaction capacities (as the
-  JAX package's) overflow and raise, which is pinned here too.
+- `segment(algorithm=..., device="cpu")` with algorithm fastmst and atomic
+  returns root-id labels byte-equal to the plain reference's on
+  uniform-noise and blob frames at 24x32, 48x64 and 96x128, k 10 and 300,
+  min_size 1 and 20. The noise takes values 0..63: on full-range noise at
+  k 10 the first round merges almost nothing, and the fastmst path's pair
+  and recompaction capacities (as the JAX package's) overflow and raise,
+  which is pinned here too; the atomic path, which has no capacity, gives
+  the plain reference's labels on that frame.
 - The plain reference's partition equals the NumPy oracle's
   (`boruvka_cpu.segment_boruvka_np`).
 - The control: the plain reference in bfloat16 (smoothed frame and
@@ -17,8 +20,9 @@ port's fastmst path, on the CPU, with frames made from a seed. No jax.
 - The plain reference leaves the process's TF32 settings as it found
   them.
 On the card (marker `cuda`; `python -m pytest --noconftest
-tests/test_torch_fastmst_plain.py`): the same comparison at 270x480, and
-at 3840x2160 on frames of the `blobs-4k` mix (126 blobs, noise 8).
+tests/test_torch_fastmst_plain.py`): the same comparison for both paths at
+270x480, and at 3840x2160 on frames of the `blobs-4k` mix (126 blobs,
+noise 8).
 """
 
 import ast
@@ -48,8 +52,8 @@ def _frame(content, h, w, seed, high=64):
     return blobs_image(h, w, max(3, h * w // 1536), 8.0, seed)
 
 
-def _cfg(k, min_size):
-    return SegmentationConfig(algorithm="fastmst", k=k, min_size=min_size)
+def _cfg(k, min_size, algorithm="fastmst"):
+    return SegmentationConfig(algorithm=algorithm, k=k, min_size=min_size)
 
 
 def _plain(img, cfg, **kw):
@@ -63,9 +67,10 @@ def _plain(img, cfg, **kw):
 @pytest.mark.parametrize("k", [10.0, 300.0])
 @pytest.mark.parametrize("h,w", SIZES)
 @pytest.mark.parametrize("content", CONTENTS)
-def test_fastmst_byte_equal_to_plain(content, h, w, k, min_size):
+@pytest.mark.parametrize("algorithm", ["fastmst", "atomic"])
+def test_fastmst_byte_equal_to_plain(algorithm, content, h, w, k, min_size):
     img = _frame(content, h, w, seed=h * 1000 + int(k) + min_size)
-    cfg = _cfg(k, min_size)
+    cfg = _cfg(k, min_size, algorithm)
     got = gseg_tpu_torch.segment(img, config=cfg, device="cpu")
     want = _plain(img, cfg)
     assert got.dtype == want.dtype == torch.int32
@@ -95,6 +100,15 @@ def test_full_range_noise_overflows_the_path_not_the_plain_reference():
     assert labels.shape == (48, 64)
     assert canonical_min_labels_np(labels.numpy()).tolist() == \
         canonical_min_labels_np(segment_boruvka_np(img, cfg)).tolist()
+
+
+def test_full_range_noise_atomic_byte_equal_to_plain():
+    """The frame that overflows the fastmst path: the atomic path, which
+    has no capacity, gives the plain reference's labels byte for byte."""
+    img = _frame("noise", 48, 64, seed=3, high=256)
+    cfg = _cfg(10.0, 1, "atomic")
+    got = gseg_tpu_torch.segment(img, config=cfg, device="cpu")
+    assert got.numpy().tobytes() == _plain(img, cfg).numpy().tobytes()
 
 
 def test_bfloat16_plain_reference_disagrees_with_the_port():
@@ -153,12 +167,13 @@ CARD_FRAMES = {"270x480": (270, 480, 12, 11, True),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("frame", CARD_FRAMES)
-def test_fastmst_byte_equal_to_plain_on_card(frame):
+@pytest.mark.parametrize("algorithm", ["fastmst", "atomic"])
+def test_fastmst_byte_equal_to_plain_on_card(algorithm, frame):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     h, w, blobs, seed, oracle = CARD_FRAMES[frame]
     img = blobs_image(h, w, blobs, 8.0, seed)
-    cfg = SegmentationConfig(algorithm="fastmst", k=300.0, min_size=100)
+    cfg = SegmentationConfig(algorithm=algorithm, k=300.0, min_size=100)
     got = gseg_tpu_torch.segment(img, config=cfg, device="cuda:0")
     want = _plain(torch.from_numpy(img).cuda(), cfg)
     assert want.is_cuda and torch.equal(got, want)

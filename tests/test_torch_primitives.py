@@ -58,6 +58,27 @@ def test_pointer_double_matches_reference(n, depth, max_rounds):
         assert (got[got.long()] == got).all()
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_component_min_edge_fewer_slots_than_lanes(seed):
+    """With fewer slots than lanes, the lanes that cannot lower a slot
+    (+inf, INT32_MAX) land in slots of their own modulo the slot count:
+    still the reference's result at every slot."""
+    rng = np.random.default_rng(seed)
+    v, comps, slots = 400, 37, 64
+    roots = rng.integers(0, comps, v).astype(np.int32)
+    vminw = rng.choice(np.float32([0.5, 1.0, 2.0, np.inf, np.inf]), v)
+    veid = rng.permutation(4 * v)[:v].astype(np.int32)
+    veid[~np.isfinite(vminw)] = INT32_MAX
+    rw, re = jp.component_min_edge(jnp.asarray(roots), jnp.asarray(vminw),
+                                   jnp.asarray(veid), slots)
+    tw, te = tp.component_min_edge(torch.from_numpy(roots),
+                                   torch.from_numpy(vminw),
+                                   torch.from_numpy(veid), slots)
+    _same(rw, tw)
+    _same(re, te)
+    assert np.isinf(tw.numpy()[comps:]).all()
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_component_min_edge_tie_rule(seed):
     """Phase 2 picks the smallest edge id among the vertices whose weight

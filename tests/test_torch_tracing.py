@@ -10,6 +10,11 @@ host reads) on the CPU.
   device time (`device_ns.<span>`: on the CPU the span's own), turbo's
   stage-2 rounds inside `gseg.dpp_rounds`, its reads through
   `host_read`, and labels byte-equal to an untraced frame's.
+- An atomic frame, and the atomic hierarchy, give `gseg.atomic_graph`
+  and `gseg.atomic_rounds` with their device times, one
+  `gseg.atomic_round` a round inside the rounds, the round counters
+  `atomic.rounds.felz` / `.minsize` equal to the rounds run, and one
+  `atomic_merged` read a round, traced or not.
 - The host-read counters, summed over sites, equal a count of
   `torch.Tensor` reads (the benchmark's `host_reads_per_frame` patch)
   over the same frame; the fixpoint spans' passes equal the pass
@@ -180,6 +185,79 @@ def test_span_tree_of_a_fastmst_frame(monkeypatch, size):
     assert sum(reads.values()) == seen[0] > 0
     assert sum(s.name.startswith("gseg.read.") for s in rec.spans) == \
         seen[0]
+
+
+ATOMIC_SPANS = ["gseg.atomic_graph", "gseg.atomic_rounds"]
+
+
+@pytest.mark.parametrize("entry", ["segment", "hierarchy"])
+def test_span_tree_of_an_atomic_frame(monkeypatch, entry):
+    """A traced atomic frame (and the atomic hierarchy): the graph, then
+    the rounds, each timed on its device too (on the CPU the span's own
+    time), one gseg.atomic_round a round inside gseg.atomic_rounds, the
+    round counters equal to the rounds run, one atomic_merged read a
+    round and no other read, as many reads with the tracing off, and
+    labels byte-equal to an untraced frame's."""
+    from gseg_tpu_torch.models import atomic_boruvka as ab
+
+    img = blobs_image(48, 64, 5, 8.0, 6)
+    cfg = SegmentationConfig(algorithm="atomic", k=300.0, min_size=20)
+    if entry == "segment":
+        def run():
+            return gseg_tpu_torch.segment(img, config=cfg, device="cpu")
+    else:
+        def run():
+            return gseg_tpu_torch.segment_hierarchy(img, config=cfg,
+                                                    device="cpu")[1]
+    rounds, seen = [], [0]
+    orig_round = ab._round
+
+    def counted_round(state, w8, eid8, shape, k, min_size, mode):
+        rounds.append(mode)
+        return orig_round(state, w8, eid8, shape, k, min_size, mode)
+
+    def make(fn):
+        def read(self, *args, **kwargs):
+            seen[0] += 1
+            return fn(self, *args, **kwargs)
+        return read
+
+    monkeypatch.setattr(ab, "_round", counted_round)
+    for m in READS:
+        monkeypatch.setattr(torch.Tensor, m, make(getattr(torch.Tensor, m)))
+    timing.take()
+    off = run()
+    assert timing.take() == timing.Record([], {})
+    reads_off, rounds_off = seen[0], list(rounds)
+    seen[0] = 0
+    rounds.clear()
+    timing.enable()
+    try:
+        on = run()
+    finally:
+        timing.disable()
+    rec = timing.take()
+    assert off.numpy().tobytes() == on.numpy().tobytes()
+    assert rounds == rounds_off
+    felz, minsize = rounds.count("felz"), rounds.count("minsize")
+    assert felz >= 2 and minsize >= 1 and felz + minsize == len(rounds)
+    outer = sorted((s for s in rec.spans if s.name in ATOMIC_SPANS),
+                   key=lambda s: s.start_ns)
+    assert [s.name for s in outer] == ATOMIC_SPANS
+    assert outer[0].end_ns <= outer[1].start_ns
+    each = [s for s in rec.spans if s.name == "gseg.atomic_round"]
+    assert [s.attrs["mode"] for s in each] == rounds
+    assert all(s.parent == outer[1].id for s in each)
+    assert [s.attrs["it"] for s in each if s.attrs["mode"] == "felz"] == \
+        list(range(felz))
+    c = rec.counters
+    assert {n: c["device_ns." + n] for n in ATOMIC_SPANS} == \
+        {s.name: s.end_ns - s.start_ns for s in outer}
+    assert c["atomic.rounds.felz"] == felz
+    assert c["atomic.rounds.minsize"] == minsize
+    reads = {k: v for k, v in c.items() if k.startswith("host_reads.")}
+    assert reads == {"host_reads.atomic_merged": len(rounds)}
+    assert seen[0] == reads_off == len(rounds)
 
 
 @pytest.mark.parametrize("mode", MODES)
